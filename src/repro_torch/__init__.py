@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the LIDER learned index (the JAX package ``repro``
+is the reference it is tested against).
+
+Entry points: :func:`repro_torch.core.lider.build_lider` and
+:func:`repro_torch.core.lider.search_lider`. They run on the CUDA device
+unless the caller passes ``device="cpu"``; verification goes through the
+hand-written ``fused_verify`` CUDA kernel on the card and through its plain
+PyTorch version on the CPU.
+"""

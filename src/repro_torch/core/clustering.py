@@ -1,0 +1,115 @@
+"""K-means clustering (paper Sec. 3.2 — LIDER Stage 1).
+
+Lloyd's algorithm. The assignment step is chunked over points so the
+(N, c) distance matrix never materialises: each chunk is one
+``torch.matmul`` plus an argmin, as in the JAX package (the ``kmeans_assign``
+kernel is not on that path).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class KMeansResult(NamedTuple):
+    centroids: torch.Tensor  # (c, d)
+    assignment: torch.Tensor  # (N,) int32
+
+
+def assign_chunked(
+    x: torch.Tensor, centroids: torch.Tensor, *, chunk: int = 4096
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-centroid assignment -> (assignment (N,) int32, min_dist (N,)).
+
+    Squared L2 via ``|x|^2 - 2 x.c + |c|^2`` so each chunk is one matmul;
+    ties go to the first minimum (``argmin``).
+    """
+    n = x.shape[0]
+    c_sq = torch.sum(centroids * centroids, dim=-1)
+    assign = torch.empty((n,), dtype=torch.int32, device=x.device)
+    min_d = torch.empty((n,), dtype=torch.float32, device=x.device)
+    for s in range(0, n, chunk):
+        xc = x[s : s + chunk]
+        x_sq = torch.sum(xc * xc, dim=-1, keepdim=True)
+        d2 = x_sq - 2.0 * (xc @ centroids.T) + c_sq
+        a = torch.argmin(d2, dim=-1)
+        assign[s : s + chunk] = a.to(torch.int32)
+        min_d[s : s + chunk] = torch.gather(d2, 1, a[:, None])[:, 0]
+    return assign, min_d
+
+
+def kmeans_step(
+    x: torch.Tensor, centroids: torch.Tensor, *, n_clusters: int, chunk: int = 4096
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Lloyd iteration -> (sums (c,d), counts (c,), assignment (N,))."""
+    assignment, _ = assign_chunked(x, centroids, chunk=chunk)
+    idx = assignment.to(torch.int64)
+    sums = torch.zeros((n_clusters, x.shape[1]), dtype=x.dtype, device=x.device)
+    sums.index_add_(0, idx, x)
+    counts = torch.zeros((n_clusters,), dtype=torch.float32, device=x.device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    return sums, counts, assignment
+
+
+def update_centroids(
+    centroids: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """New centroids; empty clusters keep their previous centroid."""
+    new = sums / torch.clamp(counts, min=1.0)[:, None]
+    return torch.where(counts[:, None] > 0.5, new, centroids)
+
+
+def init_centroids(
+    generator: torch.Generator, x: torch.Tensor, n_clusters: int
+) -> torch.Tensor:
+    """Seeded init from distinct corpus points."""
+    n = x.shape[0]
+    if n < n_clusters:
+        raise ValueError(
+            f"cannot draw {n_clusters} distinct centroids from {n} points; "
+            f"pass n_clusters <= {n} (or grow the corpus)"
+        )
+    idx = torch.randperm(n, generator=generator, device=generator.device)[:n_clusters]
+    return x[idx.to(x.device)]
+
+
+def group_by_cluster(
+    assignment: torch.Tensor, n_clusters: int, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack point ids into capacity-padded per-cluster slots.
+
+    Returns ``(gids (c, capacity) int32 with -1 padding, sizes (c,) int32)``;
+    points past ``capacity`` in a cluster are dropped and ``sizes`` clamped.
+    Slot order within a cluster is point order (a stable sort).
+    """
+    n = assignment.shape[0]
+    c = n_clusters
+    a = assignment.to(torch.int64)
+    sizes = torch.bincount(a, minlength=c)[:c]
+    order = torch.sort(a, stable=True).indices
+    sorted_assign = a[order]
+    starts = torch.cumsum(sizes, 0) - sizes
+    rank = torch.arange(n, device=a.device) - starts[sorted_assign]
+    keep = rank < capacity
+    flat = torch.where(keep, sorted_assign * capacity + rank, c * capacity)
+    buf = torch.full((c * capacity + 1,), -1, dtype=torch.int32, device=a.device)
+    buf[flat[keep]] = order[keep].to(torch.int32)
+    return buf[:-1].reshape(c, capacity), torch.clamp(sizes, max=capacity).to(torch.int32)
+
+
+def kmeans(
+    generator: torch.Generator,
+    x: torch.Tensor,
+    n_clusters: int,
+    *,
+    iters: int = 20,
+    chunk: int = 4096,
+) -> KMeansResult:
+    """Full Lloyd loop on one device (the offline Stage-1 builder)."""
+    centroids = init_centroids(generator, x, n_clusters)
+    for _ in range(iters):
+        sums, counts, _ = kmeans_step(x, centroids, n_clusters=n_clusters, chunk=chunk)
+        centroids = update_centroids(centroids, sums, counts)
+    _, _, assignment = kmeans_step(x, centroids, n_clusters=n_clusters, chunk=chunk)
+    return KMeansResult(centroids=centroids, assignment=assignment)

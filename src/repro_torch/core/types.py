@@ -1,0 +1,26 @@
+"""Plain dataclass helpers for the parameter containers of the port.
+
+The JAX package registers its containers as pytrees; here they are frozen
+dataclasses holding tensors, and :func:`map_tensors` is the one tree walk
+the port needs (moving an index between devices).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], obj: Any) -> Any:
+    """Apply ``fn`` to every tensor inside nested dataclasses / tuples."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        changes = {
+            f.name: map_tensors(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+        }
+        return dataclasses.replace(obj, **changes)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(fn, v) for v in obj))
+    return obj

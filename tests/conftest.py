@@ -20,3 +20,9 @@ def corpus():
     q = l2_normalize(x[:64] + 0.05 * jax.random.normal(kb, (64, 64)))
     gt = jax.lax.top_k(q @ x.T, 10)[1]
     return x, q, gt
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips with a reason where there is none"
+    )
