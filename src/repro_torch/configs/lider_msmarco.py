@@ -12,6 +12,10 @@ with two cuts:
   capacity 12,288 another 38.6 GB);
 - ``capacity=None`` (the largest cluster, no drops) replaces 12,288, which
   was sized for 8.8M passages.
+
+``QUANTIZED`` holds the device-tier quantized operating points searched on
+the same corpus: the JAX package's own values (``LiderConfig.rescore_factor``
+default 4; ``BENCH_verify.json``: ``sketch_factor`` 4, ``block_q`` 8).
 """
 import dataclasses
 
@@ -50,6 +54,34 @@ CONFIG = RetrievalConfig(
     dim=768,
     k=100,
     batch=256,
+)
+
+
+
+@dataclasses.dataclass(frozen=True)
+class OperatingPoint:
+    """A quantized device-tier search: the bank's storage and the search
+    options passed to ``search_lider``."""
+
+    name: str
+    storage_dtype: str
+    rescore_factor: int = 4
+    sketch_factor: int | None = None
+    block_q: int | None = None
+
+    def search_kwargs(self) -> dict:
+        return {
+            "rescore_factor": self.rescore_factor,
+            "sketch_factor": self.sketch_factor,
+            "block_q": self.block_q,
+        }
+
+
+QUANTIZED = (
+    OperatingPoint("Q8", "int8"),  # int8 first pass, k' = 4k, exact rescore
+    OperatingPoint("Q8-cm", "int8", block_q=8),  # the same, cluster-major
+    OperatingPoint("Q4-sk", "int4", sketch_factor=4),  # sketch -> int4 -> rescore
+    OperatingPoint("Q4-sk-cm", "int4", sketch_factor=4, block_q=8),
 )
 
 # Cuts from the reference configuration, in the order above.

@@ -1,18 +1,26 @@
-"""ClusterBank: LIDER's stacked per-cluster index state (device tier, float
-storage) and the staged build primitives.
+"""ClusterBank: LIDER's stacked per-cluster index state (device tier) and
+the staged build primitives.
 
     sorted_keys  (c, H, Lp) int64    per-cluster sorted hashkey arrays
     sorted_pos   (c, H, Lp) int32    sorted position -> cluster-local row (-1 = pad)
-    embs         (c, Lp, d)          embeddings grouped by cluster (zero at pads)
+    embs         (c, Lp, d)          rows grouped by cluster (zero at pads): float32 /
+                                     bfloat16, int8 codes, or packed int4 (width d/2)
     gids         (c, Lp)    int32    cluster-local row -> global id (-1 = free)
     sizes        (c,)       int32    live rows per cluster
     tombstones   (c,)       int32    dead rows awaiting compaction
     next_gid     ()         int32    next global passage id to assign
 
-Build: assign -> pack (capacity slots) -> hash + sort + fit for all clusters,
-batched over clusters (:func:`refit_clusters`) in chunks that bound the
-temporaries. The quantized fields (``emb_scales``, ``rescore_embs``,
-``sketches``) and the host tier (``store``) stay ``None`` in this slice.
+Quantized storage (int8 / int4) adds three tables:
+
+    emb_scales   (c, Lp)    float32  per-row symmetric scales
+    rescore_embs (c, Lp, d) float32  the raw rows, for the exact rescore
+    sketches     (c, Lp, w) int32    1-bit sign sketches, w = ceil(d/32) words
+
+Build: assign -> pack (capacity slots) -> store -> hash + sort + fit for all
+clusters, batched over clusters (:func:`refit_clusters`) in chunks that
+bound the temporaries. The fit hashes the rows as the first pass scores
+them: the dequantized codes of a quantized bank. The host rescore tier
+(``store``) stays ``None``: it is a later slice.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import dataclasses
 import torch
 
 from . import clustering, lsh as lsh_lib, rescale as rescale_lib, rmi as rmi_lib
+from ..kernels import quant
 
 STORAGE_DTYPES = ("float32", "bfloat16", "int8", "int4")
 QUANTIZED_DTYPES = ("int8", "int4")
@@ -34,7 +43,7 @@ class ClusterBank:
     rmi: rmi_lib.RMIParams  # leaves (c, H) / (c, H, W)
     sorted_keys: torch.Tensor  # (c, H, Lp) int64
     sorted_pos: torch.Tensor  # (c, H, Lp) int32
-    embs: torch.Tensor  # (c, Lp, d) float32 / bfloat16
+    embs: torch.Tensor  # (c, Lp, d) storage dtype (d//2 for int4)
     gids: torch.Tensor  # (c, Lp) int32
     sizes: torch.Tensor  # (c,) int32
     tombstones: torch.Tensor  # (c,) int32
@@ -55,6 +64,9 @@ class ClusterBank:
 
     @property
     def dim(self) -> int:
+        """Embedding width d, not the stored width (packed int4 holds d//2)."""
+        if self.quantized and self.code_dtype == "int4":
+            return self.embs.shape[-1] * 2
         return self.embs.shape[-1]
 
     @property
@@ -70,6 +82,13 @@ class ClusterBank:
     @property
     def rescore_tier(self) -> str:
         return "host" if self.store is not None else "device"
+
+    def float_rows(self) -> torch.Tensor:
+        """(c, Lp, d) rows as the first pass scores them: dequantized codes
+        for quantized storage, the stored rows otherwise."""
+        if self.quantized:
+            return quant.dequantize_codes(self.embs, self.emb_scales, self.code_dtype)
+        return self.embs
 
 
 def fit_sorted_array(
@@ -128,13 +147,20 @@ def _cat_rmi(parts):
 _FIT_CHUNK = 64
 
 
-def _fit_all_clusters(lsh, row_embs, row_valid, *, n_leaves):
+def _fit_all_clusters(lsh, rows, row_valid, *, n_leaves, scales=None, code_dtype="int8"):
     """:func:`refit_clusters` over every cluster, ``_FIT_CHUNK`` clusters at
-    a time, so the (chunk, Lp, H*M) projection is the largest temporary."""
+    a time, so the (chunk, Lp, H*M) projection is the largest temporary.
+    With ``scales``, ``rows`` are codes, dequantized one chunk at a time."""
     c = _FIT_CHUNK
+
+    def fit_rows(s):
+        if scales is None:
+            return rows[s : s + c]
+        return quant.dequantize_codes(rows[s : s + c], scales[s : s + c], code_dtype)
+
     outs = [
-        refit_clusters(lsh, row_embs[s : s + c], row_valid[s : s + c], n_leaves=n_leaves)
-        for s in range(0, row_embs.shape[0], c)
+        refit_clusters(lsh, fit_rows(s), row_valid[s : s + c], n_leaves=n_leaves)
+        for s in range(0, rows.shape[0], c)
     ]
     return (
         torch.cat([o[0] for o in outs]),
@@ -151,12 +177,26 @@ def gather_cluster_rows(embs: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
     return rows
 
 
+def _by_chunks(fn, x: torch.Tensor, chunk: int = _FIT_CHUNK):
+    """A row-local ``fn`` over ``x`` in chunks of its leading axis, so its
+    float temporaries stay a chunk in size; outputs concatenate."""
+    parts = [fn(x[s : s + chunk]) for s in range(0, x.shape[0], chunk)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
 def store_rows(raw_rows: torch.Tensor, storage_dtype: str):
-    """Raw packed float rows -> ``(embs, emb_scales, rescore_embs, sketches)``."""
+    """Raw packed float rows -> ``(embs, emb_scales, rescore_embs, sketches)``.
+
+    For int8 / int4 the raw rows are also kept as the float32 rescore table
+    and sign-sketched; zero (padded) rows quantize to zero codes with scale
+    1.0 and sketch to zero words.
+    """
     if storage_dtype in QUANTIZED_DTYPES:
-        raise NotImplementedError(
-            f"storage_dtype={storage_dtype!r}: the quantized bank is the next port slice"
-        )
+        qfn = quant.quantize_rows if storage_dtype == "int8" else quant.quantize_rows_int4
+        codes, scales = _by_chunks(qfn, raw_rows)
+        return codes, scales, raw_rows, _by_chunks(quant.sketch_rows, raw_rows)
     if storage_dtype not in _FLOAT_STORAGE:
         raise ValueError(
             f"storage_dtype must be one of {STORAGE_DTYPES}, got {storage_dtype!r}"
@@ -207,8 +247,9 @@ def build_bank(
         gather_cluster_rows(embs, gids), storage_dtype
     )
     lsh = lsh_lib.make_lsh(generator, embs.shape[-1], n_arrays, key_len)
+    code_dtype = storage_dtype if storage_dtype in QUANTIZED_DTYPES else "int8"
     sorted_keys, sorted_pos, resc, r = _fit_all_clusters(
-        lsh, stored, gids >= 0, n_leaves=n_leaves
+        lsh, stored, gids >= 0, n_leaves=n_leaves, scales=emb_scales, code_dtype=code_dtype
     )
     bank = ClusterBank(
         lsh=lsh, rescale=resc, rmi=r, sorted_keys=sorted_keys,
@@ -216,5 +257,6 @@ def build_bank(
         tombstones=torch.zeros((n_clusters,), dtype=torch.int32, device=embs.device),
         next_gid=torch.tensor(embs.shape[0], dtype=torch.int32, device=embs.device),
         emb_scales=emb_scales, rescore_embs=rescore_embs, sketches=sketches,
+        code_dtype=code_dtype,
     )
     return bank, n_dropped

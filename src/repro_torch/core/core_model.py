@@ -7,7 +7,7 @@ sorted hashkey arrays and one RMI per array; search is::
           -> gather candidate rows -> exact scores -> dedup top-k
 
 The last three steps are one call of ``verify_topk_op`` (the ``fused_verify``
-kernel on the card).
+kernel on the card); two on an int8 table (first pass, exact rescore).
 """
 from __future__ import annotations
 
@@ -112,9 +112,26 @@ def search_core_model(
     k: int,
     r0: int = 4,
     refine: bool = False,
+    scales: torch.Tensor | None = None,
+    rescore_embs: torch.Tensor | None = None,
+    rescore_factor: int = 4,
 ) -> TopK:
-    """Full paper search path on a single core model (float tables)."""
+    """Full paper search path on a single core model.
+
+    With ``scales`` set, ``embs`` is an int8 code table: the first pass
+    scores in the integer domain and its provisional top-``rescore_factor
+    * k`` is rescored exactly from ``rescore_embs`` (the float table).
+    """
     positions = predict_positions(cm, queries, refine=refine)
     cand_ids = candidate_windows(cm, positions, width=r0 * k)
+    if scales is not None:
+        if rescore_embs is None:
+            raise ValueError("quantized search needs rescore_embs")
+        kp = min(max(rescore_factor, 1) * k, cand_ids.shape[-1])
+        prov, _ = verify_topk_op(embs, cand_ids, queries, k=kp, scales=scales)
+        ids, sc = verify_topk_op(
+            rescore_embs, torch.clamp(prov, min=0), queries, k=k, out_ids=prov
+        )
+        return TopK(ids=ids, scores=sc)
     ids, sc = verify_topk_op(embs, cand_ids, queries, k=k)
     return TopK(ids=ids, scores=sc)

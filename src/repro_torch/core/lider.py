@@ -6,29 +6,37 @@ routes each query to ``n_probe`` clusters. Layer 2: the
 stacked into dense padded tensors, so a (query x probed-cluster) batch is
 gathers plus one verification call.
 
-Both verification calls of a search — the centroid table in routing and
-the float bank in layer 2 — go through ``verify_topk_op``: the
-``fused_verify`` CUDA kernel on the card, its plain version on the CPU.
+Every verification of a search goes through ``kernels.ops``: the CUDA
+kernels on the card, their plain versions on the CPU.
 
-This slice covers the float32/bfloat16 device-tier bank. ``search_lider``
-raises ``NotImplementedError`` for what later slices bring: the quantized
-bank (int8/int4 two-stage search), the sketch pre-filter, the host rescore
-tier and the cluster-major ``block_q`` schedule.
+- Float32 / bfloat16 bank: routing, then one ``fused_verify`` pass.
+- int8 / int4 bank (device tier): a first pass over the codes keeps the
+  provisional top-``k' = rescore_factor * k`` rows, then ``fused_verify``
+  rescores them exactly from the float32 table. ``sketch_factor`` puts the
+  1-bit ``sketch_prefilter`` pass ahead of the code pass; ``block_q``
+  runs the code pass cluster-major (``fused_verify_grouped``) on a host
+  schedule. Both spellings give the same ids and scores, bit for bit.
+
+The host rescore tier is a later slice: ``search_lider`` and
+``build_lider`` raise ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from . import bank as bank_lib
 from . import clustering, lsh as lsh_lib, rescale as rescale_lib, rmi as rmi_lib
 from ..device import resolve_device
-from ..kernels.ops import verify_topk_op
+from ..kernels.ops import sketch_topk_op, verify_topk_grouped_op, verify_topk_op
+from ..kernels.schedule import _pad_pow2, build_cluster_schedule
 from .bank import ClusterBank
 from .core_model import CoreModelParams, TopK, build_core_model, search_core_model
 from .types import map_tensors
+from .utils import dedup_topk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +58,17 @@ class LiderConfig:
     capacity: int | None = None  # Lp cap; None -> max cluster size (no drops)
     pad_multiple: int = 8
     refine: bool = False  # beyond-paper last-mile searchsorted correction
-    storage_dtype: str = "float32"  # float32 / bfloat16 in this slice
+    # "float32", "bfloat16", "int8" or "int4"; the quantized dtypes add an
+    # exact rescore of the provisional top-(rescore_factor * k).
+    storage_dtype: str = "float32"
+    rescore_factor: int = 4  # k' = rescore_factor * k (quantized storage only)
     rescore_tier: str = "device"  # the host tier is a later slice
+    # Cluster-major first pass (quantized banks only): queries probing the
+    # same cluster share one read of its rows, block_q at a time.
+    block_q: int | None = None
+    # 1-bit sketch pre-filter (quantized banks only): keeps the top
+    # sketch_factor * k' rows by Hamming distance ahead of the code pass.
+    sketch_factor: int | None = None
     prune_margin: float | None = None
     allow_drops: bool = False
 
@@ -141,11 +158,6 @@ def build_lider(
     embs = torch.as_tensor(embs, dtype=torch.float32, device=device)
     if centroids is not None:
         centroids = torch.as_tensor(centroids, dtype=torch.float32, device=device)
-    if config.storage_dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError(
-            f"storage_dtype={config.storage_dtype!r}: the quantized bank is "
-            "the next port slice"
-        )
     n, _ = embs.shape
     c = config.n_clusters
 
@@ -263,6 +275,64 @@ def _bank_candidates(
     return flat_emb.to(torch.int32), gids.to(torch.int32)
 
 
+def _provisional_topk(
+    bank: ClusterBank,
+    flat_rows: torch.Tensor,
+    out_rows: torch.Tensor,
+    queries: torch.Tensor,
+    *,
+    kp: int,
+    sketch_factor: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first pass over a quantized bank: ``(Bq, C)`` flat rows, deduped
+    and reported by flat row (``out_rows``, -1 where invalid) -> the
+    provisional top-``kp`` ``(rows, code-domain scores)``.
+
+    With ``sketch_factor`` the 1-bit pass keeps the top ``sketch_factor *
+    kp`` rows first, and only those reach the code pass. A factor that
+    covers every distinct candidate changes nothing, bit for bit.
+    """
+    c, lp = bank.gids.shape
+    if sketch_factor is not None and bank.sketches is not None:
+        m = min(max(sketch_factor, 1) * kp, out_rows.shape[-1])
+        surv, _ = sketch_topk_op(
+            bank.sketches.reshape(c * lp, -1), flat_rows, queries, k=m, out_ids=out_rows
+        )
+        flat_rows = torch.clamp(surv, min=0)
+        out_rows = surv
+    return verify_topk_op(
+        bank.embs.reshape(c * lp, -1),
+        flat_rows,
+        queries,
+        k=kp,
+        out_ids=out_rows,
+        scales=bank.emb_scales.reshape(-1),
+        code_dtype=bank.code_dtype,
+    )
+
+
+def _rescore_provisional(
+    gids: torch.Tensor,
+    rescore_embs: torch.Tensor,
+    prov_rows: torch.Tensor,
+    queries: torch.Tensor,
+    *,
+    k: int,
+) -> TopK:
+    """Exact rescore of a provisional top-k' (flat rows, -1 padding) from
+    the float32 table, deduped by flat row; rows map to global ids."""
+    rows, scores = verify_topk_op(
+        rescore_embs.reshape(-1, rescore_embs.shape[-1]),
+        torch.clamp(prov_rows, min=0),
+        queries,
+        k=k,
+        out_ids=prov_rows,
+    )
+    flat_gids = gids.reshape(-1)
+    ids = torch.where(rows >= 0, flat_gids[torch.clamp(rows, min=0).to(torch.int64)], -1)
+    return TopK(ids=ids.to(torch.int32), scores=scores)
+
+
 def _verify_bank_rows(
     bank: ClusterBank,
     flat_rows: torch.Tensor,
@@ -270,18 +340,30 @@ def _verify_bank_rows(
     queries: torch.Tensor,
     *,
     k: int,
+    rescore_factor: int = 4,
+    sketch_factor: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Verify ``(Bq, C)`` flat bank rows -> gid-space top-k ids + scores:
-    one ``verify_topk_op`` over the flat ``(c*Lp, d)`` table, deduped by
-    global id."""
-    if bank.quantized:
-        raise NotImplementedError(
-            "two-stage verification of a quantized bank is the next port slice"
-        )
+    """Verify ``(Bq, C)`` flat bank rows -> gid-space top-k ids + scores.
+
+    A float bank: one ``verify_topk_op`` over the flat ``(c*Lp, d)`` table,
+    deduped by global id. A quantized bank: the first pass
+    (:func:`_provisional_topk`, deduped by flat row) keeps the top
+    ``k' = rescore_factor * k``, then the exact rescore. Score ties between
+    distinct passages break by the smallest flat row on the quantized path
+    (by the smallest gid on the float path), as in the JAX package.
+    """
     c, lp = bank.gids.shape
-    return verify_topk_op(
-        bank.embs.reshape(c * lp, -1), flat_rows, queries, k=k, out_ids=out_gids
+    if not bank.quantized:
+        return verify_topk_op(
+            bank.embs.reshape(c * lp, -1), flat_rows, queries, k=k, out_ids=out_gids
+        )
+    out_rows = torch.where(out_gids >= 0, flat_rows, -1)
+    kp = min(max(rescore_factor, 1) * k, out_rows.shape[-1])
+    prov_rows, _ = _provisional_topk(
+        bank, flat_rows, out_rows, queries, kp=kp, sketch_factor=sketch_factor
     )
+    out = _rescore_provisional(bank.gids, bank.rescore_embs, prov_rows, queries, k=k)
+    return out.ids, out.scores
 
 
 def incluster_search(
@@ -295,6 +377,8 @@ def incluster_search(
     merge: bool = True,
     cid_scores: torch.Tensor | None = None,
     prune_margin: float | None = None,
+    rescore_factor: int = 4,
+    sketch_factor: int | None = None,
 ) -> TopK:
     """Layer 2: search the probed clusters for each query.
 
@@ -308,14 +392,15 @@ def incluster_search(
     bank = params.bank
     b, p = cids.shape
     flat_emb, gids = _bank_candidates(bank, queries, cids, k=k, r0=r0, refine=refine)
+    kw = dict(k=k, rescore_factor=rescore_factor, sketch_factor=sketch_factor)
     if merge:
         ids, sc = _verify_bank_rows(
-            bank, flat_emb.reshape(b, -1), gids.reshape(b, -1), queries, k=k
+            bank, flat_emb.reshape(b, -1), gids.reshape(b, -1), queries, **kw
         )
         return TopK(ids=ids, scores=sc)
     pair_q = queries[:, None, :].expand(b, p, queries.shape[-1]).reshape(b * p, -1)
     ids, sc = _verify_bank_rows(
-        bank, flat_emb.reshape(b * p, -1), gids.reshape(b * p, -1), pair_q, k=k
+        bank, flat_emb.reshape(b * p, -1), gids.reshape(b * p, -1), pair_q, **kw
     )
     return TopK(ids=ids.reshape(b, p, k), scores=sc.reshape(b, p, k))
 
@@ -331,14 +416,211 @@ def _search_lider_device(
     refine: bool = False,
     prune_margin: float | None = None,
     with_stats: bool = False,
+    rescore_factor: int = 4,
+    sketch_factor: int | None = None,
 ) -> TopK | tuple[TopK, torch.Tensor]:
-    """Search of a device-tier float bank: routing, then layer 2."""
+    """Search of a device-tier bank with the per-query schedule."""
+    cids, pruned = _route_pruned(
+        params, queries, n_probe=n_probe, r0_centroid=r0_centroid, prune_margin=prune_margin
+    )
+    out = incluster_search(
+        params, queries, cids, k=k, r0=r0, refine=refine,
+        rescore_factor=rescore_factor, sketch_factor=sketch_factor,
+    )
+    return (out, pruned) if with_stats else out
+
+
+# ---------------------------------------------------------------------------
+# Cluster-major multi-query search
+# ---------------------------------------------------------------------------
+
+
+def _route_pruned(
+    params: LiderParams,
+    queries: torch.Tensor,
+    *,
+    n_probe: int,
+    r0_centroid: int = 4,
+    prune_margin: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer-1 routing + margin prune -> ``(cids (B, P), pruned (B, P))``,
+    the mask of probes that were routed but pruned."""
     routed = route_queries(params, queries, n_probe=n_probe, r0=r0_centroid)
     cids = prune_probes(routed.ids, routed.scores, prune_margin)
-    out = incluster_search(params, queries, cids, k=k, r0=r0, refine=refine)
-    if with_stats:
-        return out, (routed.ids >= 0) & (cids < 0)
-    return out
+    return cids, (routed.ids >= 0) & (cids < 0)
+
+
+def _scatter_slot_ids(tgt: torch.Tensor, src: torch.Tensor, size: int) -> torch.Tensor:
+    """``size`` int32 slots of -1 with ``src`` written at ``tgt``; targets
+    equal to ``size`` (out of range) land in one spare slot that is cut off,
+    as JAX's ``.at[tgt].set(mode="drop")`` drops them."""
+    flat = torch.full((size + 1,), -1, dtype=torch.int32, device=src.device)
+    flat[tgt.reshape(-1)] = src.reshape(-1).to(torch.int32)
+    return flat[:size]
+
+
+def _cluster_major_first_pass(
+    params: LiderParams,
+    queries: torch.Tensor,
+    cids: torch.Tensor,
+    sched_cids: torch.Tensor,
+    sched_qids: torch.Tensor,
+    pair_step: torch.Tensor,
+    pair_slot: torch.Tensor,
+    *,
+    k: int,
+    r0: int = 4,
+    refine: bool = False,
+    rescore_factor: int = 4,
+    block_q: int = 8,
+    sketch_factor: int | None = None,
+) -> TopK:
+    """The first pass on the cluster-major schedule -> the provisional
+    top-k' (flat rows, code-domain scores), bit-identical to the per-query
+    first pass.
+
+    The (B, P, H, R) candidate windows of ``_bank_candidates`` are
+    scattered into the dense per-(step, slot) masks over the step
+    cluster's Lp rows (``step_slot_ids``; duplicates collapse), the grouped
+    kernel keeps each pair's per-cluster top-k', and a dedup merge of each
+    query's pairs gives its provisional top-k'. Every global top-k' winner
+    from a cluster is inside its pair's per-cluster top-k', and flat rows
+    are unique across clusters, so the merge equals the per-query pass.
+    """
+    bank = params.bank
+    b, p = cids.shape
+    c, lp = bank.gids.shape
+    flat_emb, gids = _bank_candidates(bank, queries, cids, k=k, r0=r0, refine=refine)
+    flat_emb = flat_emb.to(torch.int64)
+    out_rows = torch.where(gids >= 0, flat_emb, -1)  # (B, P, H, R)
+    s_steps = sched_cids.shape[0]
+    n_cand = p * flat_emb.shape[2] * flat_emb.shape[3]
+    kp = min(max(rescore_factor, 1) * k, n_cand)
+    size = s_steps * block_q * lp
+
+    if sketch_factor is not None and bank.sketches is not None:
+        # The per-query Hamming pass over the same merged candidate list as
+        # the per-query path selects the same survivors; each survivor maps
+        # to its (query, probe) pair by its cluster (probe lists hold
+        # distinct clusters), and from there to the pair's (step, slot).
+        m = min(max(sketch_factor, 1) * kp, n_cand)
+        surv, _ = sketch_topk_op(
+            bank.sketches.reshape(c * lp, -1), flat_emb.reshape(b, -1), queries,
+            k=m, out_ids=out_rows.reshape(b, -1),
+        )
+        surv = surv.to(torch.int64)
+        surv_cid = torch.div(surv, lp, rounding_mode="floor")  # (B, m)
+        match = (cids[:, None, :].to(torch.int64) == surv_cid[:, :, None]) & (
+            surv[:, :, None] >= 0
+        )  # (B, m, P)
+        has = match.any(dim=-1)
+        pidx = torch.argmax(match.to(torch.uint8), dim=-1)  # the first match
+        brow = torch.arange(b, device=surv.device)[:, None]
+        st_s = torch.where(has, pair_step[brow, pidx].to(torch.int64), -1)
+        sl_s = torch.clamp(pair_slot[brow, pidx].to(torch.int64), min=0)
+        valid_s = has & (st_s >= 0)
+        tgt = torch.where(valid_s, (st_s * block_q + sl_s) * lp + surv % lp, size)
+        src = surv
+    else:
+        st = pair_step.to(torch.int64)[:, :, None, None]
+        sl = pair_slot.to(torch.int64)[:, :, None, None]
+        valid = (out_rows >= 0) & (st >= 0)
+        tgt = torch.where(valid, (st * block_q + sl) * lp + flat_emb % lp, size)
+        src = out_rows
+    step_slot_ids = _scatter_slot_ids(tgt, src, size).reshape(s_steps, block_q, lp)
+
+    kp_pair = min(kp, lp)  # a pair has at most Lp distinct rows
+    ids_g, sc_g = verify_topk_grouped_op(
+        bank.embs, bank.emb_scales, queries, sched_cids, sched_qids, step_slot_ids,
+        kp=kp_pair, code_dtype=bank.code_dtype,
+    )
+
+    # Gather each query's pairs' per-cluster top-k' and merge; dead pairs
+    # (pruned probes) contribute (-1, -inf).
+    safe_st = torch.clamp(pair_step.to(torch.int64), min=0)
+    safe_sl = torch.clamp(pair_slot.to(torch.int64), min=0)
+    dead = (pair_step < 0)[..., None]
+    pids = torch.where(dead, -1, ids_g[safe_st, safe_sl])  # (B, P, kp_pair)
+    psc = torch.where(dead, float("-inf"), sc_g[safe_st, safe_sl])
+    prov_rows, prov_sc = dedup_topk(pids.reshape(b, -1), psc.reshape(b, -1), kp)
+    return TopK(ids=prov_rows, scores=prov_sc)
+
+
+def host_first_pass_cluster_major(
+    params: LiderParams,
+    queries: torch.Tensor,
+    *,
+    k: int,
+    n_probe: int = 20,
+    r0: int = 4,
+    r0_centroid: int = 4,
+    refine: bool = False,
+    prune_margin: float | None = None,
+    rescore_factor: int = 4,
+    block_q: int = 8,
+    sketch_factor: int | None = None,
+    stats_out: dict | None = None,
+) -> tuple[TopK, torch.Tensor]:
+    """Route, build the schedule on the host, then the cluster-major first
+    pass -> ``(provisional top-k', pruned (B, P))``.
+
+    ``stats_out``, when given, receives the schedule's ``n_pairs``,
+    ``n_steps`` and the per-cluster pair counts, and the schedule is then
+    padded to the fixed worst case ``_pad_pow2(B * n_probe)`` steps, so
+    every batch of one (B, block_q) has one kernel shape (padding steps are
+    empty; results are unchanged).
+    """
+    cids, pruned = _route_pruned(
+        params, queries, n_probe=n_probe, r0_centroid=r0_centroid, prune_margin=prune_margin
+    )
+    pad_to = None if stats_out is None else _pad_pow2(queries.shape[0] * n_probe)
+    cids_np = cids.cpu().numpy()
+    sched = build_cluster_schedule(cids_np, block_q=block_q, pad_to=pad_to)
+    if stats_out is not None:
+        stats_out["n_pairs"] = sched.n_pairs
+        stats_out["n_steps"] = sched.n_steps
+        stats_out["cluster_counts"] = np.unique(cids_np[cids_np >= 0], return_counts=True)[1]
+    dev = queries.device
+    prov = _cluster_major_first_pass(
+        params, queries, cids,
+        *(torch.from_numpy(a).to(dev) for a in (
+            sched.sched_cids, sched.sched_qids, sched.pair_step, sched.pair_slot
+        )),
+        k=k, r0=r0, refine=refine, rescore_factor=rescore_factor,
+        block_q=block_q, sketch_factor=sketch_factor,
+    )
+    return prov, pruned
+
+
+def _search_lider_cluster_major(
+    params: LiderParams,
+    queries: torch.Tensor,
+    *,
+    k: int,
+    n_probe: int,
+    r0: int,
+    r0_centroid: int,
+    refine: bool,
+    prune_margin: float | None,
+    with_stats: bool,
+    rescore_factor: int,
+    block_q: int,
+    sketch_factor: int | None = None,
+) -> TopK | tuple[TopK, torch.Tensor]:
+    """Route -> host schedule -> grouped first pass -> exact rescore."""
+    bank = params.bank
+    if not bank.quantized:
+        raise ValueError(
+            "block_q (cluster-major schedule) requires a quantized (int8/int4) "
+            "bank; use the per-query schedule (block_q=None) for float banks"
+        )
+    prov, pruned = host_first_pass_cluster_major(
+        params, queries, k=k, n_probe=n_probe, r0=r0, r0_centroid=r0_centroid,
+        refine=refine, prune_margin=prune_margin, rescore_factor=rescore_factor,
+        block_q=block_q, sketch_factor=sketch_factor,
+    )
+    out = _rescore_provisional(bank.gids, bank.rescore_embs, prov.ids, queries, k=k)
+    return (out, pruned) if with_stats else out
 
 
 def search_lider(
@@ -352,6 +634,7 @@ def search_lider(
     refine: bool = False,
     prune_margin: float | None = None,
     with_stats: bool = False,
+    rescore_factor: int = 4,
     block_q: int | None = None,
     sketch_factor: int | None = None,
 ) -> TopK | tuple[TopK, torch.Tensor]:
@@ -360,21 +643,23 @@ def search_lider(
     ``queries`` (B, d) move to the device the index lives on. With
     ``with_stats=True`` also returns the (B, n_probe) mask of probes that
     were routed but pruned by ``prune_margin``.
+
+    On a quantized bank the first pass scores codes and the provisional
+    top-``rescore_factor * k`` is rescored exactly. ``sketch_factor`` adds
+    the 1-bit pre-filter (a no-op on a float bank, which has no sketches);
+    ``block_q`` switches the first pass to the cluster-major schedule
+    (quantized banks only: ``ValueError`` on a float bank). Both give the
+    same ids and scores as the plain quantized search, bit for bit, when
+    the sketch factor covers every candidate; ``block_q`` always does.
     """
-    if block_q is not None:
-        raise NotImplementedError(
-            "block_q (the cluster-major schedule) is a later port slice"
-        )
-    if sketch_factor is not None:
-        raise NotImplementedError("sketch_factor (the sketch tier) is a later port slice")
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=params.device)
+    kw = dict(
+        k=k, n_probe=n_probe, r0=r0, r0_centroid=r0_centroid, refine=refine,
+        prune_margin=prune_margin, with_stats=with_stats,
+        rescore_factor=rescore_factor, sketch_factor=sketch_factor,
+    )
     if params.bank.rescore_tier == "host":
         raise NotImplementedError("the host rescore tier is a later port slice")
-    if params.bank.quantized:
-        raise NotImplementedError(
-            "searching a quantized (int8/int4) bank is the next port slice"
-        )
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=params.device)
-    return _search_lider_device(
-        params, queries, k=k, n_probe=n_probe, r0=r0, r0_centroid=r0_centroid,
-        refine=refine, prune_margin=prune_margin, with_stats=with_stats,
-    )
+    if block_q is not None:
+        return _search_lider_cluster_major(params, queries, block_q=block_q, **kw)
+    return _search_lider_device(params, queries, **kw)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on first
 use, into ``build/kernels/lib<name>-<hash>.so`` under the repository root
-(listed in ``.gitignore``). The hash is of the source text, so an edited
-source builds anew and a stale library is never loaded. Nothing here runs
-at import time.
+(listed in ``.gitignore``). The hash is of the source text and of the
+shared headers (``csrc/*.cuh``), so an edited source or header builds anew
+and a stale library is never loaded. :func:`build_all` starts one ``nvcc``
+per source at once. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -26,6 +27,11 @@ NVCC_FLAGS = (
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+def sources() -> list[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -38,36 +44,63 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-
-    The library is written under a temporary name and renamed into place,
-    so concurrent builders never load a half-written file.
-    """
+def _start(name: str):
+    """Start ``nvcc`` on ``csrc/<name>.cu`` into a temporary file, unless
+    the library is built; returns ``(out, tmp, process)`` or None."""
     out = library_path(name)
     if out.exists():
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-", suffix=".so")
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, job) -> None:
+    """Wait for one build; the library is renamed into place, so concurrent
+    builds never load a half-written file."""
+    out, tmp, proc = job
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stderr}"
-            )
+            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{err}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    job = _start(name)
+    if job is not None:
+        _finish(name, job)
+    return library_path(name)
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile every source (or ``names``), one ``nvcc`` each, all at once."""
+    names = sources() if names is None else names
+    jobs = {n: _start(n) for n in names}
+    errors = []
+    for n, job in jobs.items():
+        if job is None:
+            continue
+        try:
+            _finish(n, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: library_path(n) for n in names}
 
 
 def load_library(name: str) -> ctypes.CDLL:

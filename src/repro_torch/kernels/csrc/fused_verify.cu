@@ -2,51 +2,70 @@
 // and keep a deduplicated top-k, in one pass per query row.
 //
 // Replaces the TPU kernel repro/kernels/fused_verify.py::fused_verify
-// (_fused_verify_kernel), float32 and bfloat16 table branches. The int8 and
-// packed-int4 branches are not compiled here.
+// (_fused_verify_kernel): its float32, bfloat16, int8 and packed-int4
+// table branches.
 //
 // Contract, for each query row b:
 //   * gather rows row_ids[b, :] of the (N, d) table (ids clamped to [0, N));
-//   * score q . row with float32 accumulation (a bfloat16 table scores
-//     against the query rounded to bfloat16 first);
+//   * score q . row:
+//       - float32 / bfloat16 tables: float32 accumulation (a bfloat16 table
+//         scores against the query rounded to bfloat16 first);
+//       - int8 codes: the int8 query codes (quantized by the wrapper, as the
+//         JAX wrapper does) times the row codes, summed exactly in int32 with
+//         __dp4a, then float(sum) * (row_scale[row] * q_scale[b]), two
+//         float32 multiplies in that order, so scores are bit-identical to
+//         the plain version;
+//       - packed int4 codes (width d/2): the same, with each byte's two
+//         nibbles unpacked in registers (per-byte __vsub4 sign extension);
+//         the query codes are laid out in shared memory to match the
+//         unpacked order, and the int32 sum is exact in any order;
 //   * candidates with out_ids < 0 score -inf and are never loaded;
 //   * keep the top-k deduplicated by out_ids: scores descending, ties to the
 //     smallest id, (-1, -inf) past the number of unique valid ids;
 //   * a tile whose candidates are all invalid is skipped: no loads, no merge.
 //
-// What bounds it on an H100: bytes. Each candidate costs 2*d flops against
-// d*4 (f32) or d*2 (bf16) bytes of row, far below the card's
-// flops-per-byte balance, so the floor is reading each distinct candidate
-// row once plus the (B, C) id arrays. The design for that floor:
-//   * 16-byte vector loads (float4 / 8 x bf16) through the read-only path,
-//     one warp per row, U rows in flight per warp to hide latency;
+// What bounds it on an H100: bytes. Each candidate costs 2*d operations
+// against d*4 (f32), d*2 (bf16), d (int8) or d/2 (int4) bytes of row, far
+// below the card's operations-per-byte balance, so the floor is reading each
+// distinct candidate row (and its scale) once plus the (B, C) id arrays.
+// The design for that floor:
+//   * 16-byte vector loads through the read-only path, one warp per row,
+//     U rows in flight per warp to hide latency;
+//   * the row scale is read by id inside the kernel, so the (B, C) combined
+//     scale array the JAX wrapper builds is never written;
 //   * invalid candidates and rows whose score falls below the current k-th
-//     score never enter the merge, so after warm-up most tiles cost only
-//     their loads;
+//     score never enter the merge (topk.cuh), so after warm-up most tiles
+//     cost only their loads;
 //   * offsets into the table are 64-bit: a 1M x 768 table has element
 //     offsets past 2^31.
 // Duplicate ids are still loaded once per occurrence (the L2 cache absorbs
 // most of the repeats); loading each distinct row once is later work.
-//
-// Merge: the accumulator (k entries, sorted) and a tile of T = S - k scored
-// candidates share one shared-memory buffer of S = 2^m entries. A bitonic
-// sort on (score desc, id asc) puts duplicates of one id next to each other
-// (they are the same row, so their scores are bit-identical), and a
-// ballot/popc compaction keeps the first k distinct ids.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using topk::kThreads;
+using topk::kWarps;
 constexpr int kRowsPerWarp = 4;  // rows in flight per warp
-constexpr int kIdSentinel = 0x7fffffff;  // invalid entries sort last
 
-__device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
+enum Mode { kF32 = 0, kBF16 = 1, kInt8 = 2, kInt4 = 3 };
+
+template <int MODE>
+struct Traits {
+  using Acc = float;
+  static constexpr int kBytes = MODE == kF32 ? 4 : 2;  // bytes per stored element
+};
+template <>
+struct Traits<kInt8> {
+  using Acc = int;
+  static constexpr int kBytes = 1;
+};
+template <>
+struct Traits<kInt4> {
+  using Acc = int;
+  static constexpr int kBytes = 1;  // two nibbles per stored byte
+};
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
@@ -55,25 +74,77 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// Dot product of one 16-byte chunk of a row with the matching query slice.
-template <bool BF16>
-__device__ __forceinline__ float dot16(const void* row, int v, const float* q);
+// The four signed low (lo4) or high (hi4) nibbles of a word as int8 lanes.
+__device__ __forceinline__ int lo4(int w) {
+  return static_cast<int>(__vsub4((static_cast<unsigned>(w) & 0x0f0f0f0fu) ^ 0x08080808u,
+                                  0x08080808u));
+}
+__device__ __forceinline__ int hi4(int w) {
+  return static_cast<int>(
+      __vsub4(((static_cast<unsigned>(w) >> 4) & 0x0f0f0f0fu) ^ 0x08080808u, 0x08080808u));
+}
+
+// Byte offset, in the staged int4 query, of logical element e: packed word
+// g = e / 8 holds elements 8g..8g+7, its low nibbles the even ones and its
+// high nibbles the odd ones; the query keeps, per g, one word of the even
+// elements then one of the odd, so lo4/hi4 of a row word meet their match.
+__device__ __forceinline__ int int4_query_byte(int e) {
+  return ((e >> 3) * 2 + (e & 1)) * 4 + ((e & 7) >> 1);
+}
+
+// Stages the query row in shared memory: floats (f32 / bf16-rounded), or
+// int8 code bytes (int4: in the unpacked order above), zero past d.
+template <int MODE>
+__device__ void stage_query(float* q_s, int d_pad, const void* queries,
+                            long long b, int d) {
+  if constexpr (MODE == kF32 || MODE == kBF16) {
+    const float* q = reinterpret_cast<const float*>(queries) + b * d;
+    for (int e = threadIdx.x; e < d_pad; e += kThreads) {
+      float v = 0.f;
+      if (e < d) {
+        v = q[e];
+        if constexpr (MODE == kBF16) {  // round to nearest even, as a cast to bfloat16 does
+          uint32_t u = __float_as_uint(v);
+          u += 0x7fffu + ((u >> 16) & 1u);
+          v = __uint_as_float(u & 0xffff0000u);
+        }
+      }
+      q_s[e] = v;
+    }
+  } else {
+    const signed char* q = reinterpret_cast<const signed char*>(queries) + b * d;
+    signed char* qb = reinterpret_cast<signed char*>(q_s);
+    for (int p = threadIdx.x; p < 4 * d_pad; p += kThreads) {
+      int e = p;
+      if constexpr (MODE == kInt4) {  // invert int4_query_byte
+        const int word = p >> 2;
+        e = (word >> 1) * 8 + (p & 3) * 2 + (word & 1);
+      }
+      qb[p] = e < d ? q[e] : 0;
+    }
+  }
+}
+
+// One 16-byte chunk v of a row against the matching query slice.
+template <int MODE>
+__device__ __forceinline__ typename Traits<MODE>::Acc chunk(
+    const void* row, int v, const float* q, typename Traits<MODE>::Acc acc);
 
 template <>
-__device__ __forceinline__ float dot16<false>(const void* row, int v,
-                                              const float* q) {
+__device__ __forceinline__ float chunk<kF32>(const void* row, int v,
+                                             const float* q, float acc) {
   const float4 x = __ldg(reinterpret_cast<const float4*>(row) + v);
   const float4 y = reinterpret_cast<const float4*>(q)[v];
   float s = x.x * y.x;
   s = fmaf(x.y, y.y, s);
   s = fmaf(x.z, y.z, s);
   s = fmaf(x.w, y.w, s);
-  return s;
+  return acc + s;
 }
 
 template <>
-__device__ __forceinline__ float dot16<true>(const void* row, int v,
-                                             const float* q) {
+__device__ __forceinline__ float chunk<kBF16>(const void* row, int v,
+                                              const float* q, float acc) {
   const uint4 x = __ldg(reinterpret_cast<const uint4*>(row) + v);
   const float4 y0 = reinterpret_cast<const float4*>(q)[2 * v];
   const float4 y1 = reinterpret_cast<const float4*>(q)[2 * v + 1];
@@ -85,114 +156,112 @@ __device__ __forceinline__ float dot16<true>(const void* row, int v,
   s = fmaf(bf16_hi(x.z), y1.y, s);
   s = fmaf(bf16_lo(x.w), y1.z, s);
   s = fmaf(bf16_hi(x.w), y1.w, s);
-  return s;
+  return acc + s;
 }
 
-template <bool BF16>
-__device__ __forceinline__ float load_elem(const void* row, int e) {
-  if (BF16) {
+template <>
+__device__ __forceinline__ int chunk<kInt8>(const void* row, int v,
+                                            const float* q, int acc) {
+  const int4 x = __ldg(reinterpret_cast<const int4*>(row) + v);
+  const int4 y = reinterpret_cast<const int4*>(q)[v];
+  acc = __dp4a(x.x, y.x, acc);
+  acc = __dp4a(x.y, y.y, acc);
+  acc = __dp4a(x.z, y.z, acc);
+  return __dp4a(x.w, y.w, acc);
+}
+
+template <>
+__device__ __forceinline__ int chunk<kInt4>(const void* row, int v,
+                                            const float* q, int acc) {
+  const int4 x = __ldg(reinterpret_cast<const int4*>(row) + v);
+  const int4 y0 = reinterpret_cast<const int4*>(q)[2 * v];
+  const int4 y1 = reinterpret_cast<const int4*>(q)[2 * v + 1];
+  acc = __dp4a(lo4(x.x), y0.x, acc);
+  acc = __dp4a(hi4(x.x), y0.y, acc);
+  acc = __dp4a(lo4(x.y), y0.z, acc);
+  acc = __dp4a(hi4(x.y), y0.w, acc);
+  acc = __dp4a(lo4(x.z), y1.x, acc);
+  acc = __dp4a(hi4(x.z), y1.y, acc);
+  acc = __dp4a(lo4(x.w), y1.z, acc);
+  return __dp4a(hi4(x.w), y1.w, acc);
+}
+
+// Scalar form for rows that are not a whole number of 16-byte chunks:
+// logical element e of the row against the query.
+template <int MODE>
+__device__ __forceinline__ typename Traits<MODE>::Acc elem(
+    const void* row, int e, const float* q, typename Traits<MODE>::Acc acc) {
+  if constexpr (MODE == kF32) {
+    return fmaf(__ldg(reinterpret_cast<const float*>(row) + e), q[e], acc);
+  } else if constexpr (MODE == kBF16) {
     const unsigned short h = reinterpret_cast<const unsigned short*>(row)[e];
-    return __uint_as_float(static_cast<uint32_t>(h) << 16);
+    return fmaf(__uint_as_float(static_cast<uint32_t>(h) << 16), q[e], acc);
+  } else if constexpr (MODE == kInt8) {
+    const signed char* qb = reinterpret_cast<const signed char*>(q);
+    return acc + static_cast<int>(reinterpret_cast<const signed char*>(row)[e]) * qb[e];
+  } else {
+    const signed char* qb = reinterpret_cast<const signed char*>(q);
+    const int byte = reinterpret_cast<const signed char*>(row)[e >> 1];
+    const int code = (e & 1) ? (byte >> 4) : (((byte & 0x0f) ^ 0x08) - 0x08);
+    return acc + code * qb[int4_query_byte(e)];
   }
-  return __ldg(reinterpret_cast<const float*>(row) + e);
 }
 
-// One block per query row. Dynamic shared memory layout:
-//   q_s[d_pad] f32 | a_sc[S] | a_id[S] | b_sc[S] | b_id[S] | t_row[T] | t_oid[T]
-template <bool BF16, bool VEC>
+// One block per query row. Dynamic shared memory: q_s[d_pad] f32, then the
+// top-k buffers of topk::query_topk.
+template <int MODE, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     fused_verify_kernel(const void* __restrict__ embs, long long n_rows, int d,
+                        const float* __restrict__ scales,
                         const int* __restrict__ row_ids,
                         const int* __restrict__ out_ids,
-                        const float* __restrict__ queries, int c, int k, int s,
+                        const void* __restrict__ queries,
+                        const float* __restrict__ q_scales, int c, int k,
                         int* __restrict__ ids_out,
                         float* __restrict__ scores_out) {
+  using Acc = typename Traits<MODE>::Acc;
+  constexpr bool kQuant = MODE == kInt8 || MODE == kInt4;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int d_pad = (d + 7) & ~7;
-  const int t_len = s - k;
+  const int d_log = MODE == kInt4 ? 2 * d : d;  // d is the stored width
+  const int d_pad = (d_log + 7) & ~7;
   float* q_s = reinterpret_cast<float*>(smem);
-  float* a_sc = q_s + d_pad;
-  int* a_id = reinterpret_cast<int*>(a_sc + s);
-  float* b_sc = reinterpret_cast<float*>(a_id + s);
-  int* b_id = reinterpret_cast<int*>(b_sc + s);
-  int* t_row = b_id + s;
-  int* t_oid = t_row + t_len;
-  __shared__ int warp_tot[kWarps];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const long long b = blockIdx.x;
-  const float neg_inf = __int_as_float(0xff800000);
-  const size_t row_bytes = static_cast<size_t>(d) * (BF16 ? 2 : 4);
+  const size_t row_bytes = static_cast<size_t>(d) * Traits<MODE>::kBytes;
   const char* table = reinterpret_cast<const char*>(embs);
+  const float q_scale = kQuant ? q_scales[b] : 1.f;
 
-  for (int e = tid; e < d_pad; e += kThreads) {
-    float v = 0.f;
-    if (e < d) {
-      v = queries[b * d + e];
-      if (BF16) {  // round to nearest even, as a cast to bfloat16 does
-        uint32_t u = __float_as_uint(v);
-        u += 0x7fffu + ((u >> 16) & 1u);
-        v = __uint_as_float(u & 0xffff0000u);
-      }
-    }
-    q_s[e] = v;
-  }
-  for (int i = tid; i < s; i += kThreads) {
-    a_sc[i] = neg_inf;
-    a_id[i] = kIdSentinel;
-  }
-  __syncthreads();
+  stage_query<MODE>(q_s, d_pad, queries, b, d_log);  // query_topk syncs
 
-  const int* rid_row = row_ids + b * c;
-  const int* oid_row = out_ids + b * c;
-  for (int c0 = 0; c0 < c; c0 += t_len) {
-    // Stage the tile's ids; a tile with no valid candidate is skipped.
-    int any_valid = 0;
-    for (int t = tid; t < t_len; t += kThreads) {
-      const int j = c0 + t;
-      int oid = -1, rid = 0;
-      if (j < c) {
-        oid = oid_row[j];
-        rid = rid_row[j];
-      }
-      rid = rid < 0 ? 0 : rid;
-      rid = rid >= n_rows ? static_cast<int>(n_rows - 1) : rid;
-      t_row[t] = rid;
-      t_oid[t] = oid;
-      any_valid |= oid >= 0;
-    }
-    if (!__syncthreads_or(any_valid)) continue;
-
-    // Candidates below the current k-th score can never enter the top-k.
-    const float thr = a_sc[k - 1];
+  auto score_tile = [&](const int* t_row, const int* t_oid, int t_len,
+                        float thr, float* o_sc, int* o_id) -> int {
+    const float neg_inf = topk::neg_inf();
     int survived = 0;
-    for (int t0 = warp * kRowsPerWarp; t0 < t_len;
-         t0 += kWarps * kRowsPerWarp) {
+    for (int t0 = warp * kRowsPerWarp; t0 < t_len; t0 += kWarps * kRowsPerWarp) {
       bool val[kRowsPerWarp];
       const char* rows[kRowsPerWarp];
-      float acc[kRowsPerWarp];
+      Acc acc[kRowsPerWarp];
 #pragma unroll
       for (int u = 0; u < kRowsPerWarp; ++u) {
         const int t = t0 + u;
         val[u] = t < t_len && t_oid[t] >= 0;
         rows[u] = table + static_cast<size_t>(val[u] ? t_row[t] : 0) * row_bytes;
-        acc[u] = 0.f;
+        acc[u] = 0;
       }
       if (VEC) {
-        const int n_vec = d / (BF16 ? 8 : 4);
+        const int n_vec = static_cast<int>(row_bytes / 16);
 #pragma unroll 2
         for (int v = lane; v < n_vec; v += 32) {
 #pragma unroll
           for (int u = 0; u < kRowsPerWarp; ++u)
-            if (val[u]) acc[u] += dot16<BF16>(rows[u], v, q_s);
+            if (val[u]) acc[u] = chunk<MODE>(rows[u], v, q_s, acc[u]);
         }
       } else {
-        for (int e = lane; e < d; e += 32) {
+        for (int e = lane; e < d_log; e += 32) {
 #pragma unroll
           for (int u = 0; u < kRowsPerWarp; ++u)
-            if (val[u]) acc[u] = fmaf(load_elem<BF16>(rows[u], e), q_s[e], acc[u]);
+            if (val[u]) acc[u] = elem<MODE>(rows[u], e, q_s, acc[u]);
         }
       }
 #pragma unroll
@@ -206,140 +275,101 @@ __global__ void __launch_bounds__(kThreads)
         for (int u = 0; u < kRowsPerWarp; ++u) {
           const int t = t0 + u;
           if (t >= t_len) break;
-          const bool keep = val[u] && acc[u] >= thr;
-          a_sc[k + t] = keep ? acc[u] : neg_inf;
-          a_id[k + t] = keep ? t_oid[t] : kIdSentinel;
+          float sc = 0.f;
+          if constexpr (kQuant) {
+            const float comb = val[u] ? __fmul_rn(scales[t_row[t]], q_scale) : 0.f;
+            sc = __fmul_rn(__int2float_rn(static_cast<int>(acc[u])), comb);
+          } else {
+            sc = static_cast<float>(acc[u]);
+          }
+          const bool keep = val[u] && sc >= thr;
+          o_sc[t] = keep ? sc : neg_inf;
+          o_id[t] = keep ? t_oid[t] : topk::kIdSentinel;
           survived |= keep;
         }
       }
     }
-    if (!__syncthreads_or(survived)) continue;
+    return survived;
+  };
 
-    // Bitonic sort of a[0, s) on (score desc, id asc).
-    for (int size = 2; size <= s; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int i = tid; i < (s >> 1); i += kThreads) {
-          const int lo = 2 * i - (i & (stride - 1));
-          const int hi = lo + stride;
-          const float slo = a_sc[lo], shi = a_sc[hi];
-          const int ilo = a_id[lo], ihi = a_id[hi];
-          const bool up = (lo & size) == 0;
-          const bool swap = up ? before(shi, ihi, slo, ilo)
-                               : before(slo, ilo, shi, ihi);
-          if (swap) {
-            a_sc[lo] = shi;
-            a_sc[hi] = slo;
-            a_id[lo] = ihi;
-            a_id[hi] = ilo;
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    // Keep the first k distinct valid ids, in order, into b[0, k).
-    int base = 0;
-    for (int i0 = 0; i0 < s && base < k; i0 += kThreads) {
-      const int i = i0 + tid;
-      bool flag = false;
-      float sc = neg_inf;
-      int id = kIdSentinel;
-      if (i < s) {
-        sc = a_sc[i];
-        id = a_id[i];
-        flag = sc != neg_inf && (i == 0 || a_id[i - 1] != id);
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, flag);
-      if (lane == 0) warp_tot[warp] = __popc(m);
-      __syncthreads();
-      int off = 0, tot = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int cnt = warp_tot[w];
-        off += w < warp ? cnt : 0;
-        tot += cnt;
-      }
-      const int pos = base + off + __popc(m & ((1u << lane) - 1u));
-      if (flag && pos < k) {
-        b_sc[pos] = sc;
-        b_id[pos] = id;
-      }
-      base += tot;
-      __syncthreads();
-    }
-    for (int i = (base < k ? base : k) + tid; i < k; i += kThreads) {
-      b_sc[i] = neg_inf;
-      b_id[i] = kIdSentinel;
-    }
-    // The merged accumulator now lives in b: swap the two buffers.
-    float* tf = a_sc;
-    a_sc = b_sc;
-    b_sc = tf;
-    int* ti = a_id;
-    a_id = b_id;
-    b_id = ti;
-    __syncthreads();
-  }
-
-  for (int i = tid; i < k; i += kThreads) {
-    const float sc = a_sc[i];
-    scores_out[b * k + i] = sc;
-    ids_out[b * k + i] = sc == neg_inf ? -1 : a_id[i];
-  }
+  topk::query_topk(row_ids + b * c, out_ids + b * c, n_rows, c, k,
+                   smem + sizeof(float) * d_pad, score_tile, ids_out + b * k,
+                   scores_out + b * k);
 }
 
-int merge_size(int k) {
-  int s = 256;
-  while (s < 2 * k) s <<= 1;
-  return s;
-}
-
-template <bool BF16, bool VEC>
+template <int MODE, bool VEC>
 cudaError_t launch(const void* embs, long long n_rows, int d,
-                   const int* row_ids, const int* out_ids,
-                   const float* queries, int b, int c, int k, int* ids_out,
-                   float* scores_out, cudaStream_t stream) {
-  const int s = merge_size(k);
-  const int d_pad = (d + 7) & ~7;
-  const size_t smem = sizeof(float) * d_pad + 4 * sizeof(float) * s +
-                      2 * sizeof(int) * (s - k);
-  auto kern = fused_verify_kernel<BF16, VEC>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kern<<<b, kThreads, smem, stream>>>(embs, n_rows, d, row_ids, out_ids,
-                                      queries, c, k, s, ids_out, scores_out);
+                   const float* scales, const int* row_ids, const int* out_ids,
+                   const void* queries, const float* q_scales, int b, int c,
+                   int k, int* ids_out, float* scores_out,
+                   cudaStream_t stream) {
+  const int d_log = MODE == kInt4 ? 2 * d : d;
+  const int d_pad = (d_log + 7) & ~7;
+  const size_t smem = sizeof(float) * d_pad + topk::query_topk_smem(k);
+  auto kern = fused_verify_kernel<MODE, VEC>;
+  cudaError_t err = topk::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<b, kThreads, smem, stream>>>(embs, n_rows, d, scales, row_ids, out_ids,
+                                      queries, q_scales, c, k, ids_out,
+                                      scores_out);
   return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_mode(bool vec, const void* embs, long long n_rows, int d,
+                        const float* scales, const int* row_ids,
+                        const int* out_ids, const void* queries,
+                        const float* q_scales, int b, int c, int k,
+                        int* ids_out, float* scores_out, cudaStream_t stream) {
+  return vec ? launch<MODE, true>(embs, n_rows, d, scales, row_ids, out_ids,
+                                  queries, q_scales, b, c, k, ids_out,
+                                  scores_out, stream)
+             : launch<MODE, false>(embs, n_rows, d, scales, row_ids, out_ids,
+                                   queries, q_scales, b, c, k, ids_out,
+                                   scores_out, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Returns the cudaError_t of the
 // launch (0 on success). The caller validates shapes, dtypes and devices.
-extern "C" int fused_verify_launch(const void* embs, int is_bf16,
-                                   long long n_rows, int d, const int* row_ids,
-                                   const int* out_ids, const float* queries,
+//   mode 0: float32 table, queries (B, d) f32
+//   mode 1: bfloat16 table, queries (B, d) f32
+//   mode 2: int8 code table (N, d) + scales (N,), queries (B, d) int8 codes
+//           + q_scales (B,)
+//   mode 3: packed int4 table (N, d) with d the stored width (logical 2d),
+//           scales, queries (B, 2d) int8 codes + q_scales
+extern "C" int fused_verify_launch(const void* embs, int mode, long long n_rows,
+                                   int d, const float* scales,
+                                   const int* row_ids, const int* out_ids,
+                                   const void* queries, const float* q_scales,
                                    int b, int c, int k, int* ids_out,
                                    float* scores_out, void* stream) {
   if (b <= 0) return 0;
-  const int elem = is_bf16 ? 2 : 4;
+  const int elem = mode == kF32 ? 4 : (mode == kBF16 ? 2 : 1);
   const bool vec = (static_cast<long long>(d) * elem) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(embs) % 16 == 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16) {
-    err = vec ? launch<true, true>(embs, n_rows, d, row_ids, out_ids, queries,
-                                   b, c, k, ids_out, scores_out, st)
-              : launch<true, false>(embs, n_rows, d, row_ids, out_ids, queries,
-                                    b, c, k, ids_out, scores_out, st);
-  } else {
-    err = vec ? launch<false, true>(embs, n_rows, d, row_ids, out_ids, queries,
-                                    b, c, k, ids_out, scores_out, st)
-              : launch<false, false>(embs, n_rows, d, row_ids, out_ids,
-                                     queries, b, c, k, ids_out, scores_out, st);
+  switch (mode) {
+    case kF32:
+      err = launch_mode<kF32>(vec, embs, n_rows, d, scales, row_ids, out_ids,
+                              queries, q_scales, b, c, k, ids_out, scores_out, st);
+      break;
+    case kBF16:
+      err = launch_mode<kBF16>(vec, embs, n_rows, d, scales, row_ids, out_ids,
+                               queries, q_scales, b, c, k, ids_out, scores_out, st);
+      break;
+    case kInt8:
+      err = launch_mode<kInt8>(vec, embs, n_rows, d, scales, row_ids, out_ids,
+                               queries, q_scales, b, c, k, ids_out, scores_out, st);
+      break;
+    case kInt4:
+      err = launch_mode<kInt4>(vec, embs, n_rows, d, scales, row_ids, out_ids,
+                               queries, q_scales, b, c, k, ids_out, scores_out, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

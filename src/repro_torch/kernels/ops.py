@@ -9,6 +9,18 @@ from . import fused_verify as _fv
 from . import ref
 
 
+def _on_cpu(t: torch.Tensor, what: str) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    return False
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
 def verify_topk_op(
     embs: torch.Tensor,
     row_ids: torch.Tensor,
@@ -16,23 +28,79 @@ def verify_topk_op(
     *,
     k: int,
     out_ids: torch.Tensor | None = None,
+    scales: torch.Tensor | None = None,
+    code_dtype: str = "int8",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Candidate verification -> deduplicated top-k, (B, k) ids + scores.
 
     Same semantics on both paths: dedup by ``out_ids`` (< 0 == padding),
     scores descending, ties to the smallest id, (-1, -inf) fill. Float32
-    and bfloat16 tables; the quantized (``scales``) form is the next slice.
+    and bfloat16 tables; with ``scales`` an int8 code table (packed int4
+    with ``code_dtype="int4"``) scored in the exact integer domain.
     """
-    if embs.device.type == "cpu":
-        return ref.verify_topk_ref(embs, row_ids, queries, k=k, out_ids=out_ids)
-    if embs.device.type != "cuda":
-        raise ValueError(f"no verification kernel for device {embs.device}")
-    row_ids = row_ids.to(torch.int32).contiguous()
-    out_ids = row_ids if out_ids is None else out_ids.to(torch.int32).contiguous()
+    if _on_cpu(embs, "verification"):
+        return ref.verify_topk_ref(
+            embs, row_ids, queries, k=k, out_ids=out_ids, scales=scales,
+            code_dtype=code_dtype,
+        )
+    row_ids = _i32(row_ids)
+    out_ids = row_ids if out_ids is None else _i32(out_ids)
     return _fv.fused_verify(
         embs.contiguous(),
         row_ids,
         queries.to(torch.float32).contiguous(),
         k=k,
         out_ids=out_ids,
+        scales=None if scales is None else scales.to(torch.float32).contiguous(),
+        code_dtype=code_dtype,
+    )
+
+
+def sketch_topk_op(
+    sketches: torch.Tensor,
+    row_ids: torch.Tensor,
+    queries: torch.Tensor,
+    *,
+    k: int,
+    out_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Binary-sketch pre-filter -> deduplicated top-k survivor rows, scored
+    by negated Hamming distance (``sketch_prefilter`` on the card)."""
+    if _on_cpu(sketches, "sketch pre-filter"):
+        return ref.sketch_topk_ref(sketches, row_ids, queries, k=k, out_ids=out_ids)
+    row_ids = _i32(row_ids)
+    out_ids = row_ids if out_ids is None else _i32(out_ids)
+    return _fv.sketch_prefilter(
+        sketches.contiguous(), row_ids, queries.to(torch.float32).contiguous(),
+        k=k, out_ids=out_ids,
+    )
+
+
+def verify_topk_grouped_op(
+    embs: torch.Tensor,
+    row_scales: torch.Tensor,
+    queries: torch.Tensor,
+    sched_cids: torch.Tensor,
+    sched_qids: torch.Tensor,
+    step_slot_ids: torch.Tensor,
+    *,
+    kp: int,
+    code_dtype: str = "int8",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cluster-major verification -> per-(step, slot) dedup top-k'
+    (``fused_verify_grouped`` on the card); quantized banks only."""
+    if _on_cpu(embs, "grouped verification"):
+        return ref.verify_topk_grouped_ref(
+            embs, row_scales, queries, sched_cids, sched_qids, step_slot_ids,
+            kp=kp, code_dtype=code_dtype,
+        )
+    return _fv.fused_verify_grouped(
+        embs.contiguous(),
+        row_scales.to(torch.float32).contiguous(),
+        queries.to(torch.float32).contiguous(),
+        _i32(sched_cids),
+        _i32(sched_qids),
+        _i32(step_slot_ids),
+        kp=kp,
+        code_dtype=code_dtype,
     )

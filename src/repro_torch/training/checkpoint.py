@@ -8,7 +8,12 @@ exists, reads that one instead. Reading never modifies the directory.
 
 :func:`params_from_numpy` turns a ``{leaf name: array}`` map into
 :class:`~repro_torch.core.lider.LiderParams` on a device: uint32 leaves
-(hash keys, key bounds) become int64 so the pad sentinel sorts last.
+(hash keys, key bounds) become int64 so the pad sentinel sorts last, except
+the sign sketches of a quantized index, which stay 32-bit words (int32 bit
+patterns). int8 / int4 indexes bring ``bank__emb_scales``,
+``bank__rescore_embs`` and ``bank__sketches`` (recomputed from the rescore
+table when a checkpoint predates the sketch tier). Host-tier indexes are a
+later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,13 +24,14 @@ import zlib
 import numpy as np
 import torch
 
-from ..core.bank import ClusterBank
+from ..core.bank import QUANTIZED_DTYPES, ClusterBank
 from ..core.core_model import CoreModelParams
 from ..core.lider import LiderParams
 from ..core.lsh import LSHParams
 from ..core.rescale import RescaleParams
 from ..core.rmi import RMIParams
 from ..device import resolve_device
+from ..kernels import quant
 
 INDEX_DIRNAME = "index"
 INDEX_META = "index_meta.json"
@@ -80,10 +86,7 @@ def params_from_numpy(
 ) -> LiderParams:
     """Assemble ``LiderParams`` on ``device`` from named numpy leaves."""
     storage = meta.get("storage_dtype", "float32")
-    if storage not in ("float32", "bfloat16"):
-        raise NotImplementedError(
-            f"{storage} indexes need the quantized bank, the next port slice"
-        )
+    quantized = storage in QUANTIZED_DTYPES
     if meta.get("rescore_tier", "device") != "device":
         raise NotImplementedError("host-tier indexes are a later port slice")
 
@@ -129,6 +132,19 @@ def params_from_numpy(
         sorted_keys=leaf("centroid_cm", "sorted_keys"),
         sorted_ids=leaf("centroid_cm", "sorted_ids"),
     )
+    emb_scales = rescore = sketches = None
+    if quantized:
+        emb_scales = leaf("bank", "emb_scales")
+        rescore = leaf("bank", "rescore_embs")
+        if "bank__sketches" in leaves:
+            # uint32 words kept as int32 bit patterns (not widened to int64).
+            sk = np.ascontiguousarray(leaves["bank__sketches"]).view(np.int32)
+            sketches = torch.from_numpy(sk).to(device)
+        else:
+            # A checkpoint from before the sketch tier: the sketches are a
+            # function of the raw rows, which the rescore table holds, so
+            # recomputing them is byte-exact.
+            sketches = quant.sketch_rows(rescore)
     bank = ClusterBank(
         lsh=lsh_of(("bank", "lsh"), meta["in_lsh"]),
         rescale=rescale_of(("bank", "rescale")),
@@ -140,6 +156,10 @@ def params_from_numpy(
         sizes=leaf("bank", "sizes"),
         tombstones=leaf("bank", "tombstones"),
         next_gid=leaf("bank", "next_gid"),
+        emb_scales=emb_scales,
+        rescore_embs=rescore,
+        sketches=sketches,
+        code_dtype=storage if quantized else "int8",
     )
     return LiderParams(centroid_cm=centroid_cm, centroids=leaf("centroids"), bank=bank)
 

@@ -135,14 +135,23 @@ def test_cpu_tensors_never_reach_the_kernel():
 
 
 def test_quantized_branches_are_not_ported_yet():
+    """Named for the refusal it checked before the int8 / packed-int4
+    branches existed. It now checks what the quantized wrapper and the plain
+    version still refuse: int4 without scales, an unknown code dtype, and
+    an integer table passed without its row scales."""
     embs, ids, q = _case(10, 20, 8, 1, 5, id_lo=0)
     t = torch.from_numpy(embs)
-    with pytest.raises(NotImplementedError, match="next"):
-        fused_verify(t, torch.from_numpy(ids), torch.from_numpy(q), k=2, scales=torch.ones(20))
-    with pytest.raises(NotImplementedError):
-        fused_verify(t, torch.from_numpy(ids), torch.from_numpy(q), k=2, code_dtype="int4")
-    with pytest.raises(NotImplementedError, match="quantized"):
+    with pytest.raises(ValueError, match="requires scales"):
+        fused_verify(t.to(torch.int8), torch.from_numpy(ids), torch.from_numpy(q), k=2, code_dtype="int4")
+    with pytest.raises(ValueError, match="code_dtype"):
+        fused_verify(t, torch.from_numpy(ids), torch.from_numpy(q), k=2, code_dtype="int2")
+    with pytest.raises(ValueError, match="scales"):
         ref.verify_topk_ref(t.to(torch.int8), torch.from_numpy(ids), torch.from_numpy(q), k=2)
+    # With its scales the same int8 table is verified on the CPU.
+    codes = t.to(torch.int8)
+    got = ops.verify_topk_op(codes, torch.from_numpy(ids), torch.from_numpy(q), k=2,
+                             scales=torch.ones(20))
+    assert got[0].shape == (1, 2)
 
 
 def test_kernel_source_names_what_it_replaces():
@@ -195,3 +204,138 @@ def test_cuda_search_matches_cpu_search():
     got = lider.search_lider(cpu.to("cuda"), q, k=10, n_probe=4)
     assert fused_verify.launches == before + 2
     assert_topk_match(got.ids, got.scores, want.ids, want.scores)
+
+
+def _gpu_quantized_case(seed, n, d, b, c, k):
+    """Edge cases on the card: duplicates, bit-equal rows (exact ties), an
+    all-zero row, an all-invalid query row, dead leading tiles and k above
+    the valid count."""
+    embs, ids, q = _case(seed, n, d, b, c, dup=True, tie_rows=n > 13)
+    embs[n // 2] = 0.0
+    out = ids.copy()
+    out[np.random.default_rng(seed).random(out.shape) < 0.3] = -1
+    if c > 600:
+        out[:, :300] = -1
+    out[-1] = -1
+    if k >= c:
+        out[0, 3:] = -1
+    return embs, ids, out, q
+
+
+GPU_SHAPES = [(40, 32, 3, 17, 5), (200, 64, 4, 700, 10), (1000, 20, 5, 300, 7),
+              (100, 768, 3, 1000, 300), (30, 16, 2, 6, 9), (5000, 768, 2, 4000, 400)]
+
+
+def _bit_equal(got, want):
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_dtype", ["int8", "int4"])
+def test_cuda_quantized_kernel_matches_plain_version(code_dtype):
+    """int8 / packed-int4 ``fused_verify`` against its plain version on the
+    card: ids and scores bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import quant
+
+    dev = torch.device("cuda")
+    for seed, (n, d, b, c, k) in enumerate(GPU_SHAPES):
+        if code_dtype == "int4" and d % 2:
+            continue
+        embs, ids, out, q = _gpu_quantized_case(seed, n, d, b, c, k)
+        qfn = quant.quantize_rows if code_dtype == "int8" else quant.quantize_rows_int4
+        codes, scales = qfn(torch.from_numpy(embs).to(dev))
+        args = (codes, torch.from_numpy(ids).to(dev), torch.from_numpy(q).to(dev))
+        kw = dict(k=k, out_ids=torch.from_numpy(out).to(dev), scales=scales, code_dtype=code_dtype)
+        got = fused_verify(*args, **kw)
+        torch.cuda.synchronize()
+        _bit_equal(got, ref.verify_topk_ref(*args, **kw))
+        assert (got[0][-1] == -1).all().item()
+
+
+@pytest.mark.gpu
+def test_cuda_sketch_prefilter_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.fused_verify import sketch_prefilter
+
+    dev = torch.device("cuda")
+    for seed, (n, d, b, c, k) in enumerate(GPU_SHAPES + [(3000, 768, 2, 6000, 1600)]):
+        embs, ids, out, q = _gpu_quantized_case(seed, n, d, b, c, k)
+        sk = quant.sketch_rows(torch.from_numpy(embs).to(dev))
+        args = (sk, torch.from_numpy(ids).to(dev), torch.from_numpy(q).to(dev))
+        kw = dict(k=k, out_ids=torch.from_numpy(out).to(dev))
+        got = sketch_prefilter(*args, **kw)
+        torch.cuda.synchronize()
+        _bit_equal(got, ref.sketch_topk_ref(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_dtype", ["int8", "int4"])
+def test_cuda_grouped_kernel_matches_plain_version(code_dtype):
+    """``fused_verify_grouped`` on a Zipf schedule with padding steps,
+    empty slots, sparse masks, a dead leading tile and staging merges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.fused_verify import fused_verify_grouped
+    from repro_torch.kernels.schedule import build_cluster_schedule
+
+    dev = torch.device("cuda")
+    for seed, (c, lp, d, b, p, block_q, kp) in enumerate(
+        [(6, 16, 32, 5, 3, 4, 6), (8, 200, 64, 12, 4, 8, 40), (5, 120, 48, 9, 3, 3, 150),
+         (4, 1500, 64, 6, 2, 8, 10), (16, 2584, 768, 20, 4, 8, 400)]
+    ):
+        rng = np.random.default_rng(seed)
+        x = torch.from_numpy(rng.standard_normal((c, lp, d)).astype(np.float32)).to(dev)
+        x[0, 3] = 0
+        x[1, 5] = x[1, 2]
+        qfn = quant.quantize_rows if code_dtype == "int8" else quant.quantize_rows_int4
+        codes, scales = qfn(x)
+        w = 1.0 / np.arange(1, c + 1) ** 1.3
+        cids = np.stack([rng.choice(c, size=p, replace=False, p=w / w.sum()) for _ in range(b)])
+        sched = build_cluster_schedule(cids.astype(np.int32), block_q=block_q)
+        s = sched.sched_cids.shape[0]
+        slot = np.full((s, block_q, lp), -1, np.int32)
+        st, sl = np.nonzero(sched.sched_qids >= 0)
+        slot[st, sl] = sched.sched_cids[st, None] * lp + np.arange(lp)
+        slot[rng.random(slot.shape) < 0.4] = -1
+        slot[:, :, : min(lp, 40)] = -1
+        q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+        args = (codes.contiguous(), scales, q, torch.from_numpy(sched.sched_cids).to(dev),
+                torch.from_numpy(sched.sched_qids).to(dev), torch.from_numpy(slot).to(dev))
+        got = fused_verify_grouped(*args, kp=kp, code_dtype=code_dtype)
+        torch.cuda.synchronize()
+        _bit_equal(got, ref.verify_topk_grouped_ref(*args, kp=kp, code_dtype=code_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage_dtype", ["int8", "int4"])
+def test_cuda_quantized_search_matches_cpu_search(storage_dtype):
+    """A small quantized index built on the CPU, moved to the card: every
+    spelling of the search there (kernels) returns the CPU search's ids
+    (plain versions); the first-pass kernels score bit-exactly, the float32
+    rescore to the stated tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import lider
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.fused_verify import fused_verify_grouped, sketch_prefilter
+
+    x = synthetic.retrieval_corpus(0, 3000, 64, device="cpu")
+    q, _ = synthetic.retrieval_queries(1, x, 32)
+    cpu = lider.build_lider(0, x, lider.LiderConfig(n_clusters=16, n_probe=4, storage_dtype=storage_dtype),
+                            device="cpu")
+    gpu = cpu.to("cuda")
+    for kw, launches in (({}, (3, 0, 0)), ({"sketch_factor": 4}, (3, 1, 0)),
+                         ({"block_q": 8}, (2, 0, 1)), ({"sketch_factor": 4, "block_q": 8}, (2, 1, 1))):
+        want = lider.search_lider(cpu, q, k=10, n_probe=4, **kw)
+        before = (fused_verify.launches, sketch_prefilter.launches, fused_verify_grouped.launches)
+        got = lider.search_lider(gpu, q, k=10, n_probe=4, **kw)
+        after = (fused_verify.launches, sketch_prefilter.launches, fused_verify_grouped.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == launches, kw
+        assert_topk_match(got.ids, got.scores, want.ids, want.scores)
+

@@ -131,14 +131,25 @@ def test_no_card_and_no_device_raises(monkeypatch):
         synthetic.retrieval_corpus(0, 10, 4)
 
 
-def test_later_slices_raise_not_implemented(port_index):
-    q = np.zeros((2, D), np.float32)
-    for kw in ({"block_q": 8}, {"sketch_factor": 2}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            lider.search_lider(port_index, q, k=K, **kw)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        lider.build_lider(0, np.zeros((64, 8), np.float32),
-                          lider.LiderConfig(n_clusters=4, storage_dtype="int8"), device="cpu")
+def test_later_slices_raise_not_implemented(port_index, jax_index, tmp_path):
+    """What the port still refuses, or treats as the JAX package does: the
+    host rescore tier raises ``NotImplementedError`` (build and load);
+    ``block_q`` on a float bank raises ``ValueError``, as in JAX;
+    ``sketch_factor`` on a float bank (no sketches) is a no-op."""
+    _, q, _, _ = jax_index
+    with pytest.raises(NotImplementedError, match="host"):
+        lider.build_lider(0, np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32),
+                          lider.LiderConfig(n_clusters=4, storage_dtype="int8", rescore_tier="host"),
+                          device="cpu")
+    leaves, meta = checkpoint.read_index_dir(os.path.join(jax_index[3], "index"))
+    with pytest.raises(NotImplementedError, match="host"):
+        checkpoint.params_from_numpy(leaves, dict(meta, rescore_tier="host"), "cpu")
+    with pytest.raises(ValueError, match="quantized"):
+        lider.search_lider(port_index, q, k=K, n_probe=4, block_q=8)
+    assert port_index.bank.sketches is None
+    a = lider.search_lider(port_index, q, k=K, n_probe=4)
+    b = lider.search_lider(port_index, q, k=K, n_probe=4, sketch_factor=2)
+    assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
 
 
 def test_load_index_verifies_crc_and_falls_back_to_old(jax_index, tmp_path):
