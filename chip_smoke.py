@@ -17,17 +17,33 @@ Phases, each printing its lines; any failure exits non-zero:
                empty slots. Quantized and sketch kernels must be bit-equal
                (ids and scores). Then a small quantized index: a covering
                ``sketch_factor`` and the cluster-major schedule give the
-               unfiltered search, bit for bit.
+               unfiltered search, bit for bit. Then the build kernels:
+               ``lsh_hash`` (N off every tile, d in {8, 33, 768}, H=1, M in
+               {1, 16, 31}, bfloat16 rows) and ``kmeans_assign`` (c in {1,
+               7, 70}, duplicate centroids) within float32 rounding of their
+               plain versions, k-means distances within 16 times the plain
+               version's error against float64 (a TF32 product, run to show
+               the check can fail, must exceed it), duplicate-centroid ties
+               exact, and each row's key and assignment the same alone, in a
+               large batch and at another offset.
 4. main      — the ``lider-msmarco`` configuration (1,048,576 x 768
-               synthetic corpus, float32 bank): ``build_lider``, then 4
-               batches of 256 queries through ``search_lider`` at k=100,
-               recall@100 against Flat, the first 8 queries against the
-               same search with the kernel swapped for its plain version,
-               ``fused_verify`` launches (2 per batch), and a
+               synthetic corpus, float32 bank): ``build_lider`` through
+               both build kernels, three times. The first build of the
+               process is the main path's (its launches counted, its
+               stages timed, run under ``cProfile``, the arguments of each
+               kernel's first call kept); a second, warm build is timed the
+               same way; a third times every build-kernel call on its own,
+               beside its plain version and the cuBLAS product. Then 4 batches of 256 queries through ``search_lider`` at
+               k=100, recall@100 against Flat, the first 8 queries against
+               the same search with every kernel swapped for its plain
+               version (query keys compared first), launches per batch
+               (2 ``fused_verify``, 2 ``lsh_hash``), and a
                ``torch.profiler`` trace of one more batch.
-5. shapes    — each kernel call of one main-path batch, on the arguments
-               the search passed it, held against the plain version over
-               the whole batch and timed with CUDA events beside its bound.
+5. shapes    — each kernel call of the main path (the build's and one
+               search batch's), on the arguments it was given, held against
+               the plain version over the whole call and timed with CUDA
+               events beside its bound (and, for the build kernels, beside
+               the cuBLAS product alone).
 6. quantized — the float index is freed, then the int8 and the int4 index
                are built at full width in turn, and 4 x 256 queries run on
                each quantized operating point (Q8, Q8-cm on int8; Q4-sk,
@@ -36,15 +52,28 @@ Phases, each printing its lines; any failure exits non-zero:
                first 8 queries against the all-plain search, the schedule's
                sharing, the shapes phase on each path's kernel calls, and a
                trace of one Q4-sk-cm batch.
-7. kernels   — one JSON line with an entry per kernel.
+7. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
+               path's centroids frozen and the capacity fixed from the full
+               assignment: build on 80%, upsert 20% in 4 batches, equal bit
+               for bit to a rebuild over 100% (bank and search ids); delete
+               5% with eager compaction, equal to a rebuild over the
+               survivors, deleted ids never surfacing; ``save_index`` then
+               ``load_index``, every leaf and the search ids identical;
+               small int8 and int4 indexes through upsert == rebuild.
+8. kernels   — one JSON line with an entry per kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import cProfile
 import dataclasses
 import gc
 import json
+import math
+import pstats
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,12 +100,33 @@ KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
                          "src/repro/kernels/fused_verify.py:346"),
     "fused_verify_grouped": ("src/repro_torch/kernels/csrc/fused_verify_grouped.cu",
                              "src/repro/kernels/fused_verify.py:541"),
+    "lsh_hash": ("src/repro_torch/kernels/csrc/lsh_hash.cu",
+                 "src/repro/kernels/lsh_hash.py:27"),
+    "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                      "src/repro/kernels/kmeans_assign.py:27"),
 }
-# Kernel launches per search batch of each quantized operating point:
-# (fused_verify, sketch_prefilter, fused_verify_grouped).
+BUILD_KERNELS = ("lsh_hash", "kmeans_assign")
+# Kernel launches per search batch, in KERNELS order: (fused_verify,
+# sketch_prefilter, fused_verify_grouped, lsh_hash, kmeans_assign). Every
+# search hashes its queries twice: the centroid model's keys in routing,
+# then the bank's in candidate generation.
 PER_BATCH = {
-    "Q8": (3, 0, 0), "Q8-cm": (2, 0, 1), "Q4-sk": (3, 1, 0), "Q4-sk-cm": (2, 1, 1),
+    "F32": (2, 0, 0, 2, 0),
+    "Q8": (3, 0, 0, 2, 0), "Q8-cm": (2, 0, 1, 2, 0),
+    "Q4-sk": (3, 1, 0, 2, 0), "Q4-sk-cm": (2, 1, 1, 2, 0),
 }
+
+
+def per_build(cfg, *, kmeans: bool = True) -> tuple:
+    """Launches of one ``build_lider``, from the code: k-means runs
+    ``kmeans_iters`` Lloyd steps and one final assignment (one
+    ``kmeans_assign`` each; a build with given centroids assigns once);
+    the bank fit hashes ``bank._FIT_CHUNK`` clusters per ``lsh_hash`` call,
+    and the centroid model hashes the centroids once."""
+    from repro_torch.core import bank
+
+    n_fit = math.ceil(cfg.n_clusters / bank._FIT_CHUNK)
+    return (0, 0, 0, n_fit + 1, cfg.kmeans_iters + 1 if kmeans else 1)
 
 
 def log(phase: str, msg: str) -> None:
@@ -95,10 +145,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def wrappers():
-    from repro_torch.kernels import fused_verify as fv_mod
+def kernel_modules() -> dict:
+    from repro_torch.kernels import fused_verify as fv, kmeans_assign as km, lsh_hash as lh
 
-    return {name: getattr(fv_mod, name) for name in KERNELS}
+    return {"fused_verify": fv, "sketch_prefilter": fv, "fused_verify_grouped": fv,
+            "lsh_hash": lh, "kmeans_assign": km}
+
+
+def wrappers():
+    return {name: getattr(mod, name) for name, mod in kernel_modules().items()}
 
 
 def reset_counts() -> None:
@@ -106,8 +161,12 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def read_counts() -> tuple[int, int, int]:
+def read_counts() -> tuple[int, ...]:
     return tuple(fn.launches for fn in wrappers().values())
+
+
+def fmt_counts(counts) -> str:
+    return ", ".join(f"{n} {c}" for n, c in zip(KERNELS, counts))
 
 
 def plain_fns():
@@ -126,33 +185,71 @@ def plain_fns():
         return ref.verify_topk_grouped_ref(embs, row_scales, queries, sched_cids, sched_qids,
                                            step_slot_ids, kp=kp, code_dtype=code_dtype)
 
+    def lsh_hash(x, proj, *, n_arrays, key_len):
+        return ref.lsh_hash_ref(x, proj, n_arrays=n_arrays, key_len=key_len)
+
+    def kmeans_assign(x, centroids, chunk=65536):
+        parts = [ref.kmeans_assign_ref(x[s : s + chunk], centroids)
+                 for s in range(0, x.shape[0], chunk)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
     return {"fused_verify": fused_verify, "sketch_prefilter": sketch_prefilter,
-            "fused_verify_grouped": fused_verify_grouped}
+            "fused_verify_grouped": fused_verify_grouped, "lsh_hash": lsh_hash,
+            "kmeans_assign": kmeans_assign}
 
 
 def all_plain():
     """Patch every kernel wrapper with its plain version (ops looks them up
-    on the module at each call)."""
-    from repro_torch.kernels import fused_verify as fv_mod
+    on their modules at each call)."""
+    stack = contextlib.ExitStack()
+    plain = plain_fns()
+    for name, mod in kernel_modules().items():
+        stack.enter_context(mock.patch.object(mod, name, plain[name]))
+    return stack
 
-    return mock.patch.multiple(fv_mod, **plain_fns())
 
-
-def recording(calls: list):
-    """Patch ops' view of the wrappers so each kernel call of a search is
-    recorded, (name, args, kwargs), and then launched by the real wrapper
-    (whose counter stays under its own name)."""
+def recording(calls: list, keep=None):
+    """Patch ops' view of the wrappers so each kernel call is recorded,
+    (name, args, kwargs) (only where ``keep(name, args, kwargs)``, when
+    given), and then launched by the real wrapper (whose counter stays
+    under its own name)."""
     from repro_torch.kernels import ops
 
     real = wrappers()
 
     def rec(name):
         def f(*args, **kw):
-            calls.append((name, args, kw))
+            if keep is None or keep(name, args, kw):
+                calls.append((name, args, kw))
             return real[name](*args, **kw)
         return f
 
-    return mock.patch.object(ops, "_fv", types.SimpleNamespace(**{n: rec(n) for n in real}))
+    stack = contextlib.ExitStack()
+    for attr, names in (("_fv", ("fused_verify", "sketch_prefilter", "fused_verify_grouped")),
+                        ("_lsh", ("lsh_hash",)), ("_km", ("kmeans_assign",))):
+        stack.enter_context(mock.patch.object(
+            ops, attr, types.SimpleNamespace(**{n: rec(n) for n in names})))
+    return stack
+
+
+def first_eight(params, search, q8) -> str:
+    """The first 8 queries through the search and through the same search
+    with every kernel swapped for its plain version. The query keys are
+    compared first: a key bit may differ only within float32 rounding of
+    0, and every query whose keys agree must return the same ids (up to
+    swaps of near-equal scores)."""
+    from repro_torch.testing import assert_topk_match, query_key_flips, query_keys
+
+    with all_plain():
+        plain = search(q8)
+        plain_keys = query_keys(params, q8)
+    kern = search(q8)
+    same, rep = query_key_flips(params, q8, query_keys(params, q8), plain_keys)
+    same = same.to(kern.ids.device)
+    swaps = assert_topk_match(kern.ids[same], kern.scores[same], plain.ids[same], plain.scores[same])
+    return (f"first 8 queries: keys equal on {int(same.sum())} of 8 ({rep['flips']} of "
+            f"{rep['bits']} key bits flipped, each within the rounding bound; {rep['near']} "
+            f"near-ties); on those, ids == the all-plain search ({swaps} near-tie swaps admitted)")
 
 
 def bit_equal(got, want) -> bool:
@@ -305,7 +402,7 @@ def phase_parity(dev) -> float:
     log("parity", f"fused_verify_grouped int8 + int4: {n_g} schedules (padding steps, empty "
         "slots, sparse masks, dead tiles, staging merges) bit-equal to the plain version")
     phase_parity_search(dev)
-    return worst
+    return max(worst, phase_parity_build(dev))
 
 
 def phase_parity_search(dev) -> None:
@@ -337,13 +434,139 @@ def phase_parity_search(dev) -> None:
         "sketch_factor=2 + block_q=8 equal to the all-plain search")
 
 
+LSH_CASES = [  # (n, d, H, M, row dtype): N off every tile, H=1, M in {1, 16, 31}
+    (1, 8, 1, 1, torch.float32), (37, 33, 3, 31, torch.float32), (1000, 768, 10, 16, torch.float32),
+    (4099, 768, 10, 16, torch.bfloat16), (513, 33, 1, 16, torch.bfloat16),
+    (300, 768, 10, 10, torch.float32), (2000, 8, 7, 31, torch.float32), (65, 768, 1, 1, torch.bfloat16),
+]
+KMEANS_CASES = [  # (n, c, d): N off every tile, c in {1, 7, 70}
+    (1, 1, 8), (257, 7, 33), (1000, 70, 768), (4099, 1, 768), (129, 70, 8), (3001, 7, 768),
+]
+
+
+def phase_parity_build(dev) -> float:
+    """``lsh_hash`` and ``kmeans_assign`` against their plain versions: a
+    key bit or an assignment may differ only within float32 rounding of
+    the decision (the two sum in other orders); duplicate centroids resolve
+    to the first index; each row's result is the same wherever it sits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans_assign import kmeans_assign
+    from repro_torch.kernels.lsh_hash import lsh_hash
+    from repro_torch.testing import assignment_flips, lsh_key_flips
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    tot = {"bits": 0, "flips": 0, "near": 0}
+    for n, d, h, m, dtype in LSH_CASES:
+        x = torch.randn((n, d), generator=g, device=dev).to(dtype)
+        p = torch.randn((d, h * m), generator=g, device=dev)
+        got = lsh_hash(x, p, n_arrays=h, key_len=m)
+        torch.cuda.synchronize()
+        if got.shape != (n, h) or not bool((got >= 0).all()) or not bool((got < 2**m).all()):
+            raise AssertionError(f"lsh_hash keys out of range at {(n, d, h, m)}")
+        r = lsh_key_flips(x, p, h, m, got, ref.lsh_hash_ref(x, p, n_arrays=h, key_len=m))
+        tot = {k: tot[k] + r[k] for k in tot}
+    log("parity", f"lsh_hash x {len(LSH_CASES)} cases (float32 + bfloat16 rows): {tot['flips']} of "
+        f"{tot['bits']} key bits differ from the plain version ({tot['flips'] / tot['bits'] * 1e6:.2f} "
+        f"per million), each within the rounding bound; {tot['near']} bits are near-ties "
+        f"({tot['near'] / tot['bits'] * 1e6:.2f} per million)")
+
+    rows = differ = 0
+    worst = 0.0
+    errs = {"kernel": 0.0, "plain": 0.0, "tf32": 0.0}
+    for n, c, d in KMEANS_CASES:
+        x = torch.randn((n, d), generator=g, device=dev)
+        cen = torch.randn((c, d), generator=g, device=dev)
+        dup = c >= 7
+        if dup:  # centroids 5 and 6 copy 2; row 0 sits on them, row 1 next to them
+            cen[5] = cen[2]
+            cen[6] = cen[2]
+            x[0] = cen[2]
+            x[1] = cen[2] + 1e-3 * torch.randn((d,), generator=g, device=dev)
+        got_a, got_d = kmeans_assign(x, cen)
+        torch.cuda.synchronize()
+        want_a, want_d = plain_fns()["kmeans_assign"](x, cen)
+        r = assignment_flips(x, cen, got_a, want_a)
+        rows, differ = rows + r["rows"], differ + r["differ"]
+        e = min_dist_errors(x, cen, (got_a, got_d), (want_a, want_d))
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        rest = slice(2, None) if dup else slice(None)
+        torch.testing.assert_close(got_d[rest], want_d[rest], rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((got_d[rest] - want_d[rest]).abs().max()) if n > 2 else 0.0)
+        if dup:
+            if got_a[:2].tolist() != [2, 2] or bool(((got_a == 5) | (got_a == 6)).any()):
+                raise AssertionError("duplicate centroids did not resolve to the first index")
+            bnd = d * 2.0**-24 * 4 * float((x[0].double() ** 2).sum())
+            if abs(float(got_d[0])) > bnd:  # a distance of 0 computed by cancellation
+                raise AssertionError(f"row on a centroid at distance {float(got_d[0])}, bound {bnd}")
+    log("parity", f"kmeans_assign x {len(KMEANS_CASES)} cases: {differ} of {rows} assignments "
+        f"differ from the plain version ({differ / rows * 1e6:.2f} per million), each a near-tie "
+        f"within the rounding bound; min distances allclose (rtol = atol = 1e-4, max |err| "
+        f"{worst:.3g}); {hold_min_dist(errs, 'parity')}; duplicate centroids resolve to the first "
+        "index")
+
+    x = torch.randn((20000, 768), generator=g, device=dev)
+    p = torch.randn((768, 160), generator=g, device=dev)
+    cen = torch.randn((1024, 768), generator=g, device=dev)
+    keys = lsh_hash(x, p, n_arrays=10, key_len=16)
+    a, dd = kmeans_assign(x, cen)
+    for s, e in ((0, 1), (12345, 12346), (19999, 20000), (3, 4100), (7000, 20000)):
+        sk = lsh_hash(x[s:e].contiguous(), p, n_arrays=10, key_len=16)
+        sa, sd = kmeans_assign(x[s:e].contiguous(), cen)
+        if not (torch.equal(sk, keys[s:e]) and torch.equal(sa, a[s:e])
+                and torch.equal(sd.view(torch.int32), dd[s:e].view(torch.int32))):
+            raise AssertionError(f"rows {s}:{e} hash or assign differently from the same rows in a batch")
+    log("parity", "row determinism: rows of a 20,000 x 768 batch hashed and assigned alone, at "
+        "other offsets and in sub-batches: keys, assignments and distances identical bit for bit")
+    return worst
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """Let cuBLAS run float32 products on TF32 inputs, to show that the
+    float64 distance check tells a TF32 product from a float32 one."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def min_dist_errors(x, cen, got, want) -> dict:
+    """Largest relative error against float64 of the (assignment, distance)
+    pairs ``got`` (the kernel's) and ``want`` (the plain version's), and of
+    the plain version run on TF32 products."""
+    from repro_torch.testing import min_dist_error
+
+    with tf32_products():
+        tf = plain_fns()["kmeans_assign"](x, cen)
+    return {"kernel": min_dist_error(x, cen, *got), "plain": min_dist_error(x, cen, *want),
+            "tf32": min_dist_error(x, cen, *tf)}
+
+
+def hold_min_dist(errs: dict, where: str) -> str:
+    """The kernel's distances may err at most ``F32_ERROR_FACTOR`` times the
+    plain version's error against float64, and the TF32 product must err
+    more than that, or the check could not catch one."""
+    from repro_torch.testing import F32_ERROR_FACTOR as f
+
+    lim = f * errs["plain"]
+    if errs["kernel"] > lim:
+        raise AssertionError(f"{where}: kmeans_assign distances err {errs['kernel']:.3g} against "
+                             f"float64, over {f} x the plain version's {errs['plain']:.3g}")
+    if errs["tf32"] <= lim:
+        raise AssertionError(f"{where}: a TF32 product errs {errs['tf32']:.3g}, within the limit "
+                             f"{lim:.3g}: the check cannot tell TF32 from float32")
+    return (f"min distances against float64: kernel max rel err {errs['kernel']:.3g}, plain "
+            f"{errs['plain']:.3g} (limit {f} x plain = {lim:.3g}), a TF32 product {errs['tf32']:.3g}")
+
+
 def phase_main(dev) -> dict:
     from repro_torch.configs.lider_msmarco import CONFIG, REDUCED
     from repro_torch.core import lider
     from repro_torch.core.baselines import flat_search
     from repro_torch.core.utils import recall_at_k
     from repro_torch.data import synthetic
-    from repro_torch.testing import assert_topk_match
 
     cfg = CONFIG.lider
     log("main", f"lider-msmarco: N={CONFIG.corpus_size} d={CONFIG.dim} c={cfg.n_clusters} "
@@ -355,14 +578,25 @@ def phase_main(dev) -> dict:
     queries, _ = synthetic.retrieval_queries(SEED + 1, corpus, N_BATCHES * BATCH)
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    params, stats = lider.build_lider(SEED, corpus, cfg, return_stats=True, device=dev)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
+    build_calls = []
+    first = build_counted("main", dev, corpus, cfg, calls=build_calls, profile=True)
+    params, stats = first.params, first.stats
     peak_build = torch.cuda.max_memory_allocated()
-    log("main", f"data {t_data:.2f} s; build_lider {t_build:.2f} s; capacity Lp={stats.capacity}; "
-        f"indexed {stats.n_indexed}, dropped {stats.n_dropped}; peak device memory "
+    warm = build_counted("main", dev, corpus, cfg)
+    del warm.params
+    timed = time_every_build_call(dev, corpus, cfg)
+    log("main", f"data {t_data:.2f} s; capacity Lp={stats.capacity}; indexed {stats.n_indexed}, "
+        f"dropped {stats.n_dropped}; peak device memory of the first build "
         f"{peak_build / 2**30:.2f} GiB")
+    log("main", f"first build_lider of the process {first.secs:.2f} s ({fmt_stages(first)}); warm "
+        f"build {warm.secs:.2f} s ({fmt_stages(warm)})")
+    log("main", f"first build under cProfile, the functions with most time of their own: {first.top}")
+    for name in BUILD_KERNELS:
+        mine = [t for t in timed if t["kernel"] == name]
+        log("main", f"a third build, every call timed alone: {len(mine)} {name} calls, kernel "
+            f"{sum(t['ms'] for t in mine):.3f} ms in all, plain version "
+            f"{sum(t['plain_ms'] for t in mine):.3f} ms, cuBLAS product alone "
+            f"{sum(t['product_ms'] for t in mine):.3f} ms, bound {sum(t['bound_ms'] for t in mine):.3f} ms")
 
     k, n_probe = CONFIG.k, cfg.n_probe
     search = lambda q: lider.search_lider(
@@ -375,8 +609,9 @@ def phase_main(dev) -> dict:
     with recording(kernel_calls):
         search(batches[0])
     torch.cuda.synchronize()
-    if [c[0] for c in kernel_calls] != ["fused_verify"] * 2:
-        raise AssertionError(f"one search batch made kernel calls {[c[0] for c in kernel_calls]}")
+    order = [c[0] for c in kernel_calls]
+    if order != ["lsh_hash", "fused_verify"] * 2:
+        raise AssertionError(f"one search batch made kernel calls {order}")
 
     reset_counts()
     outs, lat_ms, wall_ms = [], [], []
@@ -390,8 +625,9 @@ def phase_main(dev) -> dict:
         wall_ms.append((time.perf_counter() - h0) * 1e3)
         lat_ms.append(s.elapsed_time(e))
     counts = read_counts()
-    if counts != (2 * N_BATCHES, 0, 0):
-        raise AssertionError(f"kernel launches {counts}, expected ({2 * N_BATCHES}, 0, 0)")
+    want = tuple(N_BATCHES * v for v in PER_BATCH["F32"])
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
     ids = torch.cat([o.ids for o in outs])
     scores = torch.cat([o.scores for o in outs])
     if ids.shape != (N_BATCHES * BATCH, k) or not bool(torch.isfinite(scores).all()):
@@ -403,27 +639,148 @@ def phase_main(dev) -> dict:
     t_flat = time.perf_counter() - t0
     rec = float(recall_at_k(ids, gt.ids))
     med = statistics.median(lat_ms)
-    log("main", f"{N_BATCHES} x {BATCH} queries at k={k}: fused_verify launches {counts[0]} "
-        f"(2 per batch); per-batch latency median {med:.3f} ms (CUDA events; all "
-        f"{', '.join(f'{v:.3f}' for v in lat_ms)}), host wall median "
-        f"{statistics.median(wall_ms):.3f} ms, {BATCH / med * 1e3:.0f} queries/s")
+    log("main", f"{N_BATCHES} x {BATCH} queries at k={k}: launches {fmt_counts(counts)} "
+        f"({PER_BATCH['F32']} per batch, as the code predicts); per-batch latency median "
+        f"{med:.3f} ms (CUDA events; all {', '.join(f'{v:.3f}' for v in lat_ms)}), host wall "
+        f"median {statistics.median(wall_ms):.3f} ms, {BATCH / med * 1e3:.0f} queries/s")
     log("main", f"recall@{k} vs Flat = {rec:.4f} (floor {RECALL_FLOOR}); Flat {t_flat:.2f} s")
     if rec < RECALL_FLOOR:
         raise AssertionError(f"recall@{k} {rec} below {RECALL_FLOOR}")
 
-    q8 = batches[0][:8]
-    with all_plain():
-        plain = search(q8)
-    kern = search(q8)
-    swaps = assert_topk_match(kern.ids, kern.scores, plain.ids, plain.scores)
-    log("main", f"first 8 queries: kernel search == plain-version search, ids equal "
-        f"({swaps} swaps of near-equal scores admitted)")
+    log("main", first_eight(params, search, batches[0][:8]))
     phase_trace("trace", search, batches[1], med)
     return {
-        "kernel_calls": kernel_calls, "launches": counts[0], "recall": rec,
-        "latency_ms": med, "build_s": t_build, "peak_gib": peak_build / 2**30,
-        "corpus": corpus, "queries": queries, "gt": gt.ids, "params": params,
+        "kernel_calls": kernel_calls, "build_calls": build_calls, "launches": counts,
+        "build_launches": first.counts, "build_timed": timed, "recall": rec, "latency_ms": med,
+        "peak_gib": peak_build / 2**30, "corpus": corpus, "queries": queries, "gt": gt.ids,
+        "params": params, "centroids": params.centroids,
     }
+
+
+def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, **kw):
+    """``build_lider`` with the launch counts reset just before it and
+    checked just after against :func:`per_build`. Returns a namespace: the
+    index (``params``, ``stats``), its wall ``secs``, ``stages`` (the
+    synchronized seconds of the k-means or the assignment, the bank build,
+    the centroid model, and the ``rest`` of the wall), ``counts`` (the
+    launches read) and, with ``profile``, ``top``: the functions with the
+    most time of their own under ``cProfile``. ``calls`` receives the first
+    call of each build-kernel role (k-means step, bank fit, centroid fit)."""
+    from repro_torch.core import bank as bank_lib
+    from repro_torch.core import lider
+
+    stages = {}
+
+    def timed(mod, attr, key):
+        real = getattr(mod, attr)
+
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            stages[key] = stages.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return mock.patch.object(mod, attr, f)
+
+    seen = set()
+
+    def keep(name, args, kw_):
+        role = build_role(name, args, cfg.n_clusters)
+        if role is None or role in seen:
+            return False
+        seen.add(role)
+        return True
+
+    kmeans = kw.get("centroids") is None
+    prof = cProfile.Profile() if profile else None
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed(lider, "assign_points", "k-means" if kmeans else "assignment"))
+        stack.enter_context(timed(bank_lib, "build_bank", "bank"))
+        stack.enter_context(timed(lider, "build_core_model", "centroid model"))
+        if calls is not None:
+            stack.enter_context(recording(calls, keep))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if prof is not None:
+            prof.enable()
+        params, stats = lider.build_lider(SEED, corpus, cfg, return_stats=True, device=dev, **kw)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.disable()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    stages["rest"] = secs - sum(stages.values())
+    want = per_build(cfg, kmeans=kmeans)
+    if counts != want:
+        raise AssertionError(f"{phase}: one build launched {counts}, expected {want}")
+    log(phase, f"one build_lider launched {fmt_counts(counts)}, as the code predicts "
+        f"({cfg.kmeans_iters} Lloyd steps + 1 final assignment; ceil({cfg.n_clusters} / "
+        "64) bank-fit chunks + 1 centroid-model fit)" if kmeans else
+        f"one build_lider (given centroids) launched {fmt_counts(counts)}, as the code predicts")
+    return types.SimpleNamespace(params=params, stats=stats, secs=secs, stages=stages,
+                                 counts=counts, top=top_functions(prof) if prof else None)
+
+
+def fmt_stages(build) -> str:
+    return ", ".join(f"{k} {v:.3f} s ({v / build.secs:.1%})" for k, v in build.stages.items())
+
+
+def top_functions(prof: cProfile.Profile, n: int = 6) -> str:
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return "; ".join(f"{Path(f).name}:{line}({fn}) {tt:.3f} s own, {ct:.3f} s in all, {nc} calls"
+                     for (f, line, fn), (_, nc, tt, ct, _) in rows)
+
+
+def event_ms(fn):
+    """``(fn(), its milliseconds by CUDA events)``: one call, synchronized
+    on both sides."""
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def time_every_build_call(dev, corpus, cfg) -> list[dict]:
+    """One more main-path build in which every ``lsh_hash`` and
+    ``kmeans_assign`` call is timed on its own with CUDA events, then its
+    plain version and the cuBLAS product alone on the same arguments: one
+    dict per call, with the call's bound. Two builds ran before, so every
+    kernel and library is loaded."""
+    from repro_torch.core import lider
+    from repro_torch.kernels import ops
+
+    real, plain = wrappers(), plain_fns()
+    rows = []
+
+    def timed(name):
+        def f(*args, **kw):
+            out, ms = event_ms(lambda: real[name](*args, **kw))
+            _, plain_ms = event_ms(lambda: plain[name](*args, **kw))
+            product, bound_ms, bound_by, _ = build_call_model(name, args, kw)
+            _, product_ms = event_ms(product)
+            rows.append({"kernel": name, "ms": ms, "plain_ms": plain_ms, "product_ms": product_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            return out
+        return f
+
+    with contextlib.ExitStack() as stack:
+        for attr, name in (("_lsh", "lsh_hash"), ("_km", "kmeans_assign")):
+            stack.enter_context(mock.patch.object(ops, attr, types.SimpleNamespace(**{name: timed(name)})))
+        lider.build_lider(SEED, corpus, cfg, device=dev)
+    return rows
+
+
+def build_role(name: str, args, n_clusters: int) -> str | None:
+    if name == "kmeans_assign":
+        return "k-means step"
+    if name == "lsh_hash":
+        return "centroid fit" if args[0].shape[0] == n_clusters else "bank fit"
+    return None
 
 
 def phase_trace(phase: str, search, qb, batch_ms: float) -> None:
@@ -571,15 +928,103 @@ def phase_shapes_f32(main) -> list[dict]:
     """The float main path's two calls, float32 and (the same arguments on
     a bfloat16 copy of the table) bfloat16."""
     res = []
+    fv_calls = [c for c in main["kernel_calls"] if c[0] == "fused_verify"]
     for dtype in (torch.float32, torch.bfloat16):
         for role, (name, args, kw), reps, chunk in zip(
-            ("routing", "in-cluster"), main["kernel_calls"], (20, 5), (256, 8)
+            ("routing", "in-cluster"), fv_calls, (20, 5), (256, 8)
         ):
             if dtype == torch.bfloat16:
                 args = (args[0].to(torch.bfloat16), *args[1:])
             path = "F32" if dtype == torch.float32 else "BF16 table"
             res.append(time_call(path, role, name, args, kw, reps=reps, chunk=chunk))
             del args
+    return res
+
+
+def build_call_model(name: str, args, kw):
+    """``(the cuBLAS product alone, bound ms, bound_by, shape)`` of one
+    ``lsh_hash`` or ``kmeans_assign`` call. Bound: operations over the
+    float32 CUDA-core peak (2 d per output of the product), or the bytes
+    (rows and P or the centroids read once, the int32 keys or the
+    assignment and distance written once), whichever is larger."""
+    x = args[0]
+    n, d = x.shape
+    if name == "lsh_hash":
+        proj = args[1]
+        h, m = kw["n_arrays"], kw["key_len"]
+        product = lambda: x.to(torch.float32) @ proj
+        n_bytes, ops = x.numel() * x.element_size() + proj.numel() * 4 + n * h * 4, 2 * n * d * h * m
+        shape = {"N": n, "d": d, "H": h, "M": m, "rows": str(x.dtype).removeprefix("torch.")}
+    else:
+        cen = args[1]
+        c = cen.shape[0]
+        product = lambda: x @ cen.T
+        n_bytes, ops = (x.numel() + cen.numel()) * 4 + n * 8, 2 * n * c * d
+        shape = {"N": n, "c": c, "d": d}
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS[torch.float32]
+    return product, max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), shape
+
+
+def time_build_call(path: str, role: str, name: str, args, kw, *, reps: int) -> dict:
+    """One recorded ``lsh_hash`` or ``kmeans_assign`` call: held against
+    the plain version over the whole call (key bits and assignments may
+    differ only within float32 rounding; distances allclose at rtol = atol
+    = 1e-4 and within ``F32_ERROR_FACTOR`` times the plain version's error
+    against float64), then the kernel, the plain version and the cuBLAS
+    product alone (``x @ P``, ``x @ c.T``: no single PyTorch call computes
+    hash or assignment, so there is no library time) timed with CUDA
+    events, per call, beside the call's bound (:func:`build_call_model`)."""
+    from repro_torch.testing import assignment_flips, lsh_key_flips
+
+    run = lambda: wrappers()[name](*args, **kw)
+    plain = lambda: plain_fns()[name](*args, **kw)
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    x = args[0]
+    product, bound_ms, bound_by, shape = build_call_model(name, args, kw)
+    if name == "lsh_hash":
+        rep = lsh_key_flips(x, args[1], kw["n_arrays"], kw["key_len"], got, want)
+        err = 0.0
+        check = (f"{rep['flips']} of {rep['bits']} key bits differ from the plain version "
+                 f"({rep['flips'] / rep['bits'] * 1e6:.2f} per million), each within the rounding "
+                 f"bound; {rep['near']} near-ties ({rep['near'] / rep['bits'] * 1e6:.2f} per million)")
+        extra = {"bits": rep["bits"], "flips": rep["flips"], "near_ties": rep["near"]}
+    else:
+        cen = args[1]
+        rep = assignment_flips(x, cen, got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+        err = float((got[1] - want[1]).abs().max())
+        errs = min_dist_errors(x, cen, got, want)
+        check = (f"{rep['differ']} of {rep['rows']} assignments differ from the plain version "
+                 f"({rep['differ'] / rep['rows'] * 1e6:.2f} per million), each a near-tie within the "
+                 f"rounding bound; distances allclose (max |err| {err:.3g}); "
+                 + hold_min_dist(errs, f"{path} {role}"))
+        extra = {"rows_differ": rep["differ"], "f64_rel_err": errs}
+    del got, want
+    ms = cuda_ms(run, reps)
+    plain_ms = cuda_ms(plain, 1)
+    product_ms = cuda_ms(product, reps)
+    log("shapes", f"{path} {role}: {name} [{', '.join(f'{k}={v}' for k, v in shape.items())}]: "
+        f"{check}; per call: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cuBLAS product alone "
+        f"{product_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
+    return {"kernel": name, "path": path, "call": role, **shape, "ms": ms, "plain_ms": plain_ms,
+            "product_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, **extra}
+
+
+def phase_shapes_build(main) -> list[dict]:
+    """The build's first call of each role (the k-means step over all N,
+    one bank-fit chunk, the centroid-model fit) and one search batch's two
+    query hashes."""
+    res = []
+    reps = {"k-means step": 5, "bank fit": 20, "centroid fit": 50}
+    for name, args, kw in main["build_calls"]:
+        role = build_role(name, args, main["params"].n_clusters)
+        res.append(time_build_call("build", role, name, args, kw, reps=reps[role]))
+    hashes = [c for c in main["kernel_calls"] if c[0] == "lsh_hash"]
+    for role, (name, args, kw) in zip(("query hash (centroids)", "query hash (bank)"), hashes):
+        res.append(time_build_call("F32", role, name, args, kw, reps=50))
     return res
 
 
@@ -602,18 +1047,13 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
     from repro_torch.core import lider
     from repro_torch.core.utils import recall_at_k
     from repro_torch.kernels.schedule import build_cluster_schedule
-    from repro_torch.testing import assert_topk_match
 
     cfg = CONFIG.lider
     k = CONFIG.k
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params, stats = lider.build_lider(
-        SEED, main["corpus"], dataclasses.replace(cfg, storage_dtype=storage),
-        return_stats=True, device=dev,
-    )
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
+    built = build_counted("quantized", dev, main["corpus"], dataclasses.replace(cfg, storage_dtype=storage))
+    params, stats, t_build = built.params, built.stats, built.secs
+    del built
     b = params.bank
     log("quantized", f"{storage} index: build_lider {t_build:.2f} s; Lp={stats.capacity}, dropped "
         f"{stats.n_dropped}; codes {tuple(b.embs.shape)} {b.embs.dtype}, rescore "
@@ -651,20 +1091,13 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
         rec = float(recall_at_k(ids, main["gt"]))
         med = statistics.median(lat_ms)
         log("quantized", f"{op.name} ({storage}, {op.search_kwargs()}): launches per batch "
-            f"fused_verify {counts[0] // N_BATCHES}, sketch_prefilter {counts[1] // N_BATCHES}, "
-            f"fused_verify_grouped {counts[2] // N_BATCHES} (as expected); recall@{k} vs Flat "
+            f"{fmt_counts(c // N_BATCHES for c in counts)} (as the code predicts); recall@{k} vs Flat "
             f"{rec:.4f} (float32 bank {main['recall']:.4f}; floor {RECALL_FLOOR}); batch latency "
             f"median {med:.3f} ms (all {', '.join(f'{v:.3f}' for v in lat_ms)}), "
             f"{BATCH / med * 1e3:.0f} queries/s")
         if rec < RECALL_FLOOR:
             raise AssertionError(f"{op.name}: recall@{k} {rec} below {RECALL_FLOOR}")
-        q8 = batches[0][:8]
-        with all_plain():
-            plain = search(q8)
-        kern = search(q8)
-        swaps = assert_topk_match(kern.ids, kern.scores, plain.ids, plain.scores)
-        log("quantized", f"{op.name}: first 8 queries == the search with every kernel swapped "
-            f"for its plain version ({swaps} near-tie swaps admitted)")
+        log("quantized", f"{op.name}: " + first_eight(params, search, batches[0][:8]))
         results[op.name] = (ids, scores)
         out["paths"][op.name] = {"recall": rec, "latency_ms": med, "launches": counts,
                                  "calls": calls, "search": search}
@@ -682,9 +1115,16 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
                 "scores bit for bit")
     for op in points:
         path = out["paths"][op.name]
-        for i, (name, args, kw) in enumerate(path.pop("calls")):
-            role, reps, chunk = _role(name, args, kw, first=i == 0)
-            res = time_call(op.name, role, name, args, kw, reps=reps, chunk=chunk)
+        calls = path.pop("calls")
+        hash_roles = iter(("query hash (centroids)", "query hash (bank)"))
+        first = next(c for c in calls if c[0] != "lsh_hash")  # the routing call
+        for call in calls:
+            name, args, kw = call
+            if name == "lsh_hash":
+                res = time_build_call(op.name, next(hash_roles), name, args, kw, reps=50)
+            else:
+                role, reps, chunk = _role(name, args, kw, first=call is first)
+                res = time_call(op.name, role, name, args, kw, reps=reps, chunk=chunk)
             res["launches_per_batch"] = PER_BATCH[op.name][list(KERNELS).index(name)]
             out["calls"].append(res)
     if storage == "int4":
@@ -695,6 +1135,200 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
         p.pop("search")
     del params, b
     return out
+
+
+LIFE_BANK = ("sorted_keys", "sorted_pos", "gids", "sizes", "embs", "next_gid")
+QUANT_BANK = ("emb_scales", "rescore_embs", "sketches")
+
+
+def same_bits(a, b) -> bool:
+    if a is None or b is None:
+        return a is b
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def mismatched(a, b, fields) -> list[str]:
+    return [f for f in fields if not same_bits(getattr(a, f), getattr(b, f))]
+
+
+def fit_leaves_equal(a, b) -> tuple[int, int]:
+    """(fit leaves bit-equal, fit leaves) of two banks: rescale and RMI."""
+    pairs = [(getattr(a.rescale, f), getattr(b.rescale, f)) for f in ("key_min", "key_max", "length")]
+    pairs += [(getattr(a.rmi, f), getattr(b.rmi, f))
+              for f in ("root_w", "root_b", "leaf_w", "leaf_b", "length", "max_err")]
+    return sum(same_bits(x, y) for x, y in pairs), len(pairs)
+
+
+def search_all(params, queries, cfg, k):
+    from repro_torch.core import lider
+
+    outs = [lider.search_lider(params, queries[i : i + BATCH], k=k, n_probe=cfg.n_probe,
+                               r0=cfg.r0, r0_centroid=cfg.r0_centroid)
+            for i in range(0, queries.shape[0], BATCH)]
+    return torch.cat([o.ids for o in outs]), torch.cat([o.scores for o in outs])
+
+
+def phase_lifecycle(dev, main) -> dict:
+    """``LIFECYCLE`` at full width: upsert == frozen rebuild, compaction ==
+    rebuild over the survivors, deleted ids absent, save/load identical."""
+    from repro_torch.configs.lider_msmarco import CONFIG, LIFECYCLE as L
+    from repro_torch.core import bank as bank_lib
+    from repro_torch.core import clustering, lider, update
+    from repro_torch.training import checkpoint
+
+    cfg, k = CONFIG.lider, CONFIG.k
+    corpus, queries, cen = main["corpus"], main["queries"], main["centroids"]
+    n = corpus.shape[0]
+    chunks = lambda m: math.ceil(m / bank_lib._FIT_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    assign, _ = clustering.assign_chunked(corpus, cen)
+    cap = lider.padded_capacity(
+        int(torch.bincount(assign.long(), minlength=cfg.n_clusters).max()), None, cfg.pad_multiple)
+    fcfg = dataclasses.replace(cfg, capacity=cap)
+    n_base = int(n * (1 - L.update_fraction))
+    log("lifecycle", f"{L}: corpus {n} x {corpus.shape[1]}, main-path centroids frozen, capacity "
+        f"Lp={cap} from the full assignment; base {n_base} passages")
+    base = build_counted("lifecycle", dev, corpus[:n_base], fcfg, centroids=cen)
+    up, t_base = base.params, base.secs
+    del base
+
+    rates, t_up = [], []
+    for i, part in enumerate(torch.tensor_split(corpus[n_base:], L.upsert_batches)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up, st = update.upsert(up, part, pad_multiple=cfg.pad_multiple, route=L.route)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        want = (0, 0, 0, chunks(st.n_refit), 1)
+        if counts != want or st.capacity_grew or st.n_added != part.shape[0]:
+            raise AssertionError(f"upsert batch {i}: launches {counts} (expected {want}), {st}")
+        t_up.append(dt)
+        rates.append(part.shape[0] / dt)
+        log("lifecycle", f"upsert batch {i}: {part.shape[0]} passages in {dt:.3f} s = "
+            f"{rates[-1]:.0f} passages/s; {st.n_refit} clusters refit; launches {fmt_counts(counts)}")
+    rebuilt = build_counted("lifecycle", dev, corpus, fcfg, centroids=cen)
+    full, t_full = rebuilt.params, rebuilt.secs
+    del rebuilt
+    bad = mismatched(up.bank, full.bank, LIFE_BANK)
+    if bad:
+        raise AssertionError(f"upserted bank differs from the frozen rebuild in {bad}")
+    fit_eq = fit_leaves_equal(up.bank, full.bank)
+    ids_up, sc_up = search_all(up, queries, cfg, k)
+    ids_full, sc_full = search_all(full, queries, cfg, k)
+    if not torch.equal(ids_up, ids_full):
+        raise AssertionError(f"search ids differ on {int((ids_up != ids_full).any(1).sum())} queries")
+    log("lifecycle", f"base build {t_base:.2f} s, upserts {sum(t_up):.3f} s in all, frozen rebuild "
+        f"over 100% {t_full:.2f} s: bank {', '.join(LIFE_BANK)} equal bit for bit; fit leaves "
+        f"(rescale, RMI) {fit_eq[0]} of {fit_eq[1]} bit-equal; search ids on {ids_up.shape[0]} "
+        f"queries equal (scores bit-equal: {same_bits(sc_up, sc_full)})")
+    del full
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    dead = torch.sort(torch.randperm(n, generator=g, device=dev)[: int(n * L.delete_fraction)]).values
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deleted, dst = update.delete(up, dead, refit_threshold=L.refit_threshold)
+    torch.cuda.synchronize()
+    t_delete = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != (0, 0, 0, chunks(dst.n_refit), 0) or dst.n_deleted != dead.numel():
+        raise AssertionError(f"delete: launches {counts}, {dst}")
+    del up
+    ids_del, _ = search_all(deleted, queries, cfg, k)
+    if bool(torch.isin(ids_del, dead.to(ids_del.dtype)).any()):
+        raise AssertionError("a deleted id surfaced")
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[dead] = False
+    surv = torch.nonzero(alive)[:, 0]
+    rebuilt = build_counted("lifecycle", dev, corpus[surv], fcfg, centroids=cen).params
+    rb = rebuilt.bank
+    mapped = torch.where(rb.gids >= 0, surv[rb.gids.clamp(min=0).long()].to(torch.int32), -1)
+    # Rows compare by value: a fresh pack zeroes its pad slots by a multiply
+    # (-0.0 where corpus row 0 is negative), compaction by a select (+0.0),
+    # as in the JAX package; every other field compares bit for bit.
+    bad = [f for f in ("sorted_keys", "sorted_pos", "sizes")
+           if not same_bits(getattr(deleted.bank, f), getattr(rb, f))]
+    bad += [] if torch.equal(deleted.bank.embs, rb.embs) else ["embs"]
+    if bad or not torch.equal(deleted.bank.gids, mapped) or int(deleted.bank.tombstones.sum()):
+        raise AssertionError(f"compacted bank differs from the rebuild over the survivors: {bad}")
+    ids_rb, _ = search_all(rebuilt, queries, cfg, k)
+    ids_rb = torch.where(ids_rb >= 0, surv[ids_rb.clamp(min=0).long()].to(torch.int32), -1)
+    if not torch.equal(ids_del, ids_rb):
+        raise AssertionError("search after compaction differs from the rebuild over the survivors")
+    fit_eq = fit_leaves_equal(deleted.bank, rb)
+    log("lifecycle", f"delete {dead.numel()} ids ({L.delete_fraction:.0%}, refit_threshold "
+        f"{L.refit_threshold}): {t_delete:.3f} s with {dst.n_refit} clusters compacted and refit; "
+        f"launches {fmt_counts(counts)}; no deleted id in {ids_del.shape[0]} searches; bank equals "
+        f"a frozen rebuild over the {surv.numel()} survivors (keys, positions, sizes bit for bit, "
+        f"rows in value, gids mapped back; fit leaves "
+        f"{fit_eq[0]} of {fit_eq[1]} bit-equal), search ids equal")
+    del rebuilt, rb
+
+    d = ROOT / "build" / "lifecycle_index"
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_index(str(d), deleted)
+    t_save = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in (d / "index").iterdir())
+    t0 = time.perf_counter()
+    loaded = checkpoint.load_index(str(d), device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    leaves = checkpoint.index_leaves(deleted)
+    bad = [name for (name, a), (_, b) in zip(leaves, checkpoint.index_leaves(loaded))
+           if not same_bits(a, b)]
+    ids_ld, _ = search_all(loaded, queries, cfg, k)
+    if bad or not torch.equal(ids_ld, ids_del):
+        raise AssertionError(f"save/load changed leaves {bad} or the search ids")
+    shutil.rmtree(d, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("lifecycle", f"save_index {t_save:.2f} s ({size / 1e9:.2f} GB on disk), load_index "
+        f"{t_load:.2f} s: all {len(leaves)} leaves identical, search ids identical; peak device "
+        f"memory of the phase {peak:.2f} GiB")
+    del loaded, deleted
+    small = phase_lifecycle_small(dev)
+    return {"upsert_per_s": rates, "upsert_s": t_up, "delete_s": t_delete, "save_s": t_save,
+            "load_s": t_load, "peak_gib": peak, "small": small}
+
+
+def phase_lifecycle_small(dev) -> list[str]:
+    """Small int8 and int4 indexes (20,000 x 768, c=64): build(80%) +
+    upsert(20%, two batches) == a frozen rebuild over 100%, bit for bit."""
+    from repro_torch.core import clustering, lider, update
+    from repro_torch.data import synthetic
+
+    x = synthetic.retrieval_corpus(SEED + 5, 20_000, 768, device=dev)
+    q, _ = synthetic.retrieval_queries(SEED + 6, x, 64)
+    n_base = 16_000
+    km = clustering.kmeans(torch.Generator(device=dev).manual_seed(SEED), x[:n_base], 64, iters=10)
+    assign, _ = clustering.assign_chunked(x, km.centroids)
+    cap = lider.padded_capacity(int(torch.bincount(assign.long(), minlength=64).max()), None, 8)
+    done = []
+    for sd in ("int8", "int4"):
+        cfg = lider.LiderConfig(n_clusters=64, n_probe=4, capacity=cap, storage_dtype=sd)
+        up = lider.build_lider(SEED, x[:n_base], cfg, centroids=km.centroids, device=dev)
+        for part in torch.tensor_split(x[n_base:], 2):
+            up, _ = update.upsert(up, part)
+        full = lider.build_lider(SEED, x, cfg, centroids=km.centroids, device=dev)
+        bad = mismatched(up.bank, full.bank, LIFE_BANK + QUANT_BANK)
+        a = lider.search_lider(up, q, k=10, n_probe=4)
+        b = lider.search_lider(full, q, k=10, n_probe=4)
+        if bad or not torch.equal(a.ids, b.ids):
+            raise AssertionError(f"{sd}: upsert differs from the rebuild in {bad} or the search ids")
+        done.append(sd)
+    log("lifecycle", "small int8 and int4 indexes (20,000 x 768, c=64): build(80%) + upsert(20%, "
+        "2 batches) == the frozen rebuild over 100%: codes, scales, rescore rows, sketches, keys, "
+        "positions, gids bit for bit; search ids equal")
+    return done
 
 
 def entry(name: str, calls: list[dict], launches: int, main_calls: list[dict]) -> dict:
@@ -714,8 +1348,31 @@ def entry(name: str, calls: list[dict], launches: int, main_calls: list[dict]) -
     }
 
 
+def build_entry(name: str, calls: list[dict], launches: int, timed: list[dict]) -> dict:
+    """A build kernel's JSON entry over one main-path build: ``launches``
+    is the count read around the main path's (first) build; ``ms``,
+    ``plain_ms``, ``product_ms`` and ``bound_ms`` sum every call of the
+    build that times each call alone (:func:`time_every_build_call`)."""
+    source, replaces = KERNELS[name]
+    mine = [t for t in timed if t["kernel"] == name]
+    if len(mine) != launches:
+        raise AssertionError(f"{name}: the timed build made {len(mine)} calls, the main build {launches}")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(v["max_abs_err"] for v in calls),
+        "ms": sum(t["ms"] for t in mine),
+        "plain_ms": sum(t["plain_ms"] for t in mine),
+        "bound_ms": sum(t["bound_ms"] for t in mine),
+        "bound_by": max(mine, key=lambda t: t["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "product_ms": sum(t["product_ms"] for t in mine),
+        "calls": calls,
+    }
+
+
 def main() -> int:
-    from repro_torch.configs.lider_msmarco import QUANTIZED
+    from repro_torch.configs.lider_msmarco import CONFIG, QUANTIZED
 
     t_start = time.perf_counter()
     device = phase_device()
@@ -725,7 +1382,8 @@ def main() -> int:
     phase_parity(dev)
     main_res = phase_main(dev)
     f32_calls = phase_shapes_f32(main_res)
-    for key in ("kernel_calls", "params"):
+    build_calls = phase_shapes_build(main_res)
+    for key in ("kernel_calls", "build_calls", "params"):
         main_res.pop(key)
     gc.collect()
     torch.cuda.empty_cache()
@@ -733,19 +1391,31 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     q4 = phase_quantized(dev, main_res, "int4", [p for p in QUANTIZED if p.storage_dtype == "int4"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lifecycle(dev, main_res)
     qcalls = q8["calls"] + q4["calls"]
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]
+    cfg = CONFIG.lider
+    counts, timed = main_res["build_launches"], main_res["build_timed"]
     kernels = [
         # fused_verify: the float main path (routing + in-cluster per batch).
-        entry("fused_verify", f32_calls + by("fused_verify"), main_res["launches"], f32_calls[:2]),
+        entry("fused_verify", f32_calls + by("fused_verify"), main_res["launches"][0], f32_calls[:2]),
         # sketch_prefilter: the Q4-sk path (one call per batch).
         entry("sketch_prefilter", by("sketch_prefilter"),
               q4["paths"]["Q4-sk"]["launches"][1], by("sketch_prefilter", "Q4-sk")),
         # fused_verify_grouped: the Q8-cm path (one call per batch).
         entry("fused_verify_grouped", by("fused_verify_grouped"),
               q8["paths"]["Q8-cm"]["launches"][2], by("fused_verify_grouped", "Q8-cm")),
+        # lsh_hash: the main build (bank-fit chunks + the centroid model).
+        build_entry("lsh_hash", [c for c in build_calls if c["kernel"] == "lsh_hash"] + by("lsh_hash"),
+                    counts[3], timed),
+        # kmeans_assign: the main build's k-means (Lloyd steps + the final assignment).
+        build_entry("kmeans_assign", [c for c in build_calls if c["kernel"] == "kmeans_assign"],
+                    counts[4], timed),
     ]
-    log("kernels", f"whole run {time.perf_counter() - t_start:.1f} s")
+    log("kernels", f"whole run {time.perf_counter() - t_start:.1f} s ({cfg.n_clusters} clusters: "
+        f"{counts[3]} lsh_hash and {counts[4]} kmeans_assign launches in the main build)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}),
           flush=True)

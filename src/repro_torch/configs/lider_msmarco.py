@@ -16,6 +16,13 @@ with two cuts:
 ``QUANTIZED`` holds the device-tier quantized operating points searched on
 the same corpus: the JAX package's own values (``LiderConfig.rescore_factor``
 default 4; ``BENCH_verify.json``: ``sketch_factor`` 4, ``block_q`` 8).
+
+``LIFECYCLE`` is the index-update scenario run on the same corpus: the JAX
+package's ``benchmarks/index_update.py`` split (build on 80%, upsert the
+other 20% in 4 batches by the exact route, layer 1 frozen), then a delete
+of 5% of the ids, drawn from the seed, with eager compaction of every
+touched cluster. (That benchmark deletes the first 1% of the ids; 5% drawn
+at random touches every cluster.)
 """
 import dataclasses
 
@@ -83,6 +90,21 @@ QUANTIZED = (
     OperatingPoint("Q4-sk", "int4", sketch_factor=4),  # sketch -> int4 -> rescore
     OperatingPoint("Q4-sk-cm", "int4", sketch_factor=4, block_q=8),
 )
+
+@dataclasses.dataclass(frozen=True)
+class Lifecycle:
+    """Build on ``1 - update_fraction`` of the corpus with the centroids
+    frozen, upsert the rest in ``upsert_batches`` batches, then delete
+    ``delete_fraction`` of the ids."""
+
+    update_fraction: float = 0.2
+    upsert_batches: int = 4
+    route: str = "exact"
+    delete_fraction: float = 0.05
+    refit_threshold: float = 0.0  # compact every touched cluster
+
+
+LIFECYCLE = Lifecycle()
 
 # Cuts from the reference configuration, in the order above.
 REDUCED = (

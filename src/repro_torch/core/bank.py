@@ -17,10 +17,12 @@ Quantized storage (int8 / int4) adds three tables:
     sketches     (c, Lp, w) int32    1-bit sign sketches, w = ceil(d/32) words
 
 Build: assign -> pack (capacity slots) -> store -> hash + sort + fit for all
-clusters, batched over clusters (:func:`refit_clusters`) in chunks that
-bound the temporaries. The fit hashes the rows as the first pass scores
-them: the dequantized codes of a quantized bank. The host rescore tier
-(``store``) stays ``None``: it is a later slice.
+clusters, batched over clusters (:func:`refit_clusters`) in fixed-size
+chunks (:func:`fit_chunks`) that bound the temporaries and give every fit
+one shape. The fit hashes the rows as the first pass scores them: the
+dequantized codes of a quantized bank. :func:`grow_bank` widens the slot
+axis for ``core.update``. The host rescore tier (``store``) stays
+``None``: it is a later slice.
 """
 from __future__ import annotations
 
@@ -143,25 +145,43 @@ def _cat_rmi(parts):
     )
 
 
-# Clusters fitted per batch in :func:`_fit_all_clusters`.
+# Clusters fitted per batch in :func:`fit_clusters`.
 _FIT_CHUNK = 64
 
 
-def _fit_all_clusters(lsh, rows, row_valid, *, n_leaves, scales=None, code_dtype="int8"):
-    """:func:`refit_clusters` over every cluster, ``_FIT_CHUNK`` clusters at
-    a time, so the (chunk, Lp, H*M) projection is the largest temporary.
-    With ``scales``, ``rows`` are codes, dequantized one chunk at a time."""
-    c = _FIT_CHUNK
+def fit_chunks(cids: torch.Tensor):
+    """Split cluster ids into batches of exactly ``_FIT_CHUNK``, the last
+    padded by repeating its last id; yields ``(ids, n_real)``.
 
-    def fit_rows(s):
-        if scales is None:
-            return rows[s : s + c]
-        return quant.dequantize_codes(rows[s : s + c], scales[s : s + c], code_dtype)
+    Every fit then runs at one shape, so its float32 sums take one order
+    whichever clusters share a batch: a cluster refit after an update is
+    fitted bit for bit as a build fits it.
+    """
+    for s in range(0, cids.shape[0], _FIT_CHUNK):
+        idx = cids[s : s + _FIT_CHUNK]
+        n_real = idx.shape[0]
+        if n_real < _FIT_CHUNK:
+            idx = torch.cat([idx, idx[-1:].expand(_FIT_CHUNK - n_real)])
+        yield idx, n_real
 
-    outs = [
-        refit_clusters(lsh, fit_rows(s), row_valid[s : s + c], n_leaves=n_leaves)
-        for s in range(0, rows.shape[0], c)
-    ]
+
+def fit_clusters(lsh, rows, row_valid, *, n_leaves, scales=None, code_dtype="int8", cids=None):
+    """:func:`refit_clusters` over clusters ``cids`` (default: all) of the
+    packed ``rows`` (c, Lp, d) and ``row_valid`` (c, Lp), in
+    :func:`fit_chunks` batches, so the (chunk, Lp, H*M) projection is the
+    largest temporary. With ``scales``, ``rows`` are codes, dequantized one
+    chunk at a time (the fit reads what the first pass scores). Returns
+    the four fit outputs for ``cids``, in order."""
+    if cids is None:
+        cids = torch.arange(rows.shape[0], device=rows.device)
+    outs = []
+    for idx, n_real in fit_chunks(cids):
+        r = rows[idx]
+        if scales is not None:
+            r = quant.dequantize_codes(r, scales[idx], code_dtype)
+        sk, sp, resc, rm = refit_clusters(lsh, r, row_valid[idx], n_leaves=n_leaves)
+        head = torch.arange(n_real, device=sk.device)
+        outs.append((sk[:n_real], sp[:n_real], resc.take(head), rm.take(head)))
     return (
         torch.cat([o[0] for o in outs]),
         torch.cat([o[1] for o in outs]),
@@ -248,7 +268,7 @@ def build_bank(
     )
     lsh = lsh_lib.make_lsh(generator, embs.shape[-1], n_arrays, key_len)
     code_dtype = storage_dtype if storage_dtype in QUANTIZED_DTYPES else "int8"
-    sorted_keys, sorted_pos, resc, r = _fit_all_clusters(
+    sorted_keys, sorted_pos, resc, r = fit_clusters(
         lsh, stored, gids >= 0, n_leaves=n_leaves, scales=emb_scales, code_dtype=code_dtype
     )
     bank = ClusterBank(
@@ -260,3 +280,38 @@ def build_bank(
         code_dtype=code_dtype,
     )
     return bank, n_dropped
+
+
+def grow_bank(bank: ClusterBank, new_capacity: int) -> ClusterBank:
+    """Grow the per-cluster slot axis ``Lp`` to ``new_capacity``.
+
+    Pads the sorted arrays with the sentinel key and ``sorted_pos`` -1
+    (padding sorts last, so sortedness and every fit statistic are kept and
+    no refit is needed), ``gids`` with -1, scales with 1.0 and codes, rescore
+    rows and sketches with zeros: a grown slot is what a fresh pack pads.
+    """
+    if bank.store is not None:
+        raise NotImplementedError("the host rescore tier is a later port slice")
+    lp = bank.capacity
+    if new_capacity < lp:
+        raise ValueError(f"cannot shrink capacity {lp} -> {new_capacity}")
+    if new_capacity == lp:
+        return bank
+    extra = new_capacity - lp
+
+    def slots(t, value=0):  # pad the slot axis: the last of (c, [H,] Lp)
+        return None if t is None else torch.nn.functional.pad(t, (0, extra), value=value)
+
+    def rows(t):  # pad the slot axis of (c, Lp, w)
+        return None if t is None else torch.nn.functional.pad(t, (0, 0, 0, extra))
+
+    return dataclasses.replace(
+        bank,
+        sorted_keys=slots(bank.sorted_keys, lsh_lib.UINT32_PAD),
+        sorted_pos=slots(bank.sorted_pos, -1),
+        embs=rows(bank.embs),
+        gids=slots(bank.gids, -1),
+        emb_scales=slots(bank.emb_scales, 1.0),
+        rescore_embs=rows(bank.rescore_embs),
+        sketches=rows(bank.sketches),
+    )

@@ -1,15 +1,18 @@
 """K-means clustering (paper Sec. 3.2 — LIDER Stage 1).
 
-Lloyd's algorithm. The assignment step is chunked over points so the
-(N, c) distance matrix never materialises: each chunk is one
-``torch.matmul`` plus an argmin, as in the JAX package (the ``kmeans_assign``
-kernel is not on that path).
+Lloyd's algorithm. The assignment step (:func:`assign_chunked`) runs
+through ``kernels.ops.kmeans_assign_op``: on the card one launch of the
+``kmeans_assign`` CUDA kernel over all N, which never builds the (N, c)
+distance matrix; on the CPU its plain version, a matmul plus an argmin over
+chunks of points, as in the JAX package.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from ..kernels.ops import kmeans_assign_op
 
 
 class KMeansResult(NamedTuple):
@@ -22,21 +25,11 @@ def assign_chunked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest-centroid assignment -> (assignment (N,) int32, min_dist (N,)).
 
-    Squared L2 via ``|x|^2 - 2 x.c + |c|^2`` so each chunk is one matmul;
-    ties go to the first minimum (``argmin``).
+    Squared L2 via ``|x|^2 - 2 x.c + |c|^2``; ties go to the first minimum.
+    ``chunk`` bounds the plain version's (chunk, c) distances on the CPU;
+    the kernel takes all N at once.
     """
-    n = x.shape[0]
-    c_sq = torch.sum(centroids * centroids, dim=-1)
-    assign = torch.empty((n,), dtype=torch.int32, device=x.device)
-    min_d = torch.empty((n,), dtype=torch.float32, device=x.device)
-    for s in range(0, n, chunk):
-        xc = x[s : s + chunk]
-        x_sq = torch.sum(xc * xc, dim=-1, keepdim=True)
-        d2 = x_sq - 2.0 * (xc @ centroids.T) + c_sq
-        a = torch.argmin(d2, dim=-1)
-        assign[s : s + chunk] = a.to(torch.int32)
-        min_d[s : s + chunk] = torch.gather(d2, 1, a[:, None])[:, 0]
-    return assign, min_d
+    return kmeans_assign_op(x, centroids, chunk=chunk)
 
 
 def kmeans_step(

@@ -5,7 +5,9 @@ big-endian, so numeric order of the packed key is the SK-LSH linear order.
 The JAX package holds keys as uint32; here they are int64, so the pad
 sentinel ``0xFFFFFFFF`` still sorts after every real key (as int32 it
 would sort first). Hash bits are signs of a float32 product: values next
-to 0 can flip between two BLAS libraries, which the tests measure.
+to 0 can flip between two summation orders, which the tests measure.
+:func:`hash_vectors` runs through ``kernels.ops.lsh_hash_op``: the
+``lsh_hash`` CUDA kernel on the card, its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import dataclasses
 import math
 
 import torch
+
+from ..kernels.ops import lsh_hash_op
 
 UINT32_PAD = 0xFFFFFFFF
 MAX_KEY_LEN = 31
@@ -44,20 +48,14 @@ def suggest_key_len(n_points: int) -> int:
     return max(4, min(MAX_KEY_LEN, math.ceil(math.log2(max(2, n_points)))))
 
 
-def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Pack (..., M) {0,1} bits big-endian into int64 keys."""
-    m = bits.shape[-1]
-    weights = torch.pow(
-        2, torch.arange(m - 1, -1, -1, device=bits.device, dtype=torch.int64)
-    )
-    return torch.sum(bits.to(torch.int64) * weights, dim=-1)
-
-
 def hash_vectors(params: LSHParams, x: torch.Tensor) -> torch.Tensor:
-    """Hash (..., dim) vectors into (..., H) packed int64 hashkeys."""
-    proj = x.to(torch.float32) @ params.projections  # (..., H*M)
-    bits = (proj >= 0.0).reshape(*x.shape[:-1], params.n_arrays, params.key_len)
-    return pack_bits(bits)
+    """Hash (..., dim) vectors into (..., H) packed int64 hashkeys (one
+    ``lsh_hash_op`` call over the rows flattened to (n, dim))."""
+    keys = lsh_hash_op(
+        x.reshape(-1, x.shape[-1]), params.projections,
+        n_arrays=params.n_arrays, key_len=params.key_len,
+    )
+    return keys.reshape(*x.shape[:-1], params.n_arrays)
 
 
 def mask_padded(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

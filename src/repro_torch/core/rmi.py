@@ -4,7 +4,9 @@ fitted in closed form with centered weighted least squares.
 
 Every function works on a batch of arrays at once (leading dims), in place
 of the JAX package's ``vmap``. Sums are float32 segment sums, so fitted
-parameters agree with the JAX package to float32 tolerance, not bit for bit.
+parameters agree with the JAX package to float32 tolerance, not bit for bit;
+on the card they are masked reductions, not atomics, so one shape always
+sums in one order.
 """
 from __future__ import annotations
 
@@ -54,8 +56,22 @@ def _leaf_of(root_w, root_b, x, length, n_leaves):
 
 
 def _segment_sum(vals, seg, n_leaves):
-    out = torch.zeros(*vals.shape[:-1], n_leaves, dtype=vals.dtype, device=vals.device)
-    return out.scatter_add_(-1, seg, vals)
+    """Per-leaf sums over the last axis, ``(..., L) -> (..., n_leaves)``.
+
+    On the CPU a ``scatter_add_``, which adds in index order, the order of
+    the JAX package's ``segment_sum`` there: a masked reduction sums in
+    another order and puts a leaf weight of
+    ``tests/test_torch_core.py::test_core_model_build_matches_jax`` outside
+    its tolerance. On the card ``scatter_add_`` adds in the order its
+    atomics land, which changes from run to run, so there the sums are
+    masked reductions: one order for every call of one shape, so a refit
+    reproduces a build's fit bit for bit.
+    """
+    if vals.device.type == "cpu":
+        out = torch.zeros(*vals.shape[:-1], n_leaves, dtype=vals.dtype, device=vals.device)
+        return out.scatter_add_(-1, seg, vals)
+    leaves = torch.arange(n_leaves, device=seg.device)[:, None]
+    return torch.where(seg.unsqueeze(-2) == leaves, vals.unsqueeze(-2), 0.0).sum(-1)
 
 
 def fit_rmi(keys: torch.Tensor, weights: torch.Tensor, n_leaves: int) -> RMIParams:

@@ -8,6 +8,10 @@
   (``csrc/sketch_prefilter.cu``).
 - ``fused_verify_grouped`` — the cluster-major first pass, one cluster tile
   against a tile of queries (``csrc/fused_verify_grouped.cu``).
+- ``lsh_hash`` — the sign bits of a float32 projection packed into keys
+  (``csrc/lsh_hash.cu``): every build, refit and query hash.
+- ``kmeans_assign`` — nearest-centroid assignment with a running first
+  argmin (``csrc/kmeans_assign.cu``): every Lloyd step and upsert.
 
 ``quant`` holds the storage schemes, ``schedule`` the cluster-major host
 schedule. Nothing here compiles or imports CUDA tooling at import time: a

@@ -18,59 +18,22 @@ that its main path went through the kernel.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import build, quant
+from . import quant
+from .launch import I as _I, LL as _LL, P as _P
+from .launch import bind as _bind, check as _check, launch as _launch, on_cuda as _on_cuda
 
 MAX_K = 4096  # the merge buffer (2 * next_pow2(2k) entries) must fit in shared memory
 MAX_BLOCK_Q = 16  # query slots per grouped step (registers of the grouped kernel)
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8, _INT4 = 2, 3
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-
-
-def _bind(library: str, symbol: str, argtypes):
-    fn = getattr(build.load_library(library), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _on_cuda(name: str, t: torch.Tensor, plain: str) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(
-            f"{name} runs on CUDA tensors, got {t.device}; the plain version is "
-            f"ref.{plain}"
-        )
-    return t.device
 
 
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
-
-
-def _launch(name: str, fn, *args, device) -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
 def fused_verify(

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 
 from . import fused_verify as _fv
+from . import kmeans_assign as _km
+from . import lsh_hash as _lsh
 from . import ref
 
 
@@ -104,3 +106,42 @@ def verify_topk_grouped_op(
         kp=kp,
         code_dtype=code_dtype,
     )
+
+
+def lsh_hash_op(
+    x: torch.Tensor, proj: torch.Tensor, *, n_arrays: int, key_len: int
+) -> torch.Tensor:
+    """(N, d) rows, (d, H*M) projections -> (N, H) int64 packed sign keys
+    (``lsh_hash`` on the card). float32 and bfloat16 rows are hashed as
+    they are; any other float type is widened to float32 first."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    if _on_cpu(x, "LSH hash"):
+        return ref.lsh_hash_ref(x, proj, n_arrays=n_arrays, key_len=key_len)
+    return _lsh.lsh_hash(
+        x.contiguous(), proj.to(torch.float32).contiguous(),
+        n_arrays=n_arrays, key_len=key_len,
+    )
+
+
+def kmeans_assign_op(
+    x: torch.Tensor, centroids: torch.Tensor, *, chunk: int = 4096
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest centroid -> (assignment (N,) int32, min squared L2 (N,)).
+
+    On the card one ``kmeans_assign`` launch covers all N (the kernel never
+    builds the (N, c) distances); the plain version runs ``chunk`` rows at
+    a time so its (chunk, c) distances stay small.
+    """
+    x = x.to(torch.float32)
+    centroids = centroids.to(torch.float32)
+    if not _on_cpu(x, "k-means assignment"):
+        return _km.kmeans_assign(x.contiguous(), centroids.contiguous())
+    n = x.shape[0]
+    assign = torch.empty((n,), dtype=torch.int32, device=x.device)
+    min_d = torch.empty((n,), dtype=torch.float32, device=x.device)
+    for s in range(0, n, chunk):
+        assign[s : s + chunk], min_d[s : s + chunk] = ref.kmeans_assign_ref(
+            x[s : s + chunk], centroids
+        )
+    return assign, min_d

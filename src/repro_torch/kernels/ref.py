@@ -1,6 +1,12 @@
 """Plain PyTorch versions of the kernels: the oracles the tests hold the
 CUDA kernels against, and the path ``ops`` takes for CPU tensors.
 
+``lsh_hash_ref`` and ``kmeans_assign_ref`` are the JAX package's
+``ref.lsh_hash_ref`` and ``ref.kmeans_assign_ref``: a float32 product, then
+the sign bits packed big-endian (keys as int64, like every key in the
+port), or the distances ``x_sq - 2 * (x @ c.T) + c_sq`` in that order with
+ties to the first minimum.
+
 Quantized scores are exact integer dot products of the codes, computed as a
 float product of the codes: exact while every partial sum stays below
 2**24 in float32 (d * 127**2 < 2**24, so d <= 1040) and in float64 beyond
@@ -25,6 +31,36 @@ def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for int8 codes at these widths)."""
     ft = torch.float32 if a.shape[-1] <= _F32_EXACT_DIM else torch.float64
     return torch.matmul(a.to(ft), b.to(ft).transpose(-1, -2)).to(torch.float32)
+
+
+def lsh_hash_ref(
+    x: torch.Tensor, proj: torch.Tensor, *, n_arrays: int, key_len: int
+) -> torch.Tensor:
+    """(N, d) float32 or bfloat16 x (d, H*M) float32 -> (N, H) int64 keys:
+    the sign bits of the float32 projection (``>= 0``), M per array, packed
+    big-endian. A bfloat16 row widens to float32 exactly."""
+    acc = x.to(torch.float32) @ proj.to(torch.float32)
+    bits = (acc >= 0.0).reshape(x.shape[0], n_arrays, key_len).to(torch.int64)
+    weights = torch.pow(
+        2, torch.arange(key_len - 1, -1, -1, device=x.device, dtype=torch.int64)
+    )
+    return torch.sum(bits * weights, dim=-1)
+
+
+def kmeans_assign_ref(
+    x: torch.Tensor, centroids: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, d), (c, d) -> (assignment (N,) int32, min squared L2 (N,)
+    float32), the distance ``x_sq - 2 * (x @ c.T) + c_sq`` in that order and
+    ties to the first minimum (``torch.argmin``). Materializes the (N, c)
+    distances: callers chunk N."""
+    x = x.to(torch.float32)
+    c = centroids.to(torch.float32)
+    x_sq = torch.sum(x * x, dim=-1, keepdim=True)
+    c_sq = torch.sum(c * c, dim=-1)
+    d2 = x_sq - 2.0 * (x @ c.T) + c_sq
+    a = torch.argmin(d2, dim=-1)
+    return a.to(torch.int32), torch.gather(d2, 1, a[:, None])[:, 0]
 
 
 def verify_topk_ref(

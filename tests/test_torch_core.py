@@ -254,7 +254,7 @@ def test_refit_all_clusters_matches_jax_given_projections(monkeypatch):
     jk, jp, jres, jr = jbank._fit_all_clusters(jl, jnp.asarray(rows), jnp.asarray(valid), n_leaves=5)
     tl = lsh.LSHParams(projections=_t(proj), n_arrays=8, key_len=12)
     monkeypatch.setattr(bank, "_FIT_CHUNK", 3)  # 10 clusters over 4 chunks, the last partial
-    tk, tp, tres, tr = bank._fit_all_clusters(tl, _t(rows), _t(valid), n_leaves=5)
+    tk, tp, tres, tr = bank.fit_clusters(tl, _t(rows), _t(valid), n_leaves=5)
     np.testing.assert_array_equal(
         bank.gather_cluster_rows(_t(x), _t(_np(jg))).numpy(), rows
     )

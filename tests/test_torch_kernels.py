@@ -187,23 +187,38 @@ def test_cuda_kernel_matches_plain_version(dtype):
         assert (gi[-1] == -1).all().item()
 
 
+def _query_keys_agree(cpu, gpu, q):
+    """The queries' hash keys on the card (``lsh_hash``) against the CPU's
+    (its plain version): every flipped bit within the rounding bound.
+    Returns the (B,) mask of queries whose keys agree."""
+    from repro_torch.testing import query_key_flips, query_keys
+
+    same, _ = query_key_flips(cpu, q, query_keys(gpu, q.to("cuda")).cpu(), query_keys(cpu, q))
+    return same
+
+
 @pytest.mark.gpu
 def test_cuda_search_matches_cpu_search():
     """A small index built on the CPU, moved to the card: the search there
-    (the kernel) returns the CPU search's ids (the plain version)."""
+    (the kernels) returns the CPU search's ids (the plain versions) for
+    every query whose hash keys agree on the two; a query key may differ
+    only by bits within float32 rounding of 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.core import lider
     from repro_torch.data import synthetic
+    from repro_torch.kernels.lsh_hash import lsh_hash
 
     x = synthetic.retrieval_corpus(0, 3000, 64, device="cpu")
     q, _ = synthetic.retrieval_queries(1, x, 32)
     cpu = lider.build_lider(0, x, lider.LiderConfig(n_clusters=16, n_probe=4), device="cpu")
+    gpu = cpu.to("cuda")
+    same = _query_keys_agree(cpu, gpu, q)
     want = lider.search_lider(cpu, q, k=10, n_probe=4)
-    before = fused_verify.launches
-    got = lider.search_lider(cpu.to("cuda"), q, k=10, n_probe=4)
-    assert fused_verify.launches == before + 2
-    assert_topk_match(got.ids, got.scores, want.ids, want.scores)
+    before = (fused_verify.launches, lsh_hash.launches)
+    got = lider.search_lider(gpu, q, k=10, n_probe=4)
+    assert (fused_verify.launches, lsh_hash.launches) == (before[0] + 2, before[1] + 2)
+    assert_topk_match(got.ids[same.cuda()], got.scores[same.cuda()], want.ids[same], want.scores[same])
 
 
 def _gpu_quantized_case(seed, n, d, b, c, k):
@@ -317,8 +332,9 @@ def test_cuda_grouped_kernel_matches_plain_version(code_dtype):
 def test_cuda_quantized_search_matches_cpu_search(storage_dtype):
     """A small quantized index built on the CPU, moved to the card: every
     spelling of the search there (kernels) returns the CPU search's ids
-    (plain versions); the first-pass kernels score bit-exactly, the float32
-    rescore to the stated tolerance."""
+    (plain versions) for every query whose hash keys agree on the two (a
+    key may differ only within float32 rounding); the first-pass kernels
+    score bit-exactly, the float32 rescore to the stated tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.core import lider
@@ -330,6 +346,7 @@ def test_cuda_quantized_search_matches_cpu_search(storage_dtype):
     cpu = lider.build_lider(0, x, lider.LiderConfig(n_clusters=16, n_probe=4, storage_dtype=storage_dtype),
                             device="cpu")
     gpu = cpu.to("cuda")
+    same = _query_keys_agree(cpu, gpu, q)
     for kw, launches in (({}, (3, 0, 0)), ({"sketch_factor": 4}, (3, 1, 0)),
                          ({"block_q": 8}, (2, 0, 1)), ({"sketch_factor": 4, "block_q": 8}, (2, 1, 1))):
         want = lider.search_lider(cpu, q, k=10, n_probe=4, **kw)
@@ -337,5 +354,5 @@ def test_cuda_quantized_search_matches_cpu_search(storage_dtype):
         got = lider.search_lider(gpu, q, k=10, n_probe=4, **kw)
         after = (fused_verify.launches, sketch_prefilter.launches, fused_verify_grouped.launches)
         assert tuple(a - b for a, b in zip(after, before)) == launches, kw
-        assert_topk_match(got.ids, got.scores, want.ids, want.scores)
+        assert_topk_match(got.ids[same.cuda()], got.scores[same.cuda()], want.ids[same], want.scores[same])
 
