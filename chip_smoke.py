@@ -15,7 +15,13 @@ Phases, each printing its lines; any failure exits non-zero:
                bfloat16, int8 and packed-int4 tables, ``sketch_prefilter``,
                ``fused_verify_grouped`` on schedules with padding steps and
                empty slots. Quantized and sketch kernels must be bit-equal
-               (ids and scores). Then a small quantized index: a covering
+               (ids and scores). Then the cases that reach the per-query
+               kernels' (query, chunk) split: one id repeated across every
+               chunk, a chunk of only invalid ids, ties at the k-th score
+               straddling chunk boundaries, C not a multiple of the chunk,
+               k = C, and a LIDER-like candidate layout at full width
+               (bit-equal on int8, int4 and sketch tables). Then a small
+               quantized index: a covering
                ``sketch_factor`` and the cluster-major schedule give the
                unfiltered search, bit for bit. Then the build kernels:
                ``lsh_hash`` (N off every tile, d in {8, 33, 768}, H=1, M in
@@ -43,7 +49,12 @@ Phases, each printing its lines; any failure exits non-zero:
                search batch's), on the arguments it was given, held against
                the plain version over the whole call and timed with CUDA
                events beside its bound (and, for the build kernels, beside
-               the cuBLAS product alone).
+               the cuBLAS product alone; for ``fused_verify`` and
+               ``sketch_prefilter``, beside the per-query floor: the
+               distinct (query, row) pairs read once each, and for a
+               multi-chunk call its chunks alone, without the final
+               merges). Then the in-cluster shape on traffic without
+               repeated rows (float32, int8, sketch), timed the same way.
 6. quantized — the float index is freed, then the int8 and the int4 index
                are built at full width in turn, and 4 x 256 queries run on
                each quantized operating point (Q8, Q8-cm on int8; Q4-sk,
@@ -51,7 +62,7 @@ Phases, each printing its lines; any failure exits non-zero:
                batch, Q8-cm == Q8 and Q4-sk-cm == Q4-sk bit for bit, the
                first 8 queries against the all-plain search, the schedule's
                sharing, the shapes phase on each path's kernel calls, and a
-               trace of one Q4-sk-cm batch.
+               trace of one Q8, one Q8-cm and one Q4-sk-cm batch.
 7. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
                path's centroids frozen and the capacity fixed from the full
                assignment: build on 80%, upsert 20% in 4 batches, equal bit
@@ -401,8 +412,85 @@ def phase_parity(dev) -> float:
             n_g += 1
     log("parity", f"fused_verify_grouped int8 + int4: {n_g} schedules (padding steps, empty "
         "slots, sparse masks, dead tiles, staging merges) bit-equal to the plain version")
+    worst = max(worst, phase_parity_chunks(dev))
     phase_parity_search(dev)
     return max(worst, phase_parity_build(dev))
+
+
+def _chunk_case(g, dev, kind: str, n: int, b: int, c: int):
+    """Unit-norm rows (d=768) and candidates that reach the (query, chunk)
+    split of ``fused_verify`` and ``sketch_prefilter``."""
+    from repro_torch.core.utils import l2_normalize
+    from repro_torch.kernels.fused_verify import split_candidates
+
+    embs = l2_normalize(torch.randn((n, 768), generator=g, device=dev))
+    rows = torch.randint(0, n, (b, c), generator=g, device=dev, dtype=torch.int32)
+    out = rows.clone()
+    _, chunk = split_candidates(c)
+    if kind == "one id in every chunk":
+        rows[:, ::97] = 5
+        out = rows.clone()
+    elif kind == "a chunk of only invalid ids":
+        out[:, chunk : 2 * chunk] = -1
+    elif kind == "ties at the k-th score across chunks":
+        embs = embs[torch.arange(n, device=dev) % 300]  # ~n/300 ids share each score
+    elif kind == "LIDER-like windows":  # 10 windows of 400 over each probed cluster
+        lp, size = 2584, 1024
+        cid = torch.randint(0, n // lp, (b, c // 4000), generator=g, device=dev)
+        pos = torch.randint(0, size, (b, c), generator=g, device=dev)
+        rows = (cid.repeat_interleave(4000, dim=1) * lp + pos).to(torch.int32)
+        out = rows.clone()
+        out[torch.rand((b, c), generator=g, device=dev) < 0.05] = -1
+    q = l2_normalize(torch.randn((b, 768), generator=g, device=dev))
+    return embs, rows.contiguous(), out.contiguous(), q
+
+
+CHUNK_CASES = [  # (kind, n, b, c, k); the chunks are split_candidates(c)
+    ("one id in every chunk", 20_000, 3, 12_000, 100),
+    ("a chunk of only invalid ids", 20_000, 3, 12_000, 400),
+    ("ties at the k-th score across chunks", 20_000, 3, 9_001, 100),
+    ("C not a multiple of the chunk", 20_000, 3, 80_003, 400),
+    ("k = C", 20_000, 3, 4_096, 4_096),
+    ("k = C", 20_000, 3, 3_000, 3_000),
+    ("k above a chunk's distinct rows", 3_000, 3, 9_000, 4_096),
+    ("LIDER-like windows", 1_048_576, 8, 80_000, 400),
+]
+
+
+def phase_parity_chunks(dev) -> float:
+    """The per-query kernels' (query, chunk) split against the plain
+    versions: quantized and sketch tables bit-equal, float32 ids equal."""
+    from repro_torch.kernels import quant, ref
+    from repro_torch.kernels.fused_verify import fused_verify, sketch_prefilter, split_candidates
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    worst, n_bit = 0.0, 0
+    for kind, n, b, c, k in CHUNK_CASES:
+        embs, rows, out, q = _chunk_case(g, dev, kind, n, b, c)
+        got = fused_verify(embs, rows, q, k=k, out_ids=out)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(got, ref.verify_topk_ref(embs, rows, q, k=k, out_ids=out))[0])
+        for code in ("int8", "int4"):
+            codes, scales = (quant.quantize_rows if code == "int8" else quant.quantize_rows_int4)(embs)
+            kw = dict(k=k, out_ids=out, scales=scales, code_dtype=code)
+            got = fused_verify(codes, rows, q, **kw)
+            torch.cuda.synchronize()
+            if not bit_equal(got, ref.verify_topk_ref(codes, rows, q, **kw)):
+                raise AssertionError(f"fused_verify {code} differs from its plain version: {kind}")
+            n_bit += 1
+        sk = quant.sketch_rows(embs)
+        got = sketch_prefilter(sk, rows, q, k=k, out_ids=out)
+        torch.cuda.synchronize()
+        if not bit_equal(got, ref.sketch_topk_ref(sk, rows, q, k=k, out_ids=out)):
+            raise AssertionError(f"sketch_prefilter differs from its plain version: {kind}")
+        n_bit += 1
+        del embs, rows, out, q
+    log("parity", f"(query, chunk) split: {len(CHUNK_CASES)} cases ("
+        + "; ".join(f"{kind} C={c} k={k} in {split_candidates(c)[0]} chunks"
+                    for kind, _, _, c, k in CHUNK_CASES)
+        + f"): int8, int4 and sketch {n_bit} calls bit-equal to the plain version, float32 ids "
+        f"equal (max |score err| {worst:.3g})")
+    return worst
 
 
 def phase_parity_search(dev) -> None:
@@ -648,7 +736,7 @@ def phase_main(dev) -> dict:
         raise AssertionError(f"recall@{k} {rec} below {RECALL_FLOOR}")
 
     log("main", first_eight(params, search, batches[0][:8]))
-    phase_trace("trace", search, batches[1], med)
+    phase_trace("trace F32", search, batches[1], med)
     return {
         "kernel_calls": kernel_calls, "build_calls": build_calls, "launches": counts,
         "build_launches": first.counts, "build_timed": timed, "recall": rec, "latency_ms": med,
@@ -817,6 +905,33 @@ def phase_trace(phase: str, search, qb, batch_ms: float) -> None:
         + "; top: " + "; ".join(f"{n[:60]} {v / 1e3:.3f} ms" for n, v in top))
 
 
+def verify_counts(name: str, args, kw) -> tuple:
+    """What a ``fused_verify`` or ``sketch_prefilter`` call must move:
+    ``(distinct valid rows, distinct valid (query, row) pairs, bytes of a
+    row (with its scale on quantized tables), bytes of the id arrays,
+    queries and outputs, operations per pair, the peak rate of their
+    type)``. Operations: 2d per pair for a dot product, 2w per pair for a
+    w-word XOR + popcount."""
+    table, row_ids, q = args
+    out = kw.get("out_ids")
+    out = row_ids if out is None else out
+    b, k = q.shape[0], kw["k"]
+    valid = out >= 0
+    rows = row_ids.to(torch.int64)
+    distinct = int(torch.unique(rows[valid]).numel())
+    pairs = int(torch.unique(
+        (torch.arange(b, device=rows.device)[:, None] * table.shape[0] + rows)[valid]).numel())
+    if name == "sketch_prefilter":
+        row_bytes, per_pair, peak = table.shape[1] * 4, 2 * table.shape[1], PEAK_OPS[torch.int8]
+    elif kw.get("scales") is not None:
+        row_bytes, per_pair, peak = table.shape[1] + 4, 2 * q.shape[1], PEAK_OPS[torch.int8]
+    else:
+        row_bytes = table.shape[1] * table.element_size()
+        per_pair, peak = 2 * q.shape[1], PEAK_OPS[table.dtype]
+    id_bytes = row_ids.numel() * 4 * (1 if out.data_ptr() == row_ids.data_ptr() else 2)
+    return distinct, pairs, row_bytes, id_bytes + q.numel() * 4 + b * k * 8, per_pair, peak
+
+
 def bound(name: str, args, kw) -> tuple[float, str]:
     """Least time for the call: each input read once and each output
     written once over the memory rate, or the operations over the peak rate
@@ -838,27 +953,38 @@ def bound(name: str, args, kw) -> tuple[float, str]:
                    + s_steps * block_q * kw["kp"] * 8)
         ops, peak = 2 * q.shape[1] * int((slot_ids >= 0).sum()), PEAK_OPS[torch.int8]
     else:
-        table, row_ids, q = args
-        out = kw.get("out_ids")
-        out = row_ids if out is None else out
-        b, k = q.shape[0], kw["k"]
-        valid = out >= 0
-        rows = row_ids.to(torch.int64)
-        distinct = int(torch.unique(rows[valid]).numel())
-        pairs = int(torch.unique(
-            (torch.arange(b, device=rows.device)[:, None] * table.shape[0] + rows)[valid]).numel())
-        if name == "sketch_prefilter":
-            row_bytes, per_pair, peak = table.shape[1] * 4, 2 * table.shape[1], PEAK_OPS[torch.int8]
-        elif kw.get("scales") is not None:
-            row_bytes, per_pair, peak = table.shape[1] + 4, 2 * q.shape[1], PEAK_OPS[torch.int8]
-        else:
-            row_bytes = table.shape[1] * table.element_size()
-            per_pair, peak = 2 * q.shape[1], PEAK_OPS[table.dtype]
-        id_bytes = row_ids.numel() * 4 * (1 if out.data_ptr() == row_ids.data_ptr() else 2)
-        n_bytes = distinct * row_bytes + id_bytes + q.numel() * 4 + b * k * 8
-        ops = per_pair * pairs
+        distinct, pairs, row_bytes, other_bytes, per_pair, peak = verify_counts(name, args, kw)
+        n_bytes, ops = distinct * row_bytes + other_bytes, per_pair * pairs
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def per_query_floor(name: str, args, kw) -> tuple[int, float]:
+    """``(pairs, ms)``: the distinct valid (query, row) pairs of a
+    ``fused_verify`` or ``sketch_prefilter`` call, and the least time of a
+    kernel that loads each pair's row once: those rows' bytes with the id
+    arrays, queries and outputs, over the memory rate. ``bound`` counts each
+    row once per call, which only a cluster-major schedule approaches."""
+    _, pairs, row_bytes, other_bytes, _, _ = verify_counts(name, args, kw)
+    return pairs, (pairs * row_bytes + other_bytes) / PEAK_BYTES_PER_S * 1e3
+
+
+def chunks_alone(args, kw):
+    """A multi-chunk call's candidates recast as one chunk per query row,
+    (B * n_chunks, chunk) with each query repeated: the same chunk work
+    without the final merge of each query's partial lists. None where the
+    call is one chunk or C is not a whole number of chunks."""
+    from repro_torch.kernels.fused_verify import split_candidates
+
+    table, rows, q = args
+    out = kw.get("out_ids")
+    out = rows if out is None else out
+    b, c = rows.shape
+    n_chunks, chunk = split_candidates(c)
+    if n_chunks == 1 or c != n_chunks * chunk:
+        return None
+    return ((table, rows.reshape(b * n_chunks, chunk), q.repeat_interleave(n_chunks, dim=0)),
+            dict(kw, out_ids=out.reshape(b * n_chunks, chunk)))
 
 
 def plain_chunked(name: str, args, kw, chunk: int):
@@ -885,12 +1011,14 @@ def describe(name: str, args, kw) -> dict:
         return {"table": kw.get("code_dtype", "int8"), "S": sc.shape[0], "block_q": sq.shape[1],
                 "Lp": ss.shape[2], "N": embs.shape[0] * embs.shape[1], "d": q.shape[1],
                 "B": q.shape[0], "k": kw["kp"]}
+    from repro_torch.kernels.fused_verify import split_candidates
+
     table, rows, q = args
     kind = ("sketch" if name == "sketch_prefilter" else
             kw.get("code_dtype", "int8") if kw.get("scales") is not None else
             str(table.dtype).removeprefix("torch."))
     return {"table": kind, "B": rows.shape[0], "C": rows.shape[1], "N": table.shape[0],
-            "d": q.shape[1], "k": kw["k"]}
+            "d": q.shape[1], "k": kw["k"], "chunks": split_candidates(rows.shape[1])[0]}
 
 
 def time_call(path: str, role: str, name: str, args, kw, *, reps: int, chunk: int) -> dict:
@@ -914,13 +1042,23 @@ def time_call(path: str, role: str, name: str, args, kw, *, reps: int, chunk: in
     res = {"kernel": name, "path": path, "call": role, **describe(name, args, kw), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "max_abs_err": err, "swaps_admitted": swaps, "bit_equal": exact}
+    floor = ""
+    if name != "fused_verify_grouped":
+        pairs, floor_ms = per_query_floor(name, args, kw)
+        floor = (f", per-query floor {floor_ms:.4f} ms ({pairs} distinct (query, row) pairs, "
+                 f"{floor_ms / ms:.1%} of it)")
+        alone = chunks_alone(args, kw)
+        if alone is not None:
+            res["chunks_ms"] = cuda_ms(lambda: wrappers()[name](*alone[0], **alone[1]), reps)
+            floor += (f"; its chunks alone {res['chunks_ms']:.4f} ms, so the final merges cost "
+                      f"~{ms - res['chunks_ms']:.4f} ms")
     shape = ", ".join(f"{k}={v}" for k, v in describe(name, args, kw).items())
     log("shapes", f"{path} {role}: {name} [{shape}]: "
         + ("ids and scores bit-equal to" if exact else f"ids equal ({swaps} near-tie swaps), max "
            f"|score err| {err:.3g} vs") + f" the plain version over the whole call (chunks of "
         f"{chunk}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}, {bound_ms / ms:.1%} of it); no single PyTorch call computes gather + "
-        "dedup top-k, so no library time")
+        f"({bound_by}, {bound_ms / ms:.1%} of it){floor}; no single PyTorch call computes "
+        "gather + dedup top-k, so no library time")
     return res
 
 
@@ -939,6 +1077,30 @@ def phase_shapes_f32(main) -> list[dict]:
             res.append(time_call(path, role, name, args, kw, reps=reps, chunk=chunk))
             del args
     return res
+
+
+def phase_shapes_distinct(dev) -> None:
+    """The in-cluster calls' shape (B=256, C=80,000, N=1,048,576, d=768) on
+    traffic without repeats: rows drawn uniformly over N, so a chunk of
+    4,000 candidates holds ~3,990 distinct rows where a LIDER chunk holds
+    ~730, which fills the kernels' 4,096-slot hash set to ~97%. Each kernel
+    is held to its plain version and timed beside its per-query floor,
+    which here is about every candidate's row."""
+    from repro_torch.core.utils import l2_normalize
+    from repro_torch.kernels import quant
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n, c, path = 1_048_576, 80_000, "distinct rows"
+    embs = l2_normalize(torch.randn((n, 768), generator=g, device=dev))
+    rows = torch.randint(0, n, (BATCH, c), generator=g, device=dev, dtype=torch.int32)
+    q = l2_normalize(torch.randn((BATCH, 768), generator=g, device=dev))
+    time_call(path, "float32", "fused_verify", (embs, rows, q), {"k": 100}, reps=3, chunk=8)
+    codes, scales = quant.quantize_rows(embs)
+    time_call(path, "int8", "fused_verify", (codes, rows, q),
+              {"k": 400, "scales": scales, "code_dtype": "int8"}, reps=5, chunk=8)
+    del codes, scales
+    time_call(path, "sketch", "sketch_prefilter", (quant.sketch_rows(embs), rows, q), {"k": 1600},
+              reps=5, chunk=8)
 
 
 def build_call_model(name: str, args, kw):
@@ -1127,10 +1289,9 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
                 res = time_call(op.name, role, name, args, kw, reps=reps, chunk=chunk)
             res["launches_per_batch"] = PER_BATCH[op.name][list(KERNELS).index(name)]
             out["calls"].append(res)
-    if storage == "int4":
-        last = points[-1]
-        phase_trace("trace", out["paths"][last.name]["search"], batches[1],
-                    out["paths"][last.name]["latency_ms"])
+    for name in ("Q8", "Q8-cm") if storage == "int8" else ("Q4-sk-cm",):
+        traced = out["paths"][name]
+        phase_trace(f"trace {name}", traced["search"], batches[1], traced["latency_ms"])
     for p in out["paths"].values():
         p.pop("search")
     del params, b
@@ -1383,6 +1544,7 @@ def main() -> int:
     main_res = phase_main(dev)
     f32_calls = phase_shapes_f32(main_res)
     build_calls = phase_shapes_build(main_res)
+    phase_shapes_distinct(dev)
     for key in ("kernel_calls", "build_calls", "params"):
         main_res.pop(key)
     gc.collect()

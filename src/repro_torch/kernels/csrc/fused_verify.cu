@@ -1,5 +1,5 @@
 // fused_verify: gather candidate rows by id, score them against the query,
-// and keep a deduplicated top-k, in one pass per query row.
+// and keep a deduplicated top-k per query row.
 //
 // Replaces the TPU kernel repro/kernels/fused_verify.py::fused_verify
 // (_fused_verify_kernel): its float32, bfloat16, int8 and packed-int4
@@ -21,25 +21,32 @@
 //         unpacked order, and the int32 sum is exact in any order;
 //   * candidates with out_ids < 0 score -inf and are never loaded;
 //   * keep the top-k deduplicated by out_ids: scores descending, ties to the
-//     smallest id, (-1, -inf) past the number of unique valid ids;
-//   * a tile whose candidates are all invalid is skipped: no loads, no merge.
+//     smallest id, (-1, -inf) past the number of unique valid ids.
 //
 // What bounds it on an H100: bytes. Each candidate costs 2*d operations
 // against d*4 (f32), d*2 (bf16), d (int8) or d/2 (int4) bytes of row, far
 // below the card's operations-per-byte balance, so the floor is reading each
 // distinct candidate row (and its scale) once plus the (B, C) id arrays.
-// The design for that floor:
-//   * 16-byte vector loads through the read-only path, one warp per row,
-//     U rows in flight per warp to hide latency;
+// LIDER's in-cluster call repeats rows: H windows of R sorted positions in
+// each probed cluster overlap, so a query's 80,000 candidates hold about a
+// fifth as many distinct rows. The design (topk.cuh's chunk_topk):
+//   * a (query, chunk) grid: a query's candidates are cut into chunks of at
+//     most 4,096 (one probed cluster's H * R at the main path's shapes), one
+//     block each, so B * n_chunks blocks fill the card; the last block of a
+//     query merges the partial top-ks;
+//   * each block puts its chunk's (row, out id) pairs in a hash set in
+//     shared memory and loads every distinct row once, with 16-byte loads
+//     through the read-only path: one warp per float row, 4 rows in flight
+//     a warp; integer rows take 8 or 16 lanes each (lanes_per_row), so a
+//     warp keeps 8 or 16 rows in flight with every lane loading;
+//   * survivors of the current k-th score are staged; the merge sort runs
+//     only when the staging area fills, and at the chunk's end;
 //   * the row scale is read by id inside the kernel, so the (B, C) combined
 //     scale array the JAX wrapper builds is never written;
-//   * invalid candidates and rows whose score falls below the current k-th
-//     score never enter the merge (topk.cuh), so after warm-up most tiles
-//     cost only their loads;
 //   * offsets into the table are 64-bit: a 1M x 768 table has element
 //     offsets past 2^31.
-// Duplicate ids are still loaded once per occurrence (the L2 cache absorbs
-// most of the repeats); loading each distinct row once is later work.
+// A row's score is the same lane-strided chunks and xor-shuffle reduction
+// wherever it is computed, so every block scores a row bit-identically.
 
 #include "topk.cuh"
 
@@ -47,7 +54,7 @@ namespace {
 
 using topk::kThreads;
 using topk::kWarps;
-constexpr int kRowsPerWarp = 4;  // rows in flight per warp
+constexpr int kRowsPerWarp = 4;  // rows in flight per lane group (4 * 32 / G a warp)
 
 enum Mode { kF32 = 0, kBF16 = 1, kInt8 = 2, kInt4 = 3 };
 
@@ -207,58 +214,77 @@ __device__ __forceinline__ typename Traits<MODE>::Acc elem(
   }
 }
 
-// One block per query row. Dynamic shared memory: q_s[d_pad] f32, then the
-// top-k buffers of topk::query_topk.
-template <int MODE, bool VEC>
+// Lanes that share one row: 32 for float tables, so every row is summed in
+// one fixed order; for integer codes (exact in any order) the fewest that
+// still give each lane 3 or more 16-byte chunks, so no lane idles and a
+// warp keeps 32 / G rows of each step in flight.
+inline int lanes_per_row(int mode, int n_vec) {
+  int g = 32;
+  if (mode == kInt8 || mode == kInt4)
+    while (g > 8 && n_vec < 3 * g) g >>= 1;
+  return g;
+}
+
+// One block per (query row, chunk): blockIdx.x = b * n_chunks + part.
+// Dynamic shared memory: q_s[d_pad] f32, then chunk_topk's buffers.
+template <int MODE, bool VEC, int G>
 __global__ void __launch_bounds__(kThreads)
     fused_verify_kernel(const void* __restrict__ embs, long long n_rows, int d,
                         const float* __restrict__ scales,
                         const int* __restrict__ row_ids,
                         const int* __restrict__ out_ids,
                         const void* __restrict__ queries,
-                        const float* __restrict__ q_scales, int c, int k,
-                        int* __restrict__ ids_out,
-                        float* __restrict__ scores_out) {
+                        const float* __restrict__ q_scales, int c, int chunk_len,
+                        int n_chunks, int k, int* __restrict__ ids_out,
+                        float* __restrict__ scores_out, topk::Workspace ws) {
   using Acc = typename Traits<MODE>::Acc;
   constexpr bool kQuant = MODE == kInt8 || MODE == kInt4;
+  constexpr int kGroups = 32 / G;  // rows per warp step
   extern __shared__ __align__(16) unsigned char smem[];
   const int d_log = MODE == kInt4 ? 2 * d : d;  // d is the stored width
   const int d_pad = (d_log + 7) & ~7;
   float* q_s = reinterpret_cast<float*>(smem);
   const int lane = threadIdx.x & 31;
+  const int grp = lane / G;
+  const int gl = lane % G;
   const int warp = threadIdx.x >> 5;
-  const long long b = blockIdx.x;
+  const long long b = blockIdx.x / n_chunks;
+  const int part = static_cast<int>(blockIdx.x - b * n_chunks);
   const size_t row_bytes = static_cast<size_t>(d) * Traits<MODE>::kBytes;
   const char* table = reinterpret_cast<const char*>(embs);
   const float q_scale = kQuant ? q_scales[b] : 1.f;
 
-  stage_query<MODE>(q_s, d_pad, queries, b, d_log);  // query_topk syncs
+  stage_query<MODE>(q_s, d_pad, queries, b, d_log);  // chunk_topk syncs
 
-  auto score_tile = [&](const int* t_row, const int* t_oid, int t_len,
-                        float thr, float* o_sc, int* o_id) -> int {
-    const float neg_inf = topk::neg_inf();
-    int survived = 0;
-    for (int t0 = warp * kRowsPerWarp; t0 < t_len; t0 += kWarps * kRowsPerWarp) {
+  // Warp w scores heads h0 + u * kGroups + grp, u < kRowsPerWarp, for h0
+  // in steps of kWarps * kRowsPerWarp * kGroups.
+  auto score_rows = [&](unsigned long long* keys, const unsigned short* heads,
+                        int n_heads) {
+    constexpr int kStep = kWarps * kRowsPerWarp * kGroups;
+    for (int h0 = warp * kRowsPerWarp * kGroups; h0 < n_heads; h0 += kStep) {
       bool val[kRowsPerWarp];
+      int slot[kRowsPerWarp];
       const char* rows[kRowsPerWarp];
       Acc acc[kRowsPerWarp];
 #pragma unroll
       for (int u = 0; u < kRowsPerWarp; ++u) {
-        const int t = t0 + u;
-        val[u] = t < t_len && t_oid[t] >= 0;
-        rows[u] = table + static_cast<size_t>(val[u] ? t_row[t] : 0) * row_bytes;
+        const int h = h0 + u * kGroups + grp;
+        val[u] = h < n_heads;
+        slot[u] = val[u] ? heads[h] : 0;
+        const long long row = val[u] ? static_cast<long long>(keys[slot[u]] >> 32) : 0;
+        rows[u] = table + static_cast<size_t>(row) * row_bytes;
         acc[u] = 0;
       }
       if (VEC) {
         const int n_vec = static_cast<int>(row_bytes / 16);
 #pragma unroll 2
-        for (int v = lane; v < n_vec; v += 32) {
+        for (int v = gl; v < n_vec; v += G) {
 #pragma unroll
           for (int u = 0; u < kRowsPerWarp; ++u)
             if (val[u]) acc[u] = chunk<MODE>(rows[u], v, q_s, acc[u]);
         }
       } else {
-        for (int e = lane; e < d_log; e += 32) {
+        for (int e = gl; e < d_log; e += G) {
 #pragma unroll
           for (int u = 0; u < kRowsPerWarp; ++u)
             if (val[u]) acc[u] = elem<MODE>(rows[u], e, q_s, acc[u]);
@@ -267,66 +293,69 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kRowsPerWarp; ++u) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
+        for (int off = G / 2; off > 0; off >>= 1)
           acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
       }
-      if (lane == 0) {
+      if (gl == 0) {
 #pragma unroll
         for (int u = 0; u < kRowsPerWarp; ++u) {
-          const int t = t0 + u;
-          if (t >= t_len) break;
-          float sc = 0.f;
+          if (!val[u]) break;
+          const unsigned long long key = keys[slot[u]];
+          float sc;
           if constexpr (kQuant) {
-            const float comb = val[u] ? __fmul_rn(scales[t_row[t]], q_scale) : 0.f;
-            sc = __fmul_rn(__int2float_rn(static_cast<int>(acc[u])), comb);
+            sc = __fmul_rn(__int2float_rn(static_cast<int>(acc[u])),
+                           __fmul_rn(scales[key >> 32], q_scale));
           } else {
             sc = static_cast<float>(acc[u]);
           }
-          const bool keep = val[u] && sc >= thr;
-          o_sc[t] = keep ? sc : neg_inf;
-          o_id[t] = keep ? t_oid[t] : topk::kIdSentinel;
-          survived |= keep;
+          keys[slot[u]] = topk::scored_key(sc, key);
         }
       }
     }
-    return survived;
   };
 
-  topk::query_topk(row_ids + b * c, out_ids + b * c, n_rows, c, k,
-                   smem + sizeof(float) * d_pad, score_tile, ids_out + b * k,
-                   scores_out + b * k);
+  topk::chunk_topk(row_ids + b * c, out_ids + b * c, n_rows, c, chunk_len, part,
+                   n_chunks, k, smem + sizeof(float) * d_pad, score_rows,
+                   ids_out + b * k, scores_out + b * k, ws, b);
 }
 
-template <int MODE, bool VEC>
+template <int MODE, bool VEC, int G>
 cudaError_t launch(const void* embs, long long n_rows, int d,
                    const float* scales, const int* row_ids, const int* out_ids,
                    const void* queries, const float* q_scales, int b, int c,
-                   int k, int* ids_out, float* scores_out,
-                   cudaStream_t stream) {
+                   int chunk_len, int n_chunks, int k, int* ids_out,
+                   float* scores_out, topk::Workspace ws, cudaStream_t stream) {
   const int d_log = MODE == kInt4 ? 2 * d : d;
   const int d_pad = (d_log + 7) & ~7;
-  const size_t smem = sizeof(float) * d_pad + topk::query_topk_smem(k);
-  auto kern = fused_verify_kernel<MODE, VEC>;
+  const size_t smem = sizeof(float) * d_pad + topk::chunk_topk_smem(k, chunk_len);
+  auto kern = fused_verify_kernel<MODE, VEC, G>;
   cudaError_t err = topk::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<b, kThreads, smem, stream>>>(embs, n_rows, d, scales, row_ids, out_ids,
-                                      queries, q_scales, c, k, ids_out,
-                                      scores_out);
+  kern<<<static_cast<unsigned>(static_cast<long long>(b) * n_chunks), kThreads, smem, stream>>>(
+      embs, n_rows, d, scales, row_ids, out_ids, queries, q_scales, c, chunk_len,
+      n_chunks, k, ids_out, scores_out, ws);
   return cudaGetLastError();
 }
 
+// The kernel for a table mode, 16-byte loads or not, and lanes per row.
 template <int MODE>
-cudaError_t launch_mode(bool vec, const void* embs, long long n_rows, int d,
+cudaError_t launch_mode(bool vec, int g, const void* embs, long long n_rows, int d,
                         const float* scales, const int* row_ids,
                         const int* out_ids, const void* queries,
-                        const float* q_scales, int b, int c, int k,
-                        int* ids_out, float* scores_out, cudaStream_t stream) {
-  return vec ? launch<MODE, true>(embs, n_rows, d, scales, row_ids, out_ids,
-                                  queries, q_scales, b, c, k, ids_out,
-                                  scores_out, stream)
-             : launch<MODE, false>(embs, n_rows, d, scales, row_ids, out_ids,
-                                   queries, q_scales, b, c, k, ids_out,
-                                   scores_out, stream);
+                        const float* q_scales, int b, int c, int chunk_len,
+                        int n_chunks, int k, int* ids_out, float* scores_out,
+                        topk::Workspace ws, cudaStream_t stream) {
+#define FV_LAUNCH(VEC, G)                                                        \
+  launch<MODE, VEC, G>(embs, n_rows, d, scales, row_ids, out_ids, queries,      \
+                       q_scales, b, c, chunk_len, n_chunks, k, ids_out,         \
+                       scores_out, ws, stream)
+  if (!vec) return FV_LAUNCH(false, 32);
+  if constexpr (MODE == kInt8 || MODE == kInt4) {
+    if (g == 8) return FV_LAUNCH(true, 8);
+    if (g == 16) return FV_LAUNCH(true, 16);
+  }
+  return FV_LAUNCH(true, 32);
+#undef FV_LAUNCH
 }
 
 }  // namespace
@@ -339,34 +368,43 @@ cudaError_t launch_mode(bool vec, const void* embs, long long n_rows, int d,
 //           + q_scales (B,)
 //   mode 3: packed int4 table (N, d) with d the stored width (logical 2d),
 //           scales, queries (B, 2d) int8 codes + q_scales
+// Each query's C candidates go in n_chunks chunks of `chunk_len` (the wrapper's
+// split_candidates). With n_chunks > 1, `workspace` holds B * n_chunks * (2k
+// + 1) 32-bit words and `arrive` B zeroed counters.
 extern "C" int fused_verify_launch(const void* embs, int mode, long long n_rows,
                                    int d, const float* scales,
                                    const int* row_ids, const int* out_ids,
                                    const void* queries, const float* q_scales,
-                                   int b, int c, int k, int* ids_out,
-                                   float* scores_out, void* stream) {
+                                   int b, int c, int chunk_len, int n_chunks, int k,
+                                   int* ids_out, float* scores_out,
+                                   void* workspace, int* arrive, void* stream) {
   if (b <= 0) return 0;
+  if (chunk_len > topk::kMaxChunk || n_chunks < 1 ||
+      static_cast<long long>(chunk_len) * n_chunks < c)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int elem = mode == kF32 ? 4 : (mode == kBF16 ? 2 : 1);
   const bool vec = (static_cast<long long>(d) * elem) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(embs) % 16 == 0;
+  const int g = lanes_per_row(mode, static_cast<int>(static_cast<long long>(d) * elem / 16));
+  const topk::Workspace ws = topk::workspace(workspace, arrive, b, n_chunks, k);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (mode) {
     case kF32:
-      err = launch_mode<kF32>(vec, embs, n_rows, d, scales, row_ids, out_ids,
-                              queries, q_scales, b, c, k, ids_out, scores_out, st);
+      err = launch_mode<kF32>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
+                              q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
       break;
     case kBF16:
-      err = launch_mode<kBF16>(vec, embs, n_rows, d, scales, row_ids, out_ids,
-                               queries, q_scales, b, c, k, ids_out, scores_out, st);
+      err = launch_mode<kBF16>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
+                               q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
       break;
     case kInt8:
-      err = launch_mode<kInt8>(vec, embs, n_rows, d, scales, row_ids, out_ids,
-                               queries, q_scales, b, c, k, ids_out, scores_out, st);
+      err = launch_mode<kInt8>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
+                               q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
       break;
     case kInt4:
-      err = launch_mode<kInt4>(vec, embs, n_rows, d, scales, row_ids, out_ids,
-                               queries, q_scales, b, c, k, ids_out, scores_out, st);
+      err = launch_mode<kInt4>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
+                               q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
       break;
     default:
       err = cudaErrorInvalidValue;

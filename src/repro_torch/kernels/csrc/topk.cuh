@@ -1,4 +1,4 @@
-// Deduplicated top-k merge shared by the port's verification kernels
+// Deduplicated top-k shared by the port's verification kernels
 // (fused_verify.cu, sketch_prefilter.cu, fused_verify_grouped.cu).
 //
 // Order: scores descending, ties to the smallest id. Invalid entries are
@@ -7,6 +7,23 @@
 // after the sort they sit next to each other and a ballot/popc scan keeps
 // the first of each run. The result equals the JAX package's selection
 // loop (select the max, smallest id among ties, kill every copy).
+//
+// chunk_topk is the skeleton of the per-query kernels (fused_verify,
+// sketch_prefilter). A query's C candidates are cut into contiguous chunks,
+// one block each (the wrapper's split_candidates). A block
+//   1. inserts its chunk's valid (row, out id) pairs into a hash set in
+//      shared memory, so each distinct pair's row is loaded and scored once
+//      (LIDER's out ids are a function of the row, so that is once per
+//      distinct row);
+//   2. stages the pairs scoring at or above the current k-th score and
+//      merges (a bitonic sort of the occupied part of the merge buffer)
+//      only when the staging area is full, and once at the chunk's end;
+//   3. writes its partial top-k to a workspace; the last block of the query
+//      to finish (a __threadfence and an atomic counter) merges the
+//      partial lists into the answer.
+// This is exact: every row's score is one fixed-order computation whatever
+// block makes it, and the top-k of a union is the top-k of its parts'
+// top-ks (dedup by out id keeps one copy of equal (score, id) entries).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,6 +34,8 @@ namespace topk {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kIdSentinel = 0x7fffffff;  // invalid entries sort last
+constexpr int kMaxChunk = 4096;  // candidates per block (fused_verify.py MAX_CHUNK)
+constexpr unsigned long long kKeySentinel = ~0ull;  // an empty slot
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -24,12 +43,18 @@ __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
 }
 
-// Merge buffer length: a power of two >= 2k (and >= 256), so a tile of
-// s - k >= k candidates merges into the k-entry accumulator at once.
+__host__ __device__ inline int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Merge buffer length of chunk_topk: a power of two >= 2k and >= k +
+// kThreads, so the room left after a merge (s - k) takes a whole partial
+// list of k entries and a pass of kThreads candidates.
 __host__ __device__ inline int merge_size(int k) {
-  int s = 256;
-  while (s < 2 * k) s <<= 1;
-  return s;
+  const int need = 2 * k > k + kThreads ? 2 * k : k + kThreads;
+  return pow2_at_least(need);
 }
 
 __device__ __forceinline__ void fill_invalid(float* sc, int* id, int lo, int hi) {
@@ -39,15 +64,32 @@ __device__ __forceinline__ void fill_invalid(float* sc, int* id, int lo, int hi)
   }
 }
 
+// Takes one slot of a shared counter for each lane of the warp with flag
+// set, with one atomic for the warp; returns this lane's slot. Called by
+// every lane of the warp.
+__device__ __forceinline__ int warp_reserve(bool flag, int* counter) {
+  const int lane = threadIdx.x & 31;
+  const unsigned m = __ballot_sync(0xffffffffu, flag);
+  int base = 0;
+  if (lane == 0 && m) base = atomicAdd(counter, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  return base + __popc(m & ((1u << lane) - 1u));
+}
+
 // Sorts w[0, s) (s a power of two) on (score desc, id asc), then writes the
 // first k distinct valid ids, in order, to o[0, k), with (-inf, sentinel)
-// past them. o must not overlap w. Called by every thread of the block;
-// returns synchronised.
-__device__ void sort_compact(float* w_sc, int* w_id, int s, float* o_sc,
+// past them, and returns how many it wrote. o may be w itself: a tile's
+// entries are read before any of them is written, and position p only ever
+// receives the p-th kept entry, whose index is >= p. Called by every
+// thread of the block; returns synchronised.
+__device__ int sort_compact(float* w_sc, int* w_id, int s, float* o_sc,
                              int* o_id, int k, int* warp_tot) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // Pair i of a stage with stride <= 32 lies in the 64 entries [64 (i /
+  // 32), 64 (i / 32) + 64), which the warp owning pair i also owns in
+  // every other such stage: between two of them a warp barrier suffices.
   for (int size = 2; size <= s; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int i = tid; i < (s >> 1); i += kThreads) {
@@ -65,9 +107,14 @@ __device__ void sort_compact(float* w_sc, int* w_id, int s, float* o_sc,
           w_id[hi] = ilo;
         }
       }
-      __syncthreads();
+      const int next = stride > 1 ? stride >> 1 : size;  // the next stage's stride
+      if (stride > 32 || next > 32)
+        __syncthreads();
+      else
+        __syncwarp();
     }
   }
+  __syncthreads();  // the compaction reads across warps
 
   int base = 0;
   for (int i0 = 0; i0 < s && base < k; i0 += kThreads) {
@@ -100,6 +147,7 @@ __device__ void sort_compact(float* w_sc, int* w_id, int s, float* o_sc,
   }
   fill_invalid(o_sc, o_id, base < k ? base : k, k);
   __syncthreads();
+  return base < k ? base : k;
 }
 
 // Writes a k-entry accumulator out: ids of -inf slots become -1.
@@ -113,73 +161,220 @@ __device__ __forceinline__ void write_out(const float* a_sc, const int* a_id,
   }
 }
 
-// Shared memory the per-query skeleton below needs past the caller's own:
-// a_sc[s] | a_id[s] | b_sc[s] | b_id[s] | t_row[s-k] | t_oid[s-k].
-inline size_t query_topk_smem(int k) {
-  const int s = merge_size(k);
-  return 4 * sizeof(float) * s + 2 * sizeof(int) * (s - k);
+// A scored slot of the hash set: the score's bits over the out id.
+__device__ __forceinline__ unsigned long long scored_key(float sc,
+                                                         unsigned long long key) {
+  return (static_cast<unsigned long long>(__float_as_uint(sc)) << 32) |
+         (key & 0xffffffffull);
 }
 
-// One query row's streaming top-k over its C candidates: the grid step loop
-// of the TPU kernels, run inside one block.
-//
-// Candidates go in tiles of T = s - k. A tile whose candidates are all
-// invalid (out_id < 0) is skipped: no loads, no merge. Otherwise
-// score_tile(t_row, t_oid, T, thr, sc, id) scores the tile into the merge
-// buffer's upper part and returns nonzero on threads that kept a candidate
-// (a candidate scoring below thr, the current k-th score, can never enter
-// and is written as (-inf, sentinel)); a tile where nothing survived is not
-// merged. Row ids are clamped into [0, n_rows), as a JAX gather clamps.
-template <class ScoreTile>
-__device__ void query_topk(const int* __restrict__ rid_row,
-                           const int* __restrict__ oid_row, long long n_rows,
-                           int c, int k, unsigned char* buf,
-                           ScoreTile& score_tile, int* ids_out,
-                           float* scores_out) {
-  __shared__ int warp_tot[kWarps];
-  const int s = merge_size(k);
-  const int t_len = s - k;
-  float* a_sc = reinterpret_cast<float*>(buf);
-  int* a_id = reinterpret_cast<int*>(a_sc + s);
-  float* b_sc = reinterpret_cast<float*>(a_id + s);
-  int* b_id = reinterpret_cast<int*>(b_sc + s);
-  int* t_row = b_id + s;
-  int* t_oid = t_row + t_len;
-  const int tid = threadIdx.x;
+// Global memory of a multi-chunk call: per query, n_chunks partial lists
+// of k (score, id) entries, their lengths, and the arrival counter (zero
+// before the launch).
+struct Workspace {
+  float* sc;     // (B, n_chunks, k)
+  int* id;       // (B, n_chunks, k)
+  int* n;        // (B, n_chunks)
+  int* arrive;   // (B,)
+};
 
-  fill_invalid(a_sc, a_id, 0, s);
+// The workspace laid out in one buffer of B * n_chunks * (2k + 1) 32-bit
+// words (null when n_chunks == 1).
+inline Workspace workspace(void* base, int* arrive, int b, int n_chunks, int k) {
+  if (base == nullptr) return Workspace{nullptr, nullptr, nullptr, arrive};
+  const size_t lists = static_cast<size_t>(b) * n_chunks * k;
+  float* sc = static_cast<float*>(base);
+  int* id = reinterpret_cast<int*>(sc + lists);
+  return Workspace{sc, id, id + lists, arrive};
+}
+
+// Slots of chunk_topk's hash set: a power of two >= twice the chunk (at
+// least 32), so a chunk of up to 2,048 candidates fills at most half of
+// it; at most kMaxChunk, which still holds any chunk. A chunk of 2,049 to
+// 4,096 mostly distinct rows fills it to nearly 100%, which double hashing
+// (chunk_topk) keeps at a few probes a key on average.
+__host__ __device__ inline int table_size(int chunk) {
+  const int n = pow2_at_least(2 * chunk > 32 ? 2 * chunk : 32);
+  return n < kMaxChunk ? n : kMaxChunk;
+}
+
+// Bytes of the hash set (8 a slot) and the occupied slots' indices (2 a
+// slot, rounded to 16).
+__host__ __device__ inline size_t table_bytes(int n_tab) {
+  return 8 * static_cast<size_t>(n_tab) + ((2 * static_cast<size_t>(n_tab) + 15) & ~static_cast<size_t>(15));
+}
+
+// Shared memory of chunk_topk past the caller's own: the hash set and its
+// occupied slots, then the merge buffer (merge_size(k) scores and ids).
+inline size_t chunk_topk_smem(int k, int chunk) {
+  return table_bytes(table_size(chunk)) + 8 * static_cast<size_t>(merge_size(k));
+}
+
+// One chunk of one query row: candidates [part * chunk, min(C, (part + 1)
+// * chunk)) of rid_row / oid_row. Called by every thread of the block.
+//
+// score_rows(keys, heads, n_heads) scores the chunk's distinct pairs: slot
+// heads[h] holds key = row << 32 | out id, and becomes scored_key(score,
+// key). It returns without synchronising.
+//
+// Row ids are clamped into [0, n_rows), as a JAX gather clamps; a pair
+// whose out id is < 0 never enters (its row is never loaded).
+template <class ScoreRows>
+__device__ void chunk_topk(const int* __restrict__ rid_row,
+                           const int* __restrict__ oid_row, long long n_rows,
+                           int c, int chunk, int part, int n_chunks, int k,
+                           unsigned char* buf, ScoreRows& score_rows,
+                           int* ids_out, float* scores_out, Workspace ws,
+                           long long b) {
+  __shared__ int warp_tot[kWarps];
+  __shared__ int last_block, n_heads_s, cnt_s;
+  const int tid = threadIdx.x;
+  const int j0 = part * chunk;
+  int len = c - j0 < chunk ? c - j0 : chunk;
+  len = len > 0 ? len : 0;
+  const int n_tab = table_size(chunk);
+  const int log_tab = __ffs(n_tab) - 1;
+  const int s = merge_size(k);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(buf);
+  unsigned short* heads = reinterpret_cast<unsigned short*>(keys + n_tab);
+  float* w_sc = reinterpret_cast<float*>(buf + table_bytes(n_tab));
+  int* w_id = reinterpret_cast<int*>(w_sc + s);
+
+  // 1. The chunk's valid (row << 32 | out id) keys, each once, in an
+  // open-addressing hash set. The first slot is a multiplicative
+  // (Fibonacci) hash of the row, which spreads a cluster's contiguous rows
+  // evenly over the table; the probe step is a second hash of the row,
+  // made odd, so it visits every slot of the power-of-two table. A step of
+  // 1 (linear probing) lets occupied slots merge into long runs that every
+  // later key walks past, which at the ~97% load of a chunk of 4,000
+  // distinct rows costs more than the rows' loads; double hashing keeps
+  // the walk to a few slots on average.
+  for (int t = tid; t < n_tab; t += kThreads) keys[t] = kKeySentinel;
+  fill_invalid(w_sc, w_id, 0, s);
+  if (tid == 0) n_heads_s = cnt_s = 0;
+  __syncthreads();
+  constexpr int kIdsInFlight = 4;  // id loads issued before the inserts
+  for (int t0 = tid; t0 < len; t0 += kIdsInFlight * kThreads) {
+    int oid[kIdsInFlight], rid[kIdsInFlight];
+#pragma unroll
+    for (int u = 0; u < kIdsInFlight; ++u) {
+      const int t = t0 + u * kThreads;
+      oid[u] = t < len ? oid_row[j0 + t] : -1;
+      rid[u] = t < len ? rid_row[j0 + t] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kIdsInFlight; ++u) {
+      if (oid[u] < 0) continue;
+      const long long r0 = rid[u];
+      const unsigned r = static_cast<unsigned>(r0 < 0 ? 0 : (r0 >= n_rows ? n_rows - 1 : r0));
+      const unsigned long long key =
+          (static_cast<unsigned long long>(r) << 32) | static_cast<unsigned>(oid[u]);
+      unsigned slot = (r * 0x9e3779b1u) >> (32 - log_tab);
+      const unsigned step = ((r * 0x85ebca6bu) >> (32 - log_tab)) | 1u;
+      for (;;) {
+        const unsigned long long old = atomicCAS(keys + slot, kKeySentinel, key);
+        if (old == kKeySentinel || old == key) break;
+        slot = (slot + step) & (n_tab - 1);
+      }
+    }
+  }
   __syncthreads();
 
-  for (int c0 = 0; c0 < c; c0 += t_len) {
-    int any_valid = 0;
-    for (int t = tid; t < t_len; t += kThreads) {
-      const int j = c0 + t;
-      int oid = -1, rid = 0;
-      if (j < c) {
-        oid = oid_row[j];
-        rid = rid_row[j];
-      }
-      rid = rid < 0 ? 0 : rid;
-      rid = rid >= n_rows ? static_cast<int>(n_rows - 1) : rid;
-      t_row[t] = rid;
-      t_oid[t] = oid;
-      any_valid |= oid >= 0;
-    }
-    if (!__syncthreads_or(any_valid)) continue;
-
-    const float thr = a_sc[k - 1];
-    const int survived = score_tile(t_row, t_oid, t_len, thr, a_sc + k, a_id + k);
-    if (!__syncthreads_or(survived)) continue;
-
-    sort_compact(a_sc, a_id, s, b_sc, b_id, k, warp_tot);
-    float* tf = a_sc;
-    a_sc = b_sc;
-    b_sc = tf;
-    int* ti = a_id;
-    a_id = b_id;
-    b_id = ti;
+  // 2. Score each occupied slot's row once (in no set order: the result
+  // does not depend on it).
+  for (int i0 = 0; i0 < n_tab; i0 += kThreads) {
+    const int i = i0 + tid;
+    const bool head = i < n_tab && keys[i] != kKeySentinel;
+    const int pos = warp_reserve(head, &n_heads_s);
+    if (head) heads[pos] = static_cast<unsigned short>(i);
   }
-  write_out(a_sc, a_id, k, ids_out, scores_out);
+  __syncthreads();
+  const int n_heads = n_heads_s;
+  score_rows(keys, heads, n_heads);
+  __syncthreads();
+
+  // 3. Staged merges. w[0, a_n) holds the sorted accumulator (at most k
+  // entries), w[a_n, a_n + cnt) the staged survivors, the rest is invalid;
+  // a merge sorts only the occupied power of two. a_n and cnt are the same
+  // in every thread; cnt_s is cnt's shared copy, which staging bumps.
+  int a_n = 0, cnt = 0;
+  auto thr = [&]() { return a_n == k ? w_sc[k - 1] : neg_inf(); };
+  auto merge = [&]() {
+    const int n_sort = pow2_at_least(a_n + cnt);
+    a_n = sort_compact(w_sc, w_id, n_sort, w_sc, w_id, k, warp_tot);
+    fill_invalid(w_sc, w_id, a_n, n_sort);
+    if (tid == 0) cnt_s = 0;
+    __syncthreads();
+    cnt = 0;
+  };
+  // After a pass of staging: every thread reads the new count.
+  auto settle = [&]() {
+    __syncthreads();
+    cnt = cnt_s;
+    __syncthreads();
+  };
+  // Candidates go in passes of at most the free staging room, so no pass
+  // overflows: each candidate stages at most one entry.
+  for (int i0 = 0; i0 < n_heads;) {
+    if (s - a_n - cnt < n_heads - i0 && s - a_n - cnt < kThreads) merge();
+    const int n = s - a_n - cnt < n_heads - i0 ? s - a_n - cnt : n_heads - i0;
+    const float t = thr();
+    for (int i = i0 + tid; i < i0 + n; i += kThreads) {
+      const unsigned long long key = keys[heads[i]];
+      const float sc = __uint_as_float(static_cast<unsigned>(key >> 32));
+      if (sc >= t) {
+        const int pos = a_n + atomicAdd(&cnt_s, 1);
+        w_sc[pos] = sc;
+        w_id[pos] = static_cast<int>(key & 0xffffffffull);
+      }
+    }
+    settle();
+    i0 += n;
+  }
+  if (cnt > 0) merge();
+
+  if (n_chunks == 1) {
+    write_out(w_sc, w_id, k, ids_out, scores_out);
+    return;
+  }
+
+  // 4. The partial list, then the last block of the query merges them all.
+  const long long q0 = b * n_chunks;
+  float* my_sc = ws.sc + (q0 + part) * k;
+  int* my_id = ws.id + (q0 + part) * k;
+  for (int i = tid; i < a_n; i += kThreads) {
+    my_sc[i] = w_sc[i];
+    my_id[i] = w_id[i];
+  }
+  if (tid == 0) ws.n[q0 + part] = a_n;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_block = atomicAdd(ws.arrive + b, 1) == n_chunks - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+
+  // Each partial list (at most k <= s - k entries) is staged in one pass,
+  // after a merge if the room is short. The lists are sorted: a thread
+  // stops at its first entry below the k-th score.
+  for (int p = 0; p < n_chunks; ++p) {
+    if (p == part) continue;
+    const int m = __ldcg(ws.n + q0 + p);
+    if (s - a_n - cnt < m) merge();
+    const float t = thr();
+    const float* p_sc = ws.sc + (q0 + p) * k;
+    const int* p_id = ws.id + (q0 + p) * k;
+    for (int i = tid; i < m; i += kThreads) {
+      const float sc = __ldcg(p_sc + i);
+      if (sc < t) break;
+      const int pos = a_n + atomicAdd(&cnt_s, 1);
+      w_sc[pos] = sc;
+      w_id[pos] = __ldcg(p_id + i);
+    }
+    settle();
+  }
+  if (cnt > 0) merge();
+  write_out(w_sc, w_id, k, ids_out, scores_out);
 }
 
 // Sets the dynamic shared memory limit of a kernel when it needs more than

@@ -5,6 +5,11 @@
   packed-int4 tables. Replaces ``repro/kernels/fused_verify.py::fused_verify``.
 - ``sketch_prefilter`` (``csrc/sketch_prefilter.cu``): the 1-bit Hamming
   first pass over sign sketches. Replaces ``...::sketch_prefilter``.
+
+  Both cut each query's C candidates into chunks (:func:`split_candidates`),
+  one block each; a block loads each distinct row of its chunk once and
+  keeps a partial top-k, and the last block of a query merges the partial
+  lists (``csrc/topk.cuh``).
 - ``fused_verify_grouped`` (``csrc/fused_verify_grouped.cu``): the
   cluster-major first pass, one cluster tile against ``block_q`` queries.
   Replaces ``...::fused_verify_grouped``.
@@ -24,8 +29,9 @@ from . import quant
 from .launch import I as _I, LL as _LL, P as _P
 from .launch import bind as _bind, check as _check, launch as _launch, on_cuda as _on_cuda
 
-MAX_K = 4096  # the merge buffer (2 * next_pow2(2k) entries) must fit in shared memory
+MAX_K = 4096  # the merge buffer (next_pow2(2k) entries) must fit in shared memory
 MAX_BLOCK_Q = 16  # query slots per grouped step (registers of the grouped kernel)
+MAX_CHUNK = 4096  # candidates per block: its (row, id) hash set fits in shared memory
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8, _INT4 = 2, 3
@@ -34,6 +40,33 @@ _INT8, _INT4 = 2, 3
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+
+
+def split_candidates(c: int) -> tuple[int, int]:
+    """How ``fused_verify`` and ``sketch_prefilter`` cut a query's ``c``
+    candidates: ``(n_chunks, chunk)``, chunk ``i`` being candidates ``[i *
+    chunk, min(c, (i + 1) * chunk))``. The fewest chunks of at most
+    ``MAX_CHUNK``, of equal length but the last: one for a call of up to
+    4,096 candidates, 20 of 4,000 for the in-cluster call's 80,000."""
+    n = max(1, -(-c // MAX_CHUNK))
+    chunk = -(-c // n)
+    return (-(-c // chunk) if chunk else 1), chunk
+
+
+def _workspace(b: int, c: int, k: int, device):
+    """``(n_chunks, chunk, workspace, arrive)`` of a call: for more than
+    one chunk, each query's partial top-ks and their lengths (B * n_chunks
+    * (2k + 1) int32 words) and its arrival counter (B zeros); else None."""
+    n_chunks, chunk = split_candidates(c)
+    if n_chunks == 1:
+        return n_chunks, chunk, None, None
+    return (n_chunks, chunk,
+            torch.empty((b * n_chunks * (2 * k + 1),), dtype=torch.int32, device=device),
+            torch.zeros((b,), dtype=torch.int32, device=device))
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def fused_verify(
@@ -91,12 +124,14 @@ def fused_verify(
     scores = torch.empty((b, k), dtype=torch.float32, device=device)
     if b == 0:
         return ids, scores
+    n_chunks, chunk, ws, arrive = _workspace(b, c, k, device)
     fn = _bind("fused_verify", "fused_verify_launch",
-               [_P, _I, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P])
+               [_P, _I, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P])
     _launch(
         "fused_verify", fn, embs.data_ptr(), mode, n, d_store, scale_ptr,
         row_ids.data_ptr(), out_ids.data_ptr(), q.data_ptr(), q_scale_ptr,
-        b, c, k, ids.data_ptr(), scores.data_ptr(), device=device,
+        b, c, chunk, n_chunks, k, ids.data_ptr(), scores.data_ptr(), _ptr(ws), _ptr(arrive),
+        device=device,
     )
     fused_verify.launches += 1
     return ids, scores
@@ -141,12 +176,13 @@ def sketch_prefilter(
     scores = torch.empty((b, k), dtype=torch.float32, device=device)
     if b == 0:
         return ids, scores
+    n_chunks, chunk, ws, arrive = _workspace(b, c, k, device)
     fn = _bind("sketch_prefilter", "sketch_prefilter_launch",
-               [_P, _LL, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P])
+               [_P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P])
     _launch(
         "sketch_prefilter", fn, sketches.data_ptr(), n, w, row_ids.data_ptr(),
-        out_ids.data_ptr(), q_sk.data_ptr(), b, c, k, ids.data_ptr(),
-        scores.data_ptr(), device=device,
+        out_ids.data_ptr(), q_sk.data_ptr(), b, c, chunk, n_chunks, k, ids.data_ptr(),
+        scores.data_ptr(), _ptr(ws), _ptr(arrive), device=device,
     )
     sketch_prefilter.launches += 1
     return ids, scores

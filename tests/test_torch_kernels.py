@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_verify import fused_verify
 from repro_torch.testing import SCORE_ATOL, SCORE_RTOL, assert_topk_match
+from test_torch_verify_split import KINDS as SPLIT_KINDS, _case as split_case
 
 
 def _jax():
@@ -134,11 +135,10 @@ def test_cpu_tensors_never_reach_the_kernel():
     assert fused_verify.launches == before
 
 
-def test_quantized_branches_are_not_ported_yet():
-    """Named for the refusal it checked before the int8 / packed-int4
-    branches existed. It now checks what the quantized wrapper and the plain
-    version still refuse: int4 without scales, an unknown code dtype, and
-    an integer table passed without its row scales."""
+def test_quantized_wrapper_refuses_bad_code_arguments():
+    """What the quantized wrapper and the plain version refuse: int4
+    without scales, an unknown code dtype, and an integer table passed
+    without its row scales."""
     embs, ids, q = _case(10, 20, 8, 1, 5, id_lo=0)
     t = torch.from_numpy(embs)
     with pytest.raises(ValueError, match="requires scales"):
@@ -356,3 +356,33 @@ def test_cuda_quantized_search_matches_cpu_search(storage_dtype):
         assert tuple(a - b for a, b in zip(after, before)) == launches, kw
         assert_topk_match(got.ids[same.cuda()], got.scores[same.cuda()], want.ids[same], want.scores[same])
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SPLIT_KINDS)
+def test_cuda_chunked_kernels_match_plain_version(kind):
+    """The per-query kernels' (query, chunk) split on the card, on the cases
+    of ``test_torch_verify_split.py``: int8, int4 and sketch bit-equal to the
+    plain version, float32 ids equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.fused_verify import sketch_prefilter
+
+    dev = torch.device("cuda")
+    embs, rows, out, q, k = (a if isinstance(a, int) else torch.from_numpy(a).to(dev)
+                             for a in split_case(kind))
+    got = fused_verify(embs, rows, q, k=k, out_ids=out)
+    torch.cuda.synchronize()
+    want = ref.verify_topk_ref(embs, rows, q, k=k, out_ids=out)
+    assert_topk_match(*got, *want)
+    for code, quantize in (("int8", quant.quantize_rows), ("int4", quant.quantize_rows_int4)):
+        codes, scales = quantize(embs)
+        kw = dict(k=k, out_ids=out, scales=scales, code_dtype=code)
+        got = fused_verify(codes, rows, q, **kw)
+        torch.cuda.synchronize()
+        _bit_equal(got, ref.verify_topk_ref(codes, rows, q, **kw))
+    sk = quant.sketch_rows(embs)
+    got = sketch_prefilter(sk, rows, q, k=k, out_ids=out)
+    torch.cuda.synchronize()
+    _bit_equal(got, ref.sketch_topk_ref(sk, rows, q, k=k, out_ids=out))
