@@ -8,20 +8,23 @@ Phases, each printing its lines; any failure exits non-zero:
 1. device    — the card's name and power limit (``nvidia-smi``); no CUDA
                device is an error, never a fall-back to the CPU.
 2. build     — ``nvcc`` builds every kernel source under ``csrc/``, one
-               process per source, all at once.
+               process per source, all at once; ``cuobjdump -res-usage``
+               prints each verification kernel's registers and stack frame.
 3. parity    — each kernel against its plain version on edge cases
                (duplicates, dead tiles, an all-invalid row, k above the
                valid count, heavy score ties): ``fused_verify`` on float32,
                bfloat16, int8 and packed-int4 tables, ``sketch_prefilter``,
-               ``fused_verify_grouped`` on schedules with padding steps and
-               empty slots. Quantized and sketch kernels must be bit-equal
-               (ids and scores). Then the cases that reach the per-query
-               kernels' (query, chunk) split: one id repeated across every
-               chunk, a chunk of only invalid ids, ties at the k-th score
-               straddling chunk boundaries, C not a multiple of the chunk,
-               k = C, and a LIDER-like candidate layout at full width
-               (bit-equal on int8, int4 and sketch tables). Then a small
-               quantized index: a covering
+               ``fused_verify_grouped`` on schedules with padding steps,
+               empty slots and an id repeated on bit-equal rows, at block_q
+               up to 32 and k' up to Lp = 12,288. Quantized and sketch
+               kernels must be bit-equal (ids and scores). Then the cases
+               that reach the per-query kernels' (query, chunk) split: one
+               id repeated across every chunk, a chunk of only invalid ids,
+               ties at the k-th score straddling chunk boundaries, C not a
+               multiple of the chunk, k = C, k = 6,400 (the large-k path,
+               over three chunks and within one), and a LIDER-like
+               candidate layout at full width (bit-equal on int8, int4 and
+               sketch tables). Then a small quantized index: a covering
                ``sketch_factor`` and the cluster-major schedule give the
                unfiltered search, bit for bit. Then the build kernels:
                ``lsh_hash`` (N off every tile, d in {8, 33, 768}, H=1, M in
@@ -53,8 +56,10 @@ Phases, each printing its lines; any failure exits non-zero:
                ``sketch_prefilter``, beside the per-query floor: the
                distinct (query, row) pairs read once each, and for a
                multi-chunk call its chunks alone, without the final
-               merges). Then the in-cluster shape on traffic without
-               repeated rows (float32, int8, sketch), timed the same way.
+               merges; for ``fused_verify_grouped``, beside the per-step
+               floor: each real step's live rows and ids read once). Then
+               the in-cluster shape on traffic without repeated rows
+               (float32, int8, sketch), timed the same way.
 6. quantized — the float index is freed, then the int8 and the int4 index
                are built at full width in turn, and 4 x 256 queries run on
                each quantized operating point (Q8, Q8-cm on int8; Q4-sk,
@@ -62,7 +67,12 @@ Phases, each printing its lines; any failure exits non-zero:
                batch, Q8-cm == Q8 and Q4-sk-cm == Q4-sk bit for bit, the
                first 8 queries against the all-plain search, the schedule's
                sharing, the shapes phase on each path's kernel calls, and a
-               trace of one Q8, one Q8-cm and one Q4-sk-cm batch.
+               trace of one Q8, one Q8-cm and one Q4-sk-cm batch. Then the
+               shapes the kernels once refused, at full width: Q8-cm at
+               block_q 32, and Q8 and Q8-cm at k' = 1,100, == the per-query
+               search bit for bit; the covering sketch factor (m = C =
+               80,000) == the unfiltered Q4 search bit for bit; each of
+               their grouped and sketch calls timed.
 7. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
                path's centroids frozen and the capacity fixed from the full
                assignment: build on 80%, upsert 20% in 4 batches, equal bit
@@ -84,6 +94,7 @@ import gc
 import json
 import math
 import pstats
+import re
 import shutil
 import statistics
 import subprocess
@@ -120,11 +131,12 @@ BUILD_KERNELS = ("lsh_hash", "kmeans_assign")
 # Kernel launches per search batch, in KERNELS order: (fused_verify,
 # sketch_prefilter, fused_verify_grouped, lsh_hash, kmeans_assign). Every
 # search hashes its queries twice: the centroid model's keys in routing,
-# then the bank's in candidate generation.
+# then the bank's in candidate generation. A grouped call is two launches,
+# its score kernel and then its select kernel.
 PER_BATCH = {
     "F32": (2, 0, 0, 2, 0),
-    "Q8": (3, 0, 0, 2, 0), "Q8-cm": (2, 0, 1, 2, 0),
-    "Q4-sk": (3, 1, 0, 2, 0), "Q4-sk-cm": (2, 1, 1, 2, 0),
+    "Q8": (3, 0, 0, 2, 0), "Q8-cm": (2, 0, 2, 2, 0),
+    "Q4-sk": (3, 1, 0, 2, 0), "Q4-sk-cm": (2, 1, 2, 2, 0),
 }
 
 
@@ -308,7 +320,34 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     log("build", f"{len(libs)} kernel libraries built in {secs:.2f} s (one nvcc each, in "
         f"parallel): {', '.join(p.name for p in libs.values())}")
+    for name in ("fused_verify", "sketch_prefilter", "fused_verify_grouped"):
+        log("build", f"cuobjdump -res-usage {name}: {res_usage(libs[name])}")
     return secs
+
+
+def res_usage(lib: Path) -> str:
+    """Registers and stack frame of each kernel in a built library, from
+    ``cuobjdump -res-usage`` (names demangled by ``c++filt`` where it is
+    installed)."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return "not measured (no cuobjdump)"
+    lines = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True,
+                           text=True).stdout.splitlines()
+    rows = []
+    for i, line in enumerate(lines[:-1]):
+        if "Function " in line and "REG:" in lines[i + 1]:
+            fn = line.split("Function ", 1)[1].rstrip(":").strip()
+            use = dict(kv.split(":", 1) for kv in lines[i + 1].split() if ":" in kv)
+            rows.append((fn, use.get("REG"), use.get("STACK")))
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows), capture_output=True,
+                               text=True).stdout.splitlines()
+        rows = [(n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void "), r, st)
+                for n, (_, r, st) in zip(names, rows)]
+    return "; ".join(f"{fn} {r} registers, stack {st} B" for fn, r, st in sorted(rows))
 
 
 def _edge_case(g, dev, n, d, b, c, k):
@@ -383,24 +422,28 @@ def phase_parity(dev) -> float:
         "scores) to the plain version")
 
     n_g = 0
-    for c, lp, d, b, p, block_q, kp in [
-        (6, 16, 32, 5, 3, 4, 6), (8, 200, 64, 12, 4, 8, 40), (5, 120, 48, 9, 3, 3, 150),
-        (4, 1500, 64, 6, 2, 8, 10), (64, 2584, 768, 96, 6, 8, 400),
-    ]:
+    for c, lp, d, b, p, block_q, kp, pairs in GROUPED_CASES:
         x = torch.randn((c, lp, d), generator=g, device=dev)
         x[0, 3] = 0
         x[1, 5] = x[1, 2]
+        if pairs:
+            x[:, 1::2] = x[:, 0::2]
         w = torch.arange(1, c + 1, device=dev, dtype=torch.float32) ** -1.3
         cids = torch.stack([torch.multinomial(w, p, generator=g) for _ in range(b)]).int().cpu().numpy()
-        sched = build_cluster_schedule(cids, block_q=block_q)
+        n_steps = build_cluster_schedule(cids, block_q=block_q).n_steps
+        sched = build_cluster_schedule(cids, block_q=block_q, pad_to=n_steps + 3)
         sc_, sq_ = (torch.from_numpy(a).to(dev) for a in (sched.sched_cids, sched.sched_qids))
         slot = torch.where((sq_ >= 0)[:, :, None], sc_[:, None, None] * lp
                            + torch.arange(lp, device=dev, dtype=torch.int32), -1)
         slot[torch.rand(slot.shape, generator=g, device=dev) < 0.4] = -1
         slot[:, :, : min(lp, 40)] = -1  # a dead leading tile
+        if lp > 5:  # rows 2 and 5 of cluster 1 are bit-equal: one id on both
+            slot[sc_ == 1, :, 5] = slot[sc_ == 1, :, 2]
+        if pairs:  # every id on two bit-equal rows
+            slot[:, :, 1::2] = slot[:, :, 0::2]
         slot = slot.to(torch.int32).contiguous()
         q = torch.randn((b, d), generator=g, device=dev)
-        for code in ("int8", "int4"):
+        for code in ("int8", "int4") if d % 2 == 0 else ("int8",):
             codes, scales = (quant.quantize_rows if code == "int8" else quant.quantize_rows_int4)(x)
             args = (codes.contiguous(), scales, q, sc_, sq_, slot)
             got = fused_verify_grouped(*args, kp=kp, code_dtype=code)
@@ -411,10 +454,23 @@ def phase_parity(dev) -> float:
                                      f"at {(c, lp, d, b, p, block_q, kp)}")
             n_g += 1
     log("parity", f"fused_verify_grouped int8 + int4: {n_g} schedules (padding steps, empty "
-        "slots, sparse masks, dead tiles, staging merges) bit-equal to the plain version")
+        "slots, sparse masks, dead tiles, an id on two bit-equal rows or every id on two; "
+        "(block_q, k') in " + ", ".join(f"({bq}, {kp})" for *_, bq, kp, _ in GROUPED_CASES)
+        + ") bit-equal to the plain version")
     worst = max(worst, phase_parity_chunks(dev))
     phase_parity_search(dev)
     return max(worst, phase_parity_build(dev))
+
+
+GROUPED_CASES = [  # (c, Lp, d, B, probes, block_q, k', every id on two rows)
+    (6, 16, 32, 5, 3, 4, 6, False), (8, 200, 64, 12, 4, 8, 40, False),
+    (5, 120, 48, 9, 3, 3, 150, False), (4, 1500, 64, 6, 2, 8, 10, False),
+    (64, 2584, 768, 96, 6, 8, 400, False), (24, 2584, 768, 32, 4, 8, 1100, False),
+    (24, 2584, 768, 96, 4, 24, 400, False), (24, 2584, 768, 128, 4, 32, 2048, False),
+    (4, 12288, 64, 16, 2, 32, 12288, False), (24, 2584, 768, 32, 4, 8, 400, True),
+    (5, 118, 33, 9, 3, 3, 150, False),  # rows of 33 bytes, Lp off a multiple of 4 (int8 only)
+    (4, 256, 4096, 40, 2, 32, 100, False),  # wide rows: int8 24 slots a block, 4 ring stages
+]
 
 
 def _chunk_case(g, dev, kind: str, n: int, b: int, c: int):
@@ -453,6 +509,8 @@ CHUNK_CASES = [  # (kind, n, b, c, k); the chunks are split_candidates(c)
     ("k = C", 20_000, 3, 4_096, 4_096),
     ("k = C", 20_000, 3, 3_000, 3_000),
     ("k above a chunk's distinct rows", 3_000, 3, 9_000, 4_096),
+    ("k above the shared-memory list", 20_000, 3, 12_000, 6_400),
+    ("k above C, one chunk", 20_000, 3, 3_000, 6_400),
     ("LIDER-like windows", 1_048_576, 8, 80_000, 400),
 ]
 
@@ -496,8 +554,8 @@ def phase_parity_chunks(dev) -> float:
 def phase_parity_search(dev) -> None:
     """A small quantized index on the card: a sketch factor covering every
     candidate, and the cluster-major schedule, give the unfiltered search
-    bit for bit (the full-width covering k of 80,000 is above the kernels'
-    MAX_K, so it is checked here)."""
+    bit for bit. The quantized phase checks the covering factor again at
+    full width (m = C = 80,000)."""
     from repro_torch.core import lider
     from repro_torch.data import synthetic
 
@@ -821,6 +879,31 @@ def top_functions(prof: cProfile.Profile, n: int = 6) -> str:
                      for (f, line, fn), (_, nc, tt, ct, _) in rows)
 
 
+def kernel_pattern(name: str):
+    """Device kernels of a wrapper, by name (the grouped call's two kernels
+    count as one)."""
+    return re.compile(rf"\b{name}(_score|_select)?_kernel\b")
+
+
+def device_ms(name: str, run, n: int = 5) -> float | None:
+    """Milliseconds the card spends in ``name``'s kernels per call of
+    ``run``, from a ``torch.profiler`` trace of ``n`` calls: the kernel time
+    without the host's time to launch it (None if the trace has no device
+    events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    pat = kernel_pattern(name)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name))
+    return us / n / 1e3 if us else None
+
+
 def event_ms(fn):
     """``(fn(), its milliseconds by CUDA events)``: one call, synchronized
     on both sides."""
@@ -893,9 +976,8 @@ def phase_trace(phase: str, search, qb, batch_ms: float) -> None:
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    per_kernel = {
-        n: sum(v for name, v in by_name.items() if f"{n}_kernel" in name) for n in KERNELS
-    }
+    per_kernel = {n: sum(v for name, v in by_name.items() if kernel_pattern(n).search(name))
+                  for n in KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(phase, f"one profiled batch: device busy {busy / 1e3:.3f} ms over {len(dev)} "
         f"device ops, {busy / 1e3 / batch_ms:.1%} of the unprofiled batch latency "
@@ -969,11 +1051,25 @@ def per_query_floor(name: str, args, kw) -> tuple[int, float]:
     return pairs, (pairs * row_bytes + other_bytes) / PEAK_BYTES_PER_S * 1e3
 
 
+def per_step_floor(args) -> float:
+    """Milliseconds a ``fused_verify_grouped`` call must take at least to
+    read, for each real step (some slot has a query), its live rows (rows
+    some slot has as a candidate) with their scales, and its slot ids, over
+    the memory rate: the floor of a kernel that loads each step's rows once
+    (``bound`` counts each distinct row once per call)."""
+    embs, _, _, _, sched_qids, slot_ids = args
+    real = (sched_qids >= 0).any(dim=1)
+    live = int(((slot_ids >= 0).any(dim=1) & real[:, None]).sum())
+    n_bytes = live * (embs.shape[2] + 4) + int(real.sum()) * slot_ids.shape[1] * slot_ids.shape[2] * 4
+    return n_bytes / PEAK_BYTES_PER_S * 1e3
+
+
 def chunks_alone(args, kw):
     """A multi-chunk call's candidates recast as one chunk per query row,
     (B * n_chunks, chunk) with each query repeated: the same chunk work
     without the final merge of each query's partial lists. None where the
-    call is one chunk or C is not a whole number of chunks."""
+    call is one chunk, C is not a whole number of chunks, or k exceeds a
+    chunk (each recast row would write k outputs)."""
     from repro_torch.kernels.fused_verify import split_candidates
 
     table, rows, q = args
@@ -981,7 +1077,7 @@ def chunks_alone(args, kw):
     out = rows if out is None else out
     b, c = rows.shape
     n_chunks, chunk = split_candidates(c)
-    if n_chunks == 1 or c != n_chunks * chunk:
+    if n_chunks == 1 or c != n_chunks * chunk or kw["k"] > chunk:
         return None
     return ((table, rows.reshape(b * n_chunks, chunk), q.repeat_interleave(n_chunks, dim=0)),
             dict(kw, out_ids=out.reshape(b * n_chunks, chunk)))
@@ -1037,13 +1133,17 @@ def time_call(path: str, role: str, name: str, args, kw, *, reps: int, chunk: in
     else:
         err, swaps = compare(got, want)
     ms = cuda_ms(run, reps)
+    dev_ms = device_ms(name, run)
     plain_ms = cuda_ms(lambda: plain_chunked(name, args, kw, chunk), 1)
     bound_ms, bound_by = bound(name, args, kw)
     res = {"kernel": name, "path": path, "call": role, **describe(name, args, kw), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "max_abs_err": err, "swaps_admitted": swaps, "bit_equal": exact}
     floor = ""
-    if name != "fused_verify_grouped":
+    if name == "fused_verify_grouped":
+        floor_ms = per_step_floor(args)
+        floor = f", per-step floor {floor_ms:.4f} ms ({floor_ms / ms:.1%} of it)"
+    else:
         pairs, floor_ms = per_query_floor(name, args, kw)
         floor = (f", per-query floor {floor_ms:.4f} ms ({pairs} distinct (query, row) pairs, "
                  f"{floor_ms / ms:.1%} of it)")
@@ -1056,7 +1156,9 @@ def time_call(path: str, role: str, name: str, args, kw, *, reps: int, chunk: in
     log("shapes", f"{path} {role}: {name} [{shape}]: "
         + ("ids and scores bit-equal to" if exact else f"ids equal ({swaps} near-tie swaps), max "
            f"|score err| {err:.3g} vs") + f" the plain version over the whole call (chunks of "
-        f"{chunk}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"{chunk}); kernel {ms:.4f} ms (its kernels' device time "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms") + f"), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms "
         f"({bound_by}, {bound_ms / ms:.1%} of it){floor}; no single PyTorch call computes "
         "gather + dedup top-k, so no library time")
     return res
@@ -1196,7 +1298,7 @@ def _role(name: str, args, kw, first: bool) -> tuple[str, int, int]:
     if name == "sketch_prefilter":
         return "sketch pre-filter", 5, 8
     if name == "fused_verify_grouped":
-        return "grouped first pass", 3, 32
+        return "grouped first pass", 10, 32
     if kw.get("scales") is not None:
         return "first pass", 5, 8 if args[1].shape[1] > 10_000 else 64
     return ("routing" if first else "rescore"), 20, 256
@@ -1275,6 +1377,7 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
                 raise AssertionError(f"{op.name} differs from {base}")
             log("quantized", f"{op.name} == {base} over all {N_BATCHES * BATCH} queries, ids and "
                 "scores bit for bit")
+    out["calls"] += phase_wide(params, storage, batches, results, out["paths"])
     for op in points:
         path = out["paths"][op.name]
         calls = path.pop("calls")
@@ -1296,6 +1399,75 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
         p.pop("search")
     del params, b
     return out
+
+
+def phase_wide(params, storage: str, batches, results: dict, paths: dict) -> list[dict]:
+    """The shapes the kernels once refused, on the full-width index, each
+    search over all ``batches`` and held bit for bit. int8: Q8-cm at
+    block_q 32 == Q8, and Q8-cm == Q8 at rescore_factor 11 (k' = 1,100).
+    int4: the covering sketch factor (m = C, every candidate of the first
+    pass) == the unfiltered Q4 search. The first batch's grouped or sketch
+    call of each is timed as the shapes phase times a call."""
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import lider
+
+    cfg, k = CONFIG.lider, CONFIG.k
+
+    def run(**kw):
+        """The search over every batch, the first batch's grouped and sketch
+        calls, and each kernel's launches per batch, counted in this run."""
+        calls = []
+        keep = lambda name, a, kw_: name in ("fused_verify_grouped", "sketch_prefilter")
+        torch.cuda.synchronize()
+        reset_counts()
+        with recording(calls, keep):
+            outs = [lider.search_lider(params, batches[0], k=k, n_probe=cfg.n_probe, r0=cfg.r0,
+                                       r0_centroid=cfg.r0_centroid, **kw)]
+        outs += [lider.search_lider(params, qb, k=k, n_probe=cfg.n_probe, r0=cfg.r0,
+                                    r0_centroid=cfg.r0_centroid, **kw) for qb in batches[1:]]
+        torch.cuda.synchronize()
+        counts = dict(zip(KERNELS, read_counts()))
+        per_batch = {}
+        for name in ("fused_verify_grouped", "sketch_prefilter"):
+            # Every batch makes batch 0's calls; a grouped call is two launches.
+            want = sum(c[0] == name for c in calls) * (2 if name == "fused_verify_grouped" else 1)
+            if counts[name] != want * len(batches):
+                raise AssertionError(f"{kw}: {name} launched {counts[name]} times over "
+                                     f"{len(batches)} batches, expected {want * len(batches)}")
+            per_batch[name] = counts[name] // len(batches)
+        return (torch.cat([o.ids for o in outs]), torch.cat([o.scores for o in outs])), calls, per_batch
+
+    def held(name, got, want, base):
+        if not bit_equal(got, want):
+            raise AssertionError(f"{name} differs from {base}")
+        log("quantized", f"{name} == {base} over all {len(batches) * BATCH} queries, ids and "
+            "scores bit for bit")
+
+    timed = []
+    if storage == "int8":
+        got, calls, per_batch = run(block_q=32)
+        held("Q8-cm at block_q 32", got, results["Q8"], "Q8")
+        timed += [("Q8-cm block_q 32", "grouped first pass", c, per_batch) for c in calls]
+        want, _, _ = run(rescore_factor=11)
+        got, calls, per_batch = run(rescore_factor=11, block_q=8)
+        held("Q8-cm at rescore_factor 11 (k' 1,100)", got, want, "Q8 at rescore_factor 11")
+        timed += [("Q8-cm k' 1,100", "grouped first pass", c, per_batch) for c in calls]
+    else:
+        calls = paths["Q4-sk"]["calls"]
+        n_cand = next(c for c in calls if c[0] == "sketch_prefilter")[1][1].shape[1]
+        kp = next(c for c in calls if c[0] == "fused_verify" and c[2].get("scales") is not None)[2]["k"]
+        factor = -(-n_cand // kp)
+        want, _, _ = run()
+        got, calls, per_batch = run(sketch_factor=factor)
+        held(f"Q4 with the covering sketch_factor {factor} (m = C = {n_cand})", got, want,
+             "the unfiltered Q4 search")
+        timed += [("Q4 covering sketch", "sketch pre-filter", c, per_batch) for c in calls]
+    res = []
+    for path, role, (name, args, kw), per_batch in timed:
+        res.append(time_call(path, role, name, args, kw, reps=3 if name == "sketch_prefilter" else 10,
+                             chunk=8 if name == "sketch_prefilter" else 32))
+        res[-1]["launches_per_batch"] = per_batch[name]
+    return res
 
 
 LIFE_BANK = ("sorted_keys", "sorted_pos", "gids", "sizes", "embs", "next_gid")

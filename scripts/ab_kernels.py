@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Time this checkout's verification kernels against another tree's on the
+main path's own calls, in turns, in one process:
+
+    python3 scripts/ab_kernels.py OTHER_TREE
+
+OTHER_TREE is another commit unpacked with ``git archive``. Its
+``repro_torch`` package is imported under another name (the package's
+imports are relative), so its own wrappers launch its own
+``fused_verify``, ``sketch_prefilter`` and ``fused_verify_grouped``,
+built from its sources into ``OTHER_TREE/build/kernels``; a call its
+wrappers do not take fails as a Python error. The calls are recorded from
+one batch of 256 queries on each operating point of ``chip_smoke.py`` (F32
+on the float32 index, Q8 and Q8-cm on the int8 index, Q4-sk and Q4-sk-cm
+on the int4 index; the ``lider-msmarco`` configuration at full width, seed
+0). Each call is timed other, this, this, other (CUDA events, the mean of
+``reps`` calls a turn; then each tree's kernels' device time from a
+``torch.profiler`` trace of 5 calls), and the two trees' outputs must be
+bit-equal (ids equal up to near-tie swaps on float32). Prints the card's
+name and power limit, a line per call beside its bound (and the per-query
+or per-step floor), and one JSON line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (puts this tree's src on the path)
+
+SOURCES = ("fused_verify", "sketch_prefilter", "fused_verify_grouped")
+
+
+def load_other(tree: Path) -> dict:
+    """The other tree's three verification wrappers, its kernels built."""
+    import importlib
+    import importlib.util
+
+    pkg = tree / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "other_repro_torch", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    sys.modules["other_repro_torch"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["other_repro_torch"])
+    importlib.import_module("other_repro_torch.kernels.build").build_all(list(SOURCES))
+    wrappers = importlib.import_module("other_repro_torch.kernels.fused_verify")
+    return {name: getattr(wrappers, name) for name in SOURCES}
+
+
+def record(params, queries, cfg, k, **kw) -> list:
+    from repro_torch.core import lider
+
+    search = lambda: lider.search_lider(params, queries, k=k, n_probe=cfg.n_probe, r0=cfg.r0,
+                                        r0_centroid=cfg.r0_centroid, **kw)
+    search()
+    calls = []
+    keep = lambda name, a, kw_: name in SOURCES
+    with cs.recording(calls, keep):
+        search()
+    torch.cuda.synchronize()
+    return calls
+
+
+def time_pair(path: str, role: str, name: str, args, kw, other: dict) -> dict:
+    """Other, this, this, other; the outputs held equal."""
+    this_fn = cs.wrappers()[name]
+    run_other = lambda: other[name](*args, **kw)
+    a, b = run_other(), this_fn(*args, **kw)
+    torch.cuda.synchronize()
+    exact = name != "fused_verify" or kw.get("scales") is not None
+    if exact and not cs.bit_equal(a, b):
+        raise AssertionError(f"{path} {role}: the two trees' {name} differ")
+    if not exact:
+        cs.compare(a, b)
+    reps = 3 if name == "fused_verify" and args[1].shape[1] > 10_000 and not exact else 10
+    times = [cs.cuda_ms(f, reps) for f in (run_other, lambda: this_fn(*args, **kw),
+                                           lambda: this_fn(*args, **kw), run_other)]
+    dev = [cs.device_ms(name, f) for f in (run_other, lambda: this_fn(*args, **kw))]
+    bound_ms, bound_by = cs.bound(name, args, kw)
+    floor = (cs.per_step_floor(args) if name == "fused_verify_grouped"
+             else cs.per_query_floor(name, args, kw)[1])
+    res = {"path": path, "call": role, "kernel": name, **cs.describe(name, args, kw),
+           "other_ms": [times[0], times[3]], "this_ms": [times[1], times[2]],
+           "other_device_ms": dev[0], "this_device_ms": dev[1],
+           "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor}
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    cs.log("ab", f"{path} {role}: {name}: other {times[0]:.4f}, {times[3]:.4f} ms; this "
+           f"{times[1]:.4f}, {times[2]:.4f} ms; device time of the kernels: other {fmt(dev[0])}, "
+           f"this {fmt(dev[1])}; bound {bound_ms:.4f} ms ({bound_by}), "
+           f"{'per-step' if name == 'fused_verify_grouped' else 'per-query'} floor {floor:.4f} ms; "
+           "outputs " + ("bit-equal" if exact else "ids equal"))
+    return res
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.lider_msmarco import CONFIG, QUANTIZED
+    from repro_torch.core import lider
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    build.build_all(list(SOURCES))
+    other = load_other(Path(sys.argv[1]).resolve())
+    cfg, k = CONFIG.lider, CONFIG.k
+    corpus = synthetic.retrieval_corpus(cs.SEED, CONFIG.corpus_size, CONFIG.dim, device=dev)
+    queries, _ = synthetic.retrieval_queries(cs.SEED + 1, corpus, cs.BATCH)
+    rows = []
+    for storage, points in (("float32", [("F32", {})]),
+                            ("int8", [(p.name, p.search_kwargs()) for p in QUANTIZED
+                                      if p.storage_dtype == "int8"]),
+                            ("int4", [(p.name, p.search_kwargs()) for p in QUANTIZED
+                                      if p.storage_dtype == "int4"])):
+        params = lider.build_lider(cs.SEED, corpus, dataclasses.replace(cfg, storage_dtype=storage),
+                                   device=dev)
+        for path, kw in points:
+            calls = record(params, queries, cfg, k, **kw)
+            first = next(c for c in calls if c[0] == "fused_verify")
+            for call in calls:
+                name, args, ckw = call
+                role = cs._role(name, args, ckw, first=call is first)[0]
+                if path == "F32" and call is not first:
+                    role = "in-cluster"
+                rows.append(time_pair(path, role, name, args, ckw, other))
+            del calls
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"ab": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

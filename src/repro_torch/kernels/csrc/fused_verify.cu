@@ -44,7 +44,11 @@
 //   * the row scale is read by id inside the kernel, so the (B, C) combined
 //     scale array the JAX wrapper builds is never written;
 //   * offsets into the table are 64-bit: a 1M x 768 table has element
-//     offsets past 2^31.
+//     offsets past 2^31;
+//   * k above 4,096 (topk::kMaxSmemK, off the main path) takes chunk_topk's
+//     large-k path: each chunk keeps all its distinct entries and the last
+//     block of a query merges the partial lists in global memory, so any k
+//     is answered.
 // A row's score is the same lane-strided chunks and xor-shuffle reduction
 // wherever it is computed, so every block scores a row bit-identically.
 
@@ -227,7 +231,8 @@ inline int lanes_per_row(int mode, int n_vec) {
 
 // One block per (query row, chunk): blockIdx.x = b * n_chunks + part.
 // Dynamic shared memory: q_s[d_pad] f32, then chunk_topk's buffers.
-template <int MODE, bool VEC, int G>
+// LARGE: k above topk::kMaxSmemK (chunk_topk's large-k path).
+template <int MODE, bool VEC, int G, bool LARGE>
 __global__ void __launch_bounds__(kThreads)
     fused_verify_kernel(const void* __restrict__ embs, long long n_rows, int d,
                         const float* __restrict__ scales,
@@ -314,12 +319,12 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  topk::chunk_topk(row_ids + b * c, out_ids + b * c, n_rows, c, chunk_len, part,
+  topk::chunk_topk<LARGE>(row_ids + b * c, out_ids + b * c, n_rows, c, chunk_len, part,
                    n_chunks, k, smem + sizeof(float) * d_pad, score_rows,
                    ids_out + b * k, scores_out + b * k, ws, b);
 }
 
-template <int MODE, bool VEC, int G>
+template <int MODE, bool VEC, int G, bool LARGE>
 cudaError_t launch(const void* embs, long long n_rows, int d,
                    const float* scales, const int* row_ids, const int* out_ids,
                    const void* queries, const float* q_scales, int b, int c,
@@ -327,8 +332,9 @@ cudaError_t launch(const void* embs, long long n_rows, int d,
                    float* scores_out, topk::Workspace ws, cudaStream_t stream) {
   const int d_log = MODE == kInt4 ? 2 * d : d;
   const int d_pad = (d_log + 7) & ~7;
-  const size_t smem = sizeof(float) * d_pad + topk::chunk_topk_smem(k, chunk_len);
-  auto kern = fused_verify_kernel<MODE, VEC, G>;
+  const size_t smem =
+      sizeof(float) * d_pad + topk::chunk_topk_smem(topk::list_len(k, chunk_len), chunk_len);
+  auto kern = fused_verify_kernel<MODE, VEC, G, LARGE>;
   cudaError_t err = topk::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<static_cast<unsigned>(static_cast<long long>(b) * n_chunks), kThreads, smem, stream>>>(
@@ -337,8 +343,8 @@ cudaError_t launch(const void* embs, long long n_rows, int d,
   return cudaGetLastError();
 }
 
-// The kernel for a table mode, 16-byte loads or not, and lanes per row.
-template <int MODE>
+// The kernel for a table mode, 16-byte loads or not, lanes per row and k.
+template <int MODE, bool LARGE>
 cudaError_t launch_mode(bool vec, int g, const void* embs, long long n_rows, int d,
                         const float* scales, const int* row_ids,
                         const int* out_ids, const void* queries,
@@ -346,7 +352,7 @@ cudaError_t launch_mode(bool vec, int g, const void* embs, long long n_rows, int
                         int n_chunks, int k, int* ids_out, float* scores_out,
                         topk::Workspace ws, cudaStream_t stream) {
 #define FV_LAUNCH(VEC, G)                                                        \
-  launch<MODE, VEC, G>(embs, n_rows, d, scales, row_ids, out_ids, queries,      \
+  launch<MODE, VEC, G, LARGE>(embs, n_rows, d, scales, row_ids, out_ids, queries, \
                        q_scales, b, c, chunk_len, n_chunks, k, ids_out,         \
                        scores_out, ws, stream)
   if (!vec) return FV_LAUNCH(false, 32);
@@ -369,8 +375,9 @@ cudaError_t launch_mode(bool vec, int g, const void* embs, long long n_rows, int
 //   mode 3: packed int4 table (N, d) with d the stored width (logical 2d),
 //           scales, queries (B, 2d) int8 codes + q_scales
 // Each query's C candidates go in n_chunks chunks of `chunk_len` (the wrapper's
-// split_candidates). With n_chunks > 1, `workspace` holds B * n_chunks * (2k
-// + 1) 32-bit words and `arrive` B zeroed counters.
+// split_candidates). With n_chunks > 1, `workspace` holds B * n_chunks * (2L
+// + 1) 32-bit words, L = k, or min(k, chunk_len) when k > topk::kMaxSmemK,
+// followed in that case by 2 B k words; `arrive` holds B zeroed counters.
 extern "C" int fused_verify_launch(const void* embs, int mode, long long n_rows,
                                    int d, const float* scales,
                                    const int* row_ids, const int* out_ids,
@@ -379,35 +386,40 @@ extern "C" int fused_verify_launch(const void* embs, int mode, long long n_rows,
                                    int* ids_out, float* scores_out,
                                    void* workspace, int* arrive, void* stream) {
   if (b <= 0) return 0;
-  if (chunk_len > topk::kMaxChunk || n_chunks < 1 ||
+  if (k < 1 || chunk_len > topk::kMaxChunk || n_chunks < 1 ||
       static_cast<long long>(chunk_len) * n_chunks < c)
     return static_cast<int>(cudaErrorInvalidValue);
   const int elem = mode == kF32 ? 4 : (mode == kBF16 ? 2 : 1);
   const bool vec = (static_cast<long long>(d) * elem) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(embs) % 16 == 0;
   const int g = lanes_per_row(mode, static_cast<int>(static_cast<long long>(d) * elem / 16));
-  const topk::Workspace ws = topk::workspace(workspace, arrive, b, n_chunks, k);
+  const bool large = k > topk::kMaxSmemK;
+  const topk::Workspace ws = topk::workspace(workspace, arrive, b, n_chunks, chunk_len, k);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
+#define FV_MODE(M)                                                                    \
+  (large ? launch_mode<M, true>(vec, g, embs, n_rows, d, scales, row_ids, out_ids,    \
+                                queries, q_scales, b, c, chunk_len, n_chunks, k,      \
+                                ids_out, scores_out, ws, st)                          \
+         : launch_mode<M, false>(vec, g, embs, n_rows, d, scales, row_ids, out_ids,   \
+                                 queries, q_scales, b, c, chunk_len, n_chunks, k,     \
+                                 ids_out, scores_out, ws, st))
   switch (mode) {
     case kF32:
-      err = launch_mode<kF32>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
-                              q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
+      err = FV_MODE(kF32);
       break;
     case kBF16:
-      err = launch_mode<kBF16>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
-                               q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
+      err = FV_MODE(kBF16);
       break;
     case kInt8:
-      err = launch_mode<kInt8>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
-                               q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
+      err = FV_MODE(kInt8);
       break;
     case kInt4:
-      err = launch_mode<kInt4>(vec, g, embs, n_rows, d, scales, row_ids, out_ids, queries,
-                               q_scales, b, c, chunk_len, n_chunks, k, ids_out, scores_out, ws, st);
+      err = FV_MODE(kInt4);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
+#undef FV_MODE
   return static_cast<int>(err);
 }

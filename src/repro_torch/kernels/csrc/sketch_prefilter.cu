@@ -26,7 +26,8 @@
 // integers, so ties at the k-th score are common and survive the threshold
 // test; the staging area absorbs them and the merge keeps the exact
 // tie-break. k reaches 1,600 on the main path: a merge buffer of 4,096
-// entries (32 KB of shared memory) beside the 40 KB hash set.
+// entries (32 KB of shared memory) beside the 40 KB hash set. A k above
+// 4,096 (a covering sketch factor) takes chunk_topk's large-k path.
 
 #include "topk.cuh"
 
@@ -35,7 +36,8 @@ namespace {
 using topk::kThreads;
 
 // One block per (query row, chunk): blockIdx.x = b * n_chunks + part.
-template <bool VEC>
+// LARGE: k above topk::kMaxSmemK (chunk_topk's large-k path).
+template <bool VEC, bool LARGE>
 __global__ void __launch_bounds__(kThreads)
     sketch_prefilter_kernel(const int* __restrict__ sketches, long long n_rows,
                             int w, const int* __restrict__ row_ids,
@@ -73,19 +75,19 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  topk::chunk_topk(row_ids + b * c, out_ids + b * c, n_rows, c, chunk, part,
+  topk::chunk_topk<LARGE>(row_ids + b * c, out_ids + b * c, n_rows, c, chunk, part,
                    n_chunks, k, smem + sizeof(int) * w_pad, score_rows,
                    ids_out + b * k, scores_out + b * k, ws, b);
 }
 
-template <bool VEC>
+template <bool VEC, bool LARGE>
 cudaError_t launch(const int* sketches, long long n_rows, int w,
                    const int* row_ids, const int* out_ids, const int* q_sketch,
                    int b, int c, int chunk, int n_chunks, int k, int* ids_out,
                    float* scores_out, topk::Workspace ws, cudaStream_t stream) {
   const int w_pad = (w + 3) & ~3;
-  const size_t smem = sizeof(int) * w_pad + topk::chunk_topk_smem(k, chunk);
-  auto kern = sketch_prefilter_kernel<VEC>;
+  const size_t smem = sizeof(int) * w_pad + topk::chunk_topk_smem(topk::list_len(k, chunk), chunk);
+  auto kern = sketch_prefilter_kernel<VEC, LARGE>;
   cudaError_t err = topk::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<static_cast<unsigned>(static_cast<long long>(b) * n_chunks), kThreads, smem, stream>>>(
@@ -107,16 +109,18 @@ extern "C" int sketch_prefilter_launch(const int* sketches, long long n_rows,
                                        void* workspace, int* arrive,
                                        void* stream) {
   if (b <= 0) return 0;
-  if (chunk > topk::kMaxChunk || n_chunks < 1 ||
+  if (k < 1 || chunk > topk::kMaxChunk || n_chunks < 1 ||
       static_cast<long long>(chunk) * n_chunks < c)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(sketches) % 16 == 0;
-  const topk::Workspace ws = topk::workspace(workspace, arrive, b, n_chunks, k);
+  const bool large = k > topk::kMaxSmemK;
+  const topk::Workspace ws = topk::workspace(workspace, arrive, b, n_chunks, chunk, k);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      vec ? launch<true>(sketches, n_rows, w, row_ids, out_ids, q_sketch, b, c,
-                         chunk, n_chunks, k, ids_out, scores_out, ws, st)
-          : launch<false>(sketches, n_rows, w, row_ids, out_ids, q_sketch, b, c,
-                          chunk, n_chunks, k, ids_out, scores_out, ws, st);
+#define SP_LAUNCH(VEC, LARGE)                                                          \
+  launch<VEC, LARGE>(sketches, n_rows, w, row_ids, out_ids, q_sketch, b, c, chunk,     \
+                     n_chunks, k, ids_out, scores_out, ws, st)
+  const cudaError_t err = vec ? (large ? SP_LAUNCH(true, true) : SP_LAUNCH(true, false))
+                              : (large ? SP_LAUNCH(false, true) : SP_LAUNCH(false, false));
+#undef SP_LAUNCH
   return static_cast<int>(err);
 }

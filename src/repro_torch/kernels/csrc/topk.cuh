@@ -24,6 +24,12 @@
 // This is exact: every row's score is one fixed-order computation whatever
 // block makes it, and the top-k of a union is the top-k of its parts'
 // top-ks (dedup by out id keeps one copy of equal (score, id) entries).
+//
+// Up to kMaxSmemK, a query's top-k is merged in shared memory. Above it (the
+// large-k path, chunk_topk<true>) a chunk keeps all its distinct valid
+// entries (at most a chunk, so its buffers stay the size of k = chunk), and
+// the last block merges the partial lists in global memory, one at a time,
+// with a merge path split over the block (merge_lists_global).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,6 +41,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kIdSentinel = 0x7fffffff;  // invalid entries sort last
 constexpr int kMaxChunk = 4096;  // candidates per block (fused_verify.py MAX_CHUNK)
+constexpr int kMaxSmemK = 4096;  // above it, the large-k path (fused_verify.py MAX_SMEM_K)
 constexpr unsigned long long kKeySentinel = ~0ull;  // an empty slot
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -161,6 +168,42 @@ __device__ __forceinline__ void write_out(const float* a_sc, const int* a_id,
   }
 }
 
+// Writes the first n entries of a list and (-1, -inf) from n to k.
+__device__ __forceinline__ void write_padded(const float* a_sc, const int* a_id,
+                                             int n, int k, int* ids_out,
+                                             float* scores_out) {
+  for (int i = threadIdx.x; i < k; i += kThreads) {
+    const float sc = i < n ? a_sc[i] : neg_inf();
+    scores_out[i] = sc;
+    ids_out[i] = sc == neg_inf() ? -1 : a_id[i];
+  }
+}
+
+// Exclusive prefix sum of v over the block (every thread calls it); *total
+// receives the sum. Returns synchronised.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_tot, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  int base = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_tot[w];
+    base += w < warp ? c : 0;
+    tot += c;
+  }
+  __syncthreads();
+  *total = tot;
+  return base + x - v;
+}
+
 // A scored slot of the hash set: the score's bits over the out id.
 __device__ __forceinline__ unsigned long long scored_key(float sc,
                                                          unsigned long long key) {
@@ -169,23 +212,144 @@ __device__ __forceinline__ unsigned long long scored_key(float sc,
 }
 
 // Global memory of a multi-chunk call: per query, n_chunks partial lists
-// of k (score, id) entries, their lengths, and the arrival counter (zero
-// before the launch).
+// of `len` (score, id) entries (len = k, or the chunk on the large-k path),
+// their lengths, the arrival counter (zero before the launch) and, on the
+// large-k path, a k-entry list the final merge alternates with the output.
 struct Workspace {
-  float* sc;     // (B, n_chunks, k)
-  int* id;       // (B, n_chunks, k)
+  float* sc;     // (B, n_chunks, len)
+  int* id;       // (B, n_chunks, len)
   int* n;        // (B, n_chunks)
   int* arrive;   // (B,)
+  float* x_sc;   // (B, k), large-k path only
+  int* x_id;     // (B, k), large-k path only
 };
 
-// The workspace laid out in one buffer of B * n_chunks * (2k + 1) 32-bit
-// words (null when n_chunks == 1).
-inline Workspace workspace(void* base, int* arrive, int b, int n_chunks, int k) {
-  if (base == nullptr) return Workspace{nullptr, nullptr, nullptr, arrive};
-  const size_t lists = static_cast<size_t>(b) * n_chunks * k;
+// Length of a chunk's partial list: k, or on the large-k path the chunk
+// (which holds all its distinct entries) when that is shorter.
+__host__ __device__ inline int list_len(int k, int chunk) {
+  return k > kMaxSmemK && chunk < k ? chunk : k;
+}
+
+// The workspace laid out in one buffer of B * n_chunks * (2 len + 1) 32-bit
+// words, len = list_len(k, chunk), then 2 B k on the large-k path (null
+// when n_chunks == 1).
+inline Workspace workspace(void* base, int* arrive, int b, int n_chunks, int chunk, int k) {
+  if (base == nullptr) return Workspace{nullptr, nullptr, nullptr, arrive, nullptr, nullptr};
+  const bool large = k > kMaxSmemK;
+  const size_t lists = static_cast<size_t>(b) * n_chunks * list_len(k, chunk);
   float* sc = static_cast<float*>(base);
   int* id = reinterpret_cast<int*>(sc + lists);
-  return Workspace{sc, id, id + lists, arrive};
+  int* n = id + lists;
+  float* x_sc = large ? reinterpret_cast<float*>(n + static_cast<size_t>(b) * n_chunks) : nullptr;
+  int* x_id = large ? reinterpret_cast<int*>(x_sc + static_cast<size_t>(b) * k) : nullptr;
+  return Workspace{sc, id, n, arrive, x_sc, x_id};
+}
+
+// How many entries of sorted list a come before position d of the merge of
+// a and b (both sorted on (score desc, id asc); a wins ties).
+__device__ __forceinline__ int merge_split(const float* a_sc, const int* a_id, int na,
+                                           const float* b_sc, const int* b_id, int nb,
+                                           int d) {
+  int lo = d - nb > 0 ? d - nb : 0;
+  int hi = d < na ? d : na;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int j = d - 1 - mid;
+    if (before(__ldcg(b_sc + j), __ldcg(b_id + j), __ldcg(a_sc + mid), __ldcg(a_id + mid)))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// The large-k final merge, by the last block of query b: the n_chunks
+// partial lists in the workspace (each sorted and deduplicated) are merged
+// into an accumulator one list at a time, acc = the first k distinct
+// entries of merge(acc, list). Each round cuts the merged sequence into
+// equal runs, one a thread (merge_split); a thread walks its run twice,
+// counting then writing the entries whose id differs from the one before
+// (equal ids carry equal scores, so their copies are adjacent), at offsets
+// from a block scan. The accumulator alternates between the workspace's x
+// list and the output, so that the last round writes the output. Lists
+// written by other blocks, or by this one, are read through L2 (__ldcg).
+__device__ void merge_lists_global(const Workspace& ws, long long b, int n_chunks,
+                                   int len, int k, int* ids_out, float* scores_out,
+                                   int* warp_tot) {
+  const int tid = threadIdx.x;
+  const long long q0 = b * n_chunks;
+  float* x_sc = ws.x_sc + b * k;
+  int* x_id = ws.x_id + b * k;
+  int na = 0;
+  const float* a_sc = x_sc;
+  const int* a_id = x_id;
+  for (int p = 0; p < n_chunks; ++p) {
+    const bool to_out = ((n_chunks - 1 - p) & 1) == 0;
+    float* d_sc = to_out ? scores_out : x_sc;
+    int* d_id = to_out ? ids_out : x_id;
+    const float* b_sc = ws.sc + (q0 + p) * len;
+    const int* b_id = ws.id + (q0 + p) * len;
+    const int nb = __ldcg(ws.n + q0 + p);
+    const int total = na + nb;
+    const int per = (total + kThreads - 1) / kThreads;
+    const int d0 = tid * per < total ? tid * per : total;
+    const int d1 = d0 + per < total ? d0 + per : total;
+    const int a0 = merge_split(a_sc, a_id, na, b_sc, b_id, nb, d0);
+    const int b0 = d0 - a0;
+    // The id of merged entry d0 - 1: the later of a[a0 - 1] and b[b0 - 1].
+    int prev = -1;
+    if (a0 > 0 && b0 > 0) {
+      const bool b_first = before(__ldcg(b_sc + b0 - 1), __ldcg(b_id + b0 - 1),
+                                  __ldcg(a_sc + a0 - 1), __ldcg(a_id + a0 - 1));
+      prev = b_first ? __ldcg(a_id + a0 - 1) : __ldcg(b_id + b0 - 1);
+    } else if (a0 > 0) {
+      prev = __ldcg(a_id + a0 - 1);
+    } else if (b0 > 0) {
+      prev = __ldcg(b_id + b0 - 1);
+    }
+    // Walks the run [d0, d1), calling emit(pos, sc, id) for each kept
+    // entry (pos counts kept entries from 0); returns the count.
+    auto walk = [&](auto emit) {
+      int i = a0, j = b0, last = prev, kept = 0;
+      for (int d = d0; d < d1; ++d) {
+        float sc;
+        int id;
+        const bool take_a =
+            i < na && (j >= nb || !before(__ldcg(b_sc + j), __ldcg(b_id + j),
+                                          __ldcg(a_sc + i), __ldcg(a_id + i)));
+        if (take_a) {
+          sc = __ldcg(a_sc + i);
+          id = __ldcg(a_id + i);
+          ++i;
+        } else {
+          sc = __ldcg(b_sc + j);
+          id = __ldcg(b_id + j);
+          ++j;
+        }
+        if (id != last) emit(kept++, sc, id);
+        last = id;
+      }
+      return kept;
+    };
+    const int mine = walk([](int, float, int) {});
+    int n_kept;
+    const int off = block_exclusive_scan(mine, warp_tot, &n_kept);
+    if (off < k)
+      walk([&](int pos, float sc, int id) {
+        if (off + pos < k) {
+          d_sc[off + pos] = sc;
+          d_id[off + pos] = id;
+        }
+      });
+    na = n_kept < k ? n_kept : k;
+    a_sc = d_sc;
+    a_id = d_id;
+    __syncthreads();
+  }
+  for (int i = na + tid; i < k; i += kThreads) {
+    scores_out[i] = neg_inf();
+    ids_out[i] = -1;
+  }
 }
 
 // Slots of chunk_topk's hash set: a power of two >= twice the chunk (at
@@ -219,15 +383,20 @@ inline size_t chunk_topk_smem(int k, int chunk) {
 //
 // Row ids are clamped into [0, n_rows), as a JAX gather clamps; a pair
 // whose out id is < 0 never enters (its row is never loaded).
-template <class ScoreRows>
+//
+// LARGE (k_out > kMaxSmemK): a chunk's list is cut at min(k_out, chunk),
+// which keeps every distinct entry of the chunk, and the final merge runs
+// in global memory (merge_lists_global).
+template <bool LARGE, class ScoreRows>
 __device__ void chunk_topk(const int* __restrict__ rid_row,
                            const int* __restrict__ oid_row, long long n_rows,
-                           int c, int chunk, int part, int n_chunks, int k,
+                           int c, int chunk, int part, int n_chunks, int k_out,
                            unsigned char* buf, ScoreRows& score_rows,
                            int* ids_out, float* scores_out, Workspace ws,
                            long long b) {
   __shared__ int warp_tot[kWarps];
   __shared__ int last_block, n_heads_s, cnt_s;
+  const int k = LARGE ? (k_out < chunk ? k_out : chunk) : k_out;  // a chunk's list
   const int tid = threadIdx.x;
   const int j0 = part * chunk;
   int len = c - j0 < chunk ? c - j0 : chunk;
@@ -334,7 +503,10 @@ __device__ void chunk_topk(const int* __restrict__ rid_row,
   if (cnt > 0) merge();
 
   if (n_chunks == 1) {
-    write_out(w_sc, w_id, k, ids_out, scores_out);
+    if constexpr (LARGE)
+      write_padded(w_sc, w_id, a_n, k_out, ids_out, scores_out);
+    else
+      write_out(w_sc, w_id, k, ids_out, scores_out);
     return;
   }
 
@@ -353,6 +525,10 @@ __device__ void chunk_topk(const int* __restrict__ rid_row,
   __syncthreads();
   if (!last_block) return;
   __threadfence();
+  if constexpr (LARGE) {
+    merge_lists_global(ws, b, n_chunks, k, k_out, ids_out, scores_out, warp_tot);
+    return;
+  }
 
   // Each partial list (at most k <= s - k entries) is staged in one pass,
   // after a merge if the room is short. The lists are sorted: a thread

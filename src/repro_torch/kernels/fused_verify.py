@@ -9,10 +9,14 @@
   Both cut each query's C candidates into chunks (:func:`split_candidates`),
   one block each; a block loads each distinct row of its chunk once and
   keeps a partial top-k, and the last block of a query merges the partial
-  lists (``csrc/topk.cuh``).
+  lists (``csrc/topk.cuh``), in shared memory up to ``MAX_SMEM_K`` and in
+  global memory above it, so any k >= 1 is answered (:func:`verify_plan`).
 - ``fused_verify_grouped`` (``csrc/fused_verify_grouped.cu``): the
-  cluster-major first pass, one cluster tile against ``block_q`` queries.
-  Replaces ``...::fused_verify_grouped``.
+  cluster-major first pass, one cluster tile against ``block_q`` queries:
+  a score kernel per (step, slot group) on the tensor cores, then a select
+  kernel per (step, slot), through a scratch of scores
+  (:func:`grouped_scratch`). Replaces
+  ``...::fused_verify_grouped``.
 
 Each source's header says what bounds it on the card and how the design
 answers that. A wrapper validates its inputs, allocates the outputs and
@@ -23,23 +27,27 @@ that its main path went through the kernel.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import quant
 from .launch import I as _I, LL as _LL, P as _P
 from .launch import bind as _bind, check as _check, launch as _launch, on_cuda as _on_cuda
 
-MAX_K = 4096  # the merge buffer (next_pow2(2k) entries) must fit in shared memory
-MAX_BLOCK_Q = 16  # query slots per grouped step (registers of the grouped kernel)
 MAX_CHUNK = 4096  # candidates per block: its (row, id) hash set fits in shared memory
+MAX_SMEM_K = 4096  # above it, a query's top-k is merged in global memory (topk.cuh kMaxSmemK)
+# The grouped kernels (csrc/fused_verify_grouped.cu kMaxLp): the select
+# kernel sorts up to next_pow2(Lp) (score, id) entries in shared memory.
+MAX_LP = 16384
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8, _INT4 = 2, 3
 
 
 def _check_k(k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
 
 
 def split_candidates(c: int) -> tuple[int, int]:
@@ -53,16 +61,56 @@ def split_candidates(c: int) -> tuple[int, int]:
     return (-(-c // chunk) if chunk else 1), chunk
 
 
-def _workspace(b: int, c: int, k: int, device):
-    """``(n_chunks, chunk, workspace, arrive)`` of a call: for more than
-    one chunk, each query's partial top-ks and their lengths (B * n_chunks
-    * (2k + 1) int32 words) and its arrival counter (B zeros); else None."""
+@dataclasses.dataclass(frozen=True)
+class VerifyPlan:
+    """How ``fused_verify`` and ``sketch_prefilter`` run a (B, C) call at k."""
+
+    n_chunks: int
+    chunk: int
+    large: bool  # k > MAX_SMEM_K: the final merge runs in global memory
+    list_len: int  # entries of a chunk's partial list
+    words: int  # int32 words of the workspace; 0 when there is none
+
+
+def verify_plan(b: int, c: int, k: int) -> VerifyPlan:
+    """The (query, chunk) split and the workspace of a call. With more than
+    one chunk, each query has ``n_chunks`` partial lists of ``list_len``
+    (score, id) entries and their lengths; on the large-k path a chunk's
+    list keeps all its distinct entries (at most the chunk) and each query
+    also has a k-entry list for the final merge (``csrc/topk.cuh``)."""
     n_chunks, chunk = split_candidates(c)
-    if n_chunks == 1:
-        return n_chunks, chunk, None, None
-    return (n_chunks, chunk,
-            torch.empty((b * n_chunks * (2 * k + 1),), dtype=torch.int32, device=device),
+    large = k > MAX_SMEM_K
+    list_len = min(k, chunk) if large else k
+    words = 0
+    if n_chunks > 1:
+        words = b * n_chunks * (2 * list_len + 1) + (2 * b * k if large else 0)
+    return VerifyPlan(n_chunks, chunk, large, list_len, words)
+
+
+def _workspace(b: int, c: int, k: int, device):
+    """``(n_chunks, chunk, workspace, arrive)`` of a call: the workspace of
+    :func:`verify_plan` and each query's arrival counter (B zeros), or None
+    for one chunk."""
+    plan = verify_plan(b, c, k)
+    if not plan.words:
+        return plan.n_chunks, plan.chunk, None, None
+    return (plan.n_chunks, plan.chunk,
+            torch.empty((plan.words,), dtype=torch.int32, device=device),
             torch.zeros((b,), dtype=torch.int32, device=device))
+
+
+def grouped_scratch(s_steps: int, block_q: int, lp: int) -> int:
+    """float32 entries of a grouped call's scratch, the score of every
+    (step, slot, row): S * block_q * Lp. Raises where the kernels cannot
+    run: block_q or Lp below 1, or Lp above ``MAX_LP``. The score kernel
+    picks its slot group in the C entry point, from its shared memory and
+    the device's limit."""
+    if block_q < 1 or lp < 1:
+        raise ValueError(f"block_q and Lp must be >= 1, got {block_q}, {lp}")
+    if lp > MAX_LP:
+        raise ValueError(f"Lp must be at most {MAX_LP} (the select kernel sorts a slot's "
+                         f"candidates in shared memory), got {lp}")
+    return s_steps * block_q * lp
 
 
 def _ptr(t: torch.Tensor | None):
@@ -207,7 +255,8 @@ def fused_verify_grouped(
     f32 queries (quantized here), the schedule ``sched_cids (S,)``,
     ``sched_qids (S, block_q)`` and ``step_slot_ids (S, block_q, Lp)``, all
     int32 -> ``(S, block_q, kp)`` ids and scores: each (step, slot)'s
-    dedup top-``kp`` within its cluster."""
+    dedup top-``kp`` within its cluster. Any block_q and kp >= 1, Lp up to
+    ``MAX_LP``; two kernel launches (score, then select), both counted."""
     if code_dtype not in ("int8", "int4"):
         raise ValueError(f"code_dtype must be 'int8' or 'int4', got {code_dtype!r}")
     device = _on_cuda("fused_verify_grouped", embs, "verify_topk_grouped_ref")
@@ -219,8 +268,7 @@ def fused_verify_grouped(
         raise ValueError("step_slot_ids must be (S, block_q, Lp) and queries (B, d)")
     s_steps, block_q, _ = step_slot_ids.shape
     b = queries.shape[0]
-    if not 1 <= block_q <= MAX_BLOCK_Q:
-        raise ValueError(f"block_q must be in [1, {MAX_BLOCK_Q}], got {block_q}")
+    n_scratch = grouped_scratch(s_steps, block_q, lp)
     _check("embs", embs, torch.int8, (c, lp, d_store), device)
     _check("row_scales", row_scales, torch.float32, (c, lp), device)
     _check("queries", queries, torch.float32, (b, d), device)
@@ -233,15 +281,17 @@ def fused_verify_grouped(
     scores = torch.empty((s_steps, block_q, kp), dtype=torch.float32, device=device)
     if s_steps == 0:
         return ids, scores
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=device)
     fn = _bind("fused_verify_grouped", "fused_verify_grouped_launch",
-               [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P])
+               [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P])
     _launch(
         "fused_verify_grouped", fn, embs.data_ptr(), row_scales.data_ptr(), c, lp,
         d_store, int(code_dtype == "int4"), q_codes.data_ptr(), q_scales.data_ptr(),
         sched_cids.data_ptr(), sched_qids.data_ptr(), step_slot_ids.data_ptr(),
-        s_steps, block_q, kp, ids.data_ptr(), scores.data_ptr(), device=device,
+        s_steps, block_q, kp, scratch.data_ptr(), ids.data_ptr(),
+        scores.data_ptr(), device=device,
     )
-    fused_verify_grouped.launches += 1
+    fused_verify_grouped.launches += 2  # the score kernel, then the select kernel
     return ids, scores
 
 

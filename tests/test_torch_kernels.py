@@ -292,7 +292,11 @@ def test_cuda_sketch_prefilter_matches_plain_version():
 @pytest.mark.parametrize("code_dtype", ["int8", "int4"])
 def test_cuda_grouped_kernel_matches_plain_version(code_dtype):
     """``fused_verify_grouped`` on a Zipf schedule with padding steps,
-    empty slots, sparse masks, a dead leading tile and staging merges."""
+    empty slots, sparse masks, a dead leading tile and staging merges; d =
+    33 and Lp = 118 take the kernel's paths for rows and id rows that are
+    not a whole number of 16 and 4 bytes (int8 only: int4 needs an even d);
+    d = 4,096 at block_q 32 takes four ring stages a tile and, on int8, a
+    slot group of 24 (the entry point's choice: 32 slots do not fit)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import quant
@@ -302,8 +306,11 @@ def test_cuda_grouped_kernel_matches_plain_version(code_dtype):
     dev = torch.device("cuda")
     for seed, (c, lp, d, b, p, block_q, kp) in enumerate(
         [(6, 16, 32, 5, 3, 4, 6), (8, 200, 64, 12, 4, 8, 40), (5, 120, 48, 9, 3, 3, 150),
-         (4, 1500, 64, 6, 2, 8, 10), (16, 2584, 768, 20, 4, 8, 400)]
+         (4, 1500, 64, 6, 2, 8, 10), (16, 2584, 768, 20, 4, 8, 400), (5, 118, 33, 9, 3, 3, 150),
+         (4, 256, 4096, 40, 2, 32, 100)]
     ):
+        if code_dtype == "int4" and d % 2:
+            continue
         rng = np.random.default_rng(seed)
         x = torch.from_numpy(rng.standard_normal((c, lp, d)).astype(np.float32)).to(dev)
         x[0, 3] = 0
@@ -327,6 +334,69 @@ def test_cuda_grouped_kernel_matches_plain_version(code_dtype):
         _bit_equal(got, ref.verify_topk_grouped_ref(*args, kp=kp, code_dtype=code_dtype))
 
 
+GROUPED_LARGE = [  # (block_q, k'): the shapes the kernel used to refuse, and the main path's
+    (8, 400), (8, 1_100), (24, 400), (32, 2_048),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("block_q,kp", GROUPED_LARGE)
+def test_cuda_grouped_kernel_large_shapes(block_q, kp, code_dtype):
+    """``fused_verify_grouped`` at d = 768, Lp = 2,584 on a Zipf schedule
+    with padding steps and empty slots, 30% of each slot's rows masked and
+    an id repeated on bit-equal rows: bit-equal to its plain version."""
+    _grouped_on_card(block_q, kp, code_dtype, pairs=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_dtype", ["int8", "int4"])
+def test_cuda_grouped_kernel_every_id_twice(code_dtype):
+    """Every candidate id on two bit-equal rows, so the bins that hold k'
+    candidates hold about k' / 2 distinct ids and the select kernel must
+    sort every candidate: bit-equal to the plain version."""
+    _grouped_on_card(8, 400, code_dtype, pairs=True)
+
+
+def _grouped_on_card(block_q, kp, code_dtype, *, pairs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.fused_verify import fused_verify_grouped
+    from repro_torch.kernels.schedule import build_cluster_schedule
+
+    dev = torch.device("cuda")
+    c, lp, d, b, p = 24, 2_584, 768, 4 * block_q, 4
+    rng = np.random.default_rng(block_q * 10_000 + kp)
+    x = torch.from_numpy(rng.standard_normal((c, lp, d)).astype(np.float32)).to(dev)
+    x[1, 5] = x[1, 2]
+    if pairs:
+        x[:, 1::2] = x[:, 0::2]
+    qfn = quant.quantize_rows if code_dtype == "int8" else quant.quantize_rows_int4
+    codes, scales = qfn(x)
+    w = 1.0 / np.arange(1, c + 1) ** 1.3
+    cids = np.stack([rng.choice(c, size=p, replace=False, p=w / w.sum()) for _ in range(b)])
+    n_steps = build_cluster_schedule(cids.astype(np.int32), block_q=block_q).n_steps
+    sched = build_cluster_schedule(cids.astype(np.int32), block_q=block_q, pad_to=n_steps + 3)
+    s = sched.sched_cids.shape[0]  # three padding steps
+    slot = np.full((s, block_q, lp), -1, np.int32)
+    st, sl = np.nonzero(sched.sched_qids >= 0)
+    slot[st, sl] = sched.sched_cids[st, None] * lp + np.arange(lp)
+    slot[rng.random(slot.shape) < 0.3] = -1
+    one = sched.sched_cids == 1
+    slot[one, :, 5] = slot[one, :, 2]
+    if pairs:
+        slot[:, :, 1::2] = slot[:, :, 0::2]
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    args = (codes.contiguous(), scales, q, torch.from_numpy(sched.sched_cids).to(dev),
+            torch.from_numpy(sched.sched_qids).to(dev), torch.from_numpy(slot).to(dev))
+    before = fused_verify_grouped.launches
+    got = fused_verify_grouped(*args, kp=kp, code_dtype=code_dtype)
+    torch.cuda.synchronize()
+    assert fused_verify_grouped.launches - before == 2
+    _bit_equal(got, ref.verify_topk_grouped_ref(*args, kp=kp, code_dtype=code_dtype))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("storage_dtype", ["int8", "int4"])
 def test_cuda_quantized_search_matches_cpu_search(storage_dtype):
@@ -347,8 +417,9 @@ def test_cuda_quantized_search_matches_cpu_search(storage_dtype):
                             device="cpu")
     gpu = cpu.to("cuda")
     same = _query_keys_agree(cpu, gpu, q)
+    # The grouped call is two launches: its score kernel, then its select kernel.
     for kw, launches in (({}, (3, 0, 0)), ({"sketch_factor": 4}, (3, 1, 0)),
-                         ({"block_q": 8}, (2, 0, 1)), ({"sketch_factor": 4, "block_q": 8}, (2, 1, 1))):
+                         ({"block_q": 8}, (2, 0, 2)), ({"sketch_factor": 4, "block_q": 8}, (2, 1, 2))):
         want = lider.search_lider(cpu, q, k=10, n_probe=4, **kw)
         before = (fused_verify.launches, sketch_prefilter.launches, fused_verify_grouped.launches)
         got = lider.search_lider(gpu, q, k=10, n_probe=4, **kw)

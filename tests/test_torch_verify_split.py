@@ -31,6 +31,10 @@ def _case(kind: str, seed: int = 0):
         c = k = 4_096
     if kind == "k above a chunk's distinct rows":
         n, c, k = 1_500, 9_000, 4_096
+    if kind == "k above the shared-memory list":  # the large-k path, 3 chunks
+        n, c, k = 20_000, 12_000, 6_400
+    if kind == "k above C, one chunk":
+        c, k = 3_000, 6_400
     embs = rng.standard_normal((n, D)).astype(np.float32)
     embs /= np.linalg.norm(embs, axis=1, keepdims=True)
     rows = rng.integers(0, n, (b, c)).astype(np.int32)
@@ -57,6 +61,8 @@ KINDS = [
     "C not a multiple of the chunk",
     "k = C",
     "k above a chunk's distinct rows",
+    "k above the shared-memory list",
+    "k above C, one chunk",
 ]
 TABLES = ["float32", "int8", "int4", "sketch"]
 
