@@ -9,7 +9,8 @@ Phases, each printing its lines; any failure exits non-zero:
                device is an error, never a fall-back to the CPU.
 2. build     — ``nvcc`` builds every kernel source under ``csrc/``, one
                process per source, all at once; ``cuobjdump -res-usage``
-               prints each verification kernel's registers and stack frame.
+               prints the registers and stack frame of each verification
+               kernel and of ``kmeans_assign``.
 3. parity    — each kernel against its plain version on edge cases
                (duplicates, dead tiles, an all-invalid row, k above the
                valid count, heavy score ties): ``fused_verify`` on float32,
@@ -28,22 +29,27 @@ Phases, each printing its lines; any failure exits non-zero:
                ``sketch_factor`` and the cluster-major schedule give the
                unfiltered search, bit for bit. Then the build kernels:
                ``lsh_hash`` (N off every tile, d in {8, 33, 768}, H=1, M in
-               {1, 16, 31}, bfloat16 rows) and ``kmeans_assign`` (c in {1,
-               7, 70}, duplicate centroids) within float32 rounding of their
-               plain versions, k-means distances within 16 times the plain
-               version's error against float64 (a TF32 product, run to show
-               the check can fail, must exceed it), duplicate-centroid ties
-               exact, and each row's key and assignment the same alone, in a
-               large batch and at another offset.
+               {1, 16, 31}, bfloat16 rows) and ``kmeans_assign`` (N, c and d
+               off its tiles, rows off a 16-byte boundary, duplicate
+               centroids in one tile and across tiles) within float32
+               rounding of their plain versions, k-means distances within
+               16 times the plain version's error against float64 (a TF32
+               product, run to show the check can fail, must exceed it),
+               duplicate-centroid ties exact, and each row's key and
+               assignment the same alone, in a large batch and at another
+               offset.
 4. main      — the ``lider-msmarco`` configuration (1,048,576 x 768
                synthetic corpus, float32 bank): ``build_lider`` through
                both build kernels, three times. The first build of the
                process is the main path's (its launches counted, its
                stages timed, run under ``cProfile``, the arguments of each
                kernel's first call kept); a second, warm build is timed the
-               same way; a third times every build-kernel call on its own,
-               beside its plain version and the cuBLAS product. Then 4 batches of 256 queries through ``search_lider`` at
-               k=100, recall@100 against Flat, the first 8 queries against
+               same way and its k-means centroids and assignments compared
+               with the first's, bit for bit (printed, not held: the Lloyd
+               sums use ``index_add_``); a third times every build-kernel
+               call on its own, beside its plain version and the cuBLAS
+               product. Then 4 batches of 256 queries through
+               ``search_lider`` at k=100, recall@100 against Flat, the first 8 queries against
                the same search with every kernel swapped for its plain
                version (query keys compared first), launches per batch
                (2 ``fused_verify``, 2 ``lsh_hash``), and a
@@ -51,10 +57,11 @@ Phases, each printing its lines; any failure exits non-zero:
 5. shapes    — each kernel call of the main path (the build's and one
                search batch's), on the arguments it was given, held against
                the plain version over the whole call and timed with CUDA
-               events beside its bound (and, for the build kernels, beside
-               the cuBLAS product alone; for ``fused_verify`` and
-               ``sketch_prefilter``, beside the per-query floor: the
-               distinct (query, row) pairs read once each, and for a
+               events beside its bound and its kernels' device time (and,
+               for the build kernels, beside the cuBLAS product alone; for
+               ``fused_verify`` and ``sketch_prefilter``, beside the
+               per-query floor: the distinct (query, row) pairs read once
+               each, and for a
                multi-chunk call its chunks alone, without the final
                merges; for ``fused_verify_grouped``, beside the per-step
                floor: each real step's live rows and ids read once). Then
@@ -110,8 +117,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS = {  # per second: f32 CUDA cores; bf16 and int8 tensor cores (dense)
-    torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12,
+PEAK_OPS = {  # per second: f32 CUDA cores; tf32, bf16 and int8 tensor cores (dense)
+    torch.float32: 67e12, "tf32": 495e12, torch.bfloat16: 989e12, torch.int8: 1979e12,
 }
 RECALL_FLOOR = 0.5  # only catches garbage
 N_BATCHES, BATCH, SEED = 4, 256, 0
@@ -143,13 +150,15 @@ PER_BATCH = {
 def per_build(cfg, *, kmeans: bool = True) -> tuple:
     """Launches of one ``build_lider``, from the code: k-means runs
     ``kmeans_iters`` Lloyd steps and one final assignment (one
-    ``kmeans_assign`` each; a build with given centroids assigns once);
-    the bank fit hashes ``bank._FIT_CHUNK`` clusters per ``lsh_hash`` call,
-    and the centroid model hashes the centroids once."""
+    ``kmeans_assign`` call each, of ``LAUNCHES_PER_CALL`` launches: the
+    centroid norms, then the assignment; a build with given centroids
+    assigns once); the bank fit hashes ``bank._FIT_CHUNK`` clusters per
+    ``lsh_hash`` call, and the centroid model hashes the centroids once."""
     from repro_torch.core import bank
+    from repro_torch.kernels.kmeans_assign import LAUNCHES_PER_CALL
 
     n_fit = math.ceil(cfg.n_clusters / bank._FIT_CHUNK)
-    return (0, 0, 0, n_fit + 1, cfg.kmeans_iters + 1 if kmeans else 1)
+    return (0, 0, 0, n_fit + 1, LAUNCHES_PER_CALL * (cfg.kmeans_iters + 1 if kmeans else 1))
 
 
 def log(phase: str, msg: str) -> None:
@@ -320,7 +329,7 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     log("build", f"{len(libs)} kernel libraries built in {secs:.2f} s (one nvcc each, in "
         f"parallel): {', '.join(p.name for p in libs.values())}")
-    for name in ("fused_verify", "sketch_prefilter", "fused_verify_grouped"):
+    for name in ("fused_verify", "sketch_prefilter", "fused_verify_grouped", "kmeans_assign"):
         log("build", f"cuobjdump -res-usage {name}: {res_usage(libs[name])}")
     return secs
 
@@ -585,8 +594,9 @@ LSH_CASES = [  # (n, d, H, M, row dtype): N off every tile, H=1, M in {1, 16, 31
     (4099, 768, 10, 16, torch.bfloat16), (513, 33, 1, 16, torch.bfloat16),
     (300, 768, 10, 10, torch.float32), (2000, 8, 7, 31, torch.float32), (65, 768, 1, 1, torch.bfloat16),
 ]
-KMEANS_CASES = [  # (n, c, d): N off every tile, c in {1, 7, 70}
-    (1, 1, 8), (257, 7, 33), (1000, 70, 768), (4099, 1, 768), (129, 70, 8), (3001, 7, 768),
+KMEANS_CASES = [  # (n, c, d, offset): N, c and d off every tile and stage; rows 4 bytes off 16
+    (1, 1, 8, 0), (257, 7, 33, 0), (1000, 70, 768, 0), (4099, 1, 768, 0), (129, 70, 8, 0),
+    (3001, 7, 768, 0), (127, 129, 770, 0), (4099, 1024, 768, 1), (129, 130, 33, 1),
 ]
 
 
@@ -619,13 +629,14 @@ def phase_parity_build(dev) -> float:
     rows = differ = 0
     worst = 0.0
     errs = {"kernel": 0.0, "plain": 0.0, "tf32": 0.0}
-    for n, c, d in KMEANS_CASES:
-        x = torch.randn((n, d), generator=g, device=dev)
+    for n, c, d, offset in KMEANS_CASES:
+        x = torch.randn((n * d + 4,), generator=g, device=dev)[offset : offset + n * d].view(n, d)
         cen = torch.randn((c, d), generator=g, device=dev)
         dup = c >= 7
-        if dup:  # centroids 5 and 6 copy 2; row 0 sits on them, row 1 next to them
+        if dup:  # centroids 5, 6 and the last copy 2; row 0 sits on them, row 1 next to them
             cen[5] = cen[2]
             cen[6] = cen[2]
+            cen[c - 1] = cen[2]
             x[0] = cen[2]
             x[1] = cen[2] + 1e-3 * torch.randn((d,), generator=g, device=dev)
         got_a, got_d = kmeans_assign(x, cen)
@@ -639,7 +650,7 @@ def phase_parity_build(dev) -> float:
         torch.testing.assert_close(got_d[rest], want_d[rest], rtol=1e-4, atol=1e-4)
         worst = max(worst, float((got_d[rest] - want_d[rest]).abs().max()) if n > 2 else 0.0)
         if dup:
-            if got_a[:2].tolist() != [2, 2] or bool(((got_a == 5) | (got_a == 6)).any()):
+            if got_a[:2].tolist() != [2, 2] or bool(((got_a == 5) | (got_a == 6) | (got_a == c - 1)).any()):
                 raise AssertionError("duplicate centroids did not resolve to the first index")
             bnd = d * 2.0**-24 * 4 * float((x[0].double() ** 2).sum())
             if abs(float(got_d[0])) > bnd:  # a distance of 0 computed by cancellation
@@ -730,6 +741,7 @@ def phase_main(dev) -> dict:
     peak_build = torch.cuda.max_memory_allocated()
     warm = build_counted("main", dev, corpus, cfg)
     del warm.params
+    log("main", same_builds(first.km, warm.km))
     timed = time_every_build_call(dev, corpus, cfg)
     log("main", f"data {t_data:.2f} s; capacity Lp={stats.capacity}; indexed {stats.n_indexed}, "
         f"dropped {stats.n_dropped}; peak device memory of the first build "
@@ -742,7 +754,9 @@ def phase_main(dev) -> dict:
         log("main", f"a third build, every call timed alone: {len(mine)} {name} calls, kernel "
             f"{sum(t['ms'] for t in mine):.3f} ms in all, plain version "
             f"{sum(t['plain_ms'] for t in mine):.3f} ms, cuBLAS product alone "
-            f"{sum(t['product_ms'] for t in mine):.3f} ms, bound {sum(t['bound_ms'] for t in mine):.3f} ms")
+            f"{sum(t['product_ms'] for t in mine):.3f} ms, bound {sum(t['bound_ms'] for t in mine):.3f} ms"
+            + (f" (one float32 product on the CUDA cores: {sum(t['f32_bound_ms'] for t in mine):.3f} ms)"
+               if name == "kmeans_assign" else ""))
 
     k, n_probe = CONFIG.k, cfg.n_probe
     search = lambda q: lider.search_lider(
@@ -815,7 +829,7 @@ def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, **
     from repro_torch.core import bank as bank_lib
     from repro_torch.core import lider
 
-    stages = {}
+    stages, outs = {}, {}
 
     def timed(mod, attr, key):
         real = getattr(mod, attr)
@@ -826,6 +840,7 @@ def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, **
             out = real(*a, **k)
             torch.cuda.synchronize()
             stages[key] = stages.get(key, 0.0) + time.perf_counter() - t0
+            outs[key] = out
             return out
         return mock.patch.object(mod, attr, f)
 
@@ -866,7 +881,22 @@ def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, **
         "64) bank-fit chunks + 1 centroid-model fit)" if kmeans else
         f"one build_lider (given centroids) launched {fmt_counts(counts)}, as the code predicts")
     return types.SimpleNamespace(params=params, stats=stats, secs=secs, stages=stages,
-                                 counts=counts, top=top_functions(prof) if prof else None)
+                                 counts=counts, top=top_functions(prof) if prof else None,
+                                 km=outs["k-means" if kmeans else "assignment"])
+
+
+def same_builds(a, b) -> str:
+    """Whether two builds of the same corpus and seed reached the same
+    k-means result, bit for bit (a kernel fault or a non-deterministic
+    Lloyd sum would show here)."""
+    same_c = same_bits(a.centroids, b.centroids)
+    rows = int((a.assignment != b.assignment).sum())
+    if same_c and rows == 0:
+        return "first and warm build: k-means centroids and assignments identical bit for bit"
+    diff = (a.centroids - b.centroids).abs()
+    return (f"first and warm build differ: {int((diff > 0).any(1).sum())} of {diff.shape[0]} "
+            f"centroids (max |diff| {float(diff.max()):.3g}), {rows} of "
+            f"{a.assignment.numel()} assignments")
 
 
 def fmt_stages(build) -> str:
@@ -881,27 +911,34 @@ def top_functions(prof: cProfile.Profile, n: int = 6) -> str:
 
 def kernel_pattern(name: str):
     """Device kernels of a wrapper, by name (the grouped call's two kernels
-    count as one)."""
-    return re.compile(rf"\b{name}(_score|_select)?_kernel\b")
+    count as one, and so do ``kmeans_assign``'s norm and assignment
+    kernels)."""
+    return re.compile(rf"\b{name}(_score|_select|_norms)?_kernel\b")
 
 
-def device_ms(name: str, run, n: int = 5) -> float | None:
+def device_ms(name: str, run, wrapper, n: int = 5, tries: int = 3) -> float | None:
     """Milliseconds the card spends in ``name``'s kernels per call of
     ``run``, from a ``torch.profiler`` trace of ``n`` calls: the kernel time
-    without the host's time to launch it (None if the trace has no device
-    events)."""
+    without the host's time to launch it. The trace must hold one device
+    event for each launch that ``wrapper``'s count records over those
+    calls; one that holds another number is taken again, up to ``tries``
+    traces, and then the figure is None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run()
-        torch.cuda.synchronize()
     pat = kernel_pattern(name)
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name))
-    return us / n / 1e3 if us else None
+    for _ in range(tries):
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
+        if us and len(us) == wrapper.launches - before:
+            return sum(us) / n / 1e3
+    return None
 
 
 def event_ms(fn):
@@ -930,12 +967,15 @@ def time_every_build_call(dev, corpus, cfg) -> list[dict]:
 
     def timed(name):
         def f(*args, **kw):
+            before = real[name].launches
             out, ms = event_ms(lambda: real[name](*args, **kw))
+            launches = real[name].launches - before
             _, plain_ms = event_ms(lambda: plain[name](*args, **kw))
-            product, bound_ms, bound_by, _ = build_call_model(name, args, kw)
+            product, bound_ms, bound_by, shape = build_call_model(name, args, kw)
             _, product_ms = event_ms(product)
-            rows.append({"kernel": name, "ms": ms, "plain_ms": plain_ms, "product_ms": product_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by})
+            rows.append({"kernel": name, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+                         "product_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "f32_bound_ms": shape.get("f32_bound_ms")})
             return out
         return f
 
@@ -1133,7 +1173,7 @@ def time_call(path: str, role: str, name: str, args, kw, *, reps: int, chunk: in
     else:
         err, swaps = compare(got, want)
     ms = cuda_ms(run, reps)
-    dev_ms = device_ms(name, run)
+    dev_ms = device_ms(name, run, wrappers()[name])
     plain_ms = cuda_ms(lambda: plain_chunked(name, args, kw, chunk), 1)
     bound_ms, bound_by = bound(name, args, kw)
     res = {"kernel": name, "path": path, "call": role, **describe(name, args, kw), "ms": ms,
@@ -1207,10 +1247,13 @@ def phase_shapes_distinct(dev) -> None:
 
 def build_call_model(name: str, args, kw):
     """``(the cuBLAS product alone, bound ms, bound_by, shape)`` of one
-    ``lsh_hash`` or ``kmeans_assign`` call. Bound: operations over the
-    float32 CUDA-core peak (2 d per output of the product), or the bytes
-    (rows and P or the centroids read once, the int32 keys or the
-    assignment and distance written once), whichever is larger."""
+    ``lsh_hash`` or ``kmeans_assign`` call. Bound: the operations the
+    kernel's design must do over their peak, or the bytes (rows and P or
+    the centroids read once, the int32 keys or the assignment and distance
+    written once), whichever is larger. ``lsh_hash``: 2 d per output of one
+    float32 product on the CUDA cores. ``kmeans_assign``: three TF32
+    products (split TF32) on the tensor cores; ``shape["f32_bound_ms"]``
+    gives one float32 product on the CUDA cores beside it."""
     x = args[0]
     n, d = x.shape
     if name == "lsh_hash":
@@ -1218,14 +1261,17 @@ def build_call_model(name: str, args, kw):
         h, m = kw["n_arrays"], kw["key_len"]
         product = lambda: x.to(torch.float32) @ proj
         n_bytes, ops = x.numel() * x.element_size() + proj.numel() * 4 + n * h * 4, 2 * n * d * h * m
+        t_ops = ops / PEAK_OPS[torch.float32]
         shape = {"N": n, "d": d, "H": h, "M": m, "rows": str(x.dtype).removeprefix("torch.")}
     else:
         cen = args[1]
         c = cen.shape[0]
         product = lambda: x @ cen.T
         n_bytes, ops = (x.numel() + cen.numel()) * 4 + n * 8, 2 * n * c * d
-        shape = {"N": n, "c": c, "d": d}
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS[torch.float32]
+        t_ops = 3 * ops / PEAK_OPS["tf32"]
+        shape = {"N": n, "c": c, "d": d,
+                 "f32_bound_ms": max(n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS[torch.float32]) * 1e3}
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
     return product, max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), shape
 
 
@@ -1267,14 +1313,21 @@ def time_build_call(path: str, role: str, name: str, args, kw, *, reps: int) -> 
         extra = {"rows_differ": rep["differ"], "f64_rel_err": errs}
     del got, want
     ms = cuda_ms(run, reps)
+    dev_ms = device_ms(name, run, wrappers()[name])
     plain_ms = cuda_ms(plain, 1)
     product_ms = cuda_ms(product, reps)
-    log("shapes", f"{path} {role}: {name} [{', '.join(f'{k}={v}' for k, v in shape.items())}]: "
-        f"{check}; per call: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cuBLAS product alone "
-        f"{product_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
-    return {"kernel": name, "path": path, "call": role, **shape, "ms": ms, "plain_ms": plain_ms,
-            "product_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err, **extra}
+    f32_bound_ms = shape.pop("f32_bound_ms", None)
+    f32 = ("" if f32_bound_ms is None
+           else f", one float32 product on the CUDA cores {f32_bound_ms:.4f} ms")
+    dims = ", ".join(f"{k}={v}" for k, v in shape.items())
+    log("shapes", f"{path} {role}: {name} [{dims}]: "
+        f"{check}; per call: kernel {ms:.4f} ms (device time of its kernels "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain {plain_ms:.3f} ms, "
+        f"cuBLAS product alone {product_ms:.4f} ms ({ms / product_ms:.2f} x), bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it){f32}")
+    return {"kernel": name, "path": path, "call": role, **shape, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "product_ms": product_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, **extra}
 
 
 def phase_shapes_build(main) -> list[dict]:
@@ -1512,6 +1565,7 @@ def phase_lifecycle(dev, main) -> dict:
     from repro_torch.configs.lider_msmarco import CONFIG, LIFECYCLE as L
     from repro_torch.core import bank as bank_lib
     from repro_torch.core import clustering, lider, update
+    from repro_torch.kernels.kmeans_assign import LAUNCHES_PER_CALL
     from repro_torch.training import checkpoint
 
     cfg, k = CONFIG.lider, CONFIG.k
@@ -1539,7 +1593,7 @@ def phase_lifecycle(dev, main) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
-        want = (0, 0, 0, chunks(st.n_refit), 1)
+        want = (0, 0, 0, chunks(st.n_refit), LAUNCHES_PER_CALL)
         if counts != want or st.capacity_grew or st.n_added != part.shape[0]:
             raise AssertionError(f"upsert batch {i}: launches {counts} (expected {want}), {st}")
         t_up.append(dt)
@@ -1685,11 +1739,13 @@ def build_entry(name: str, calls: list[dict], launches: int, timed: list[dict]) 
     """A build kernel's JSON entry over one main-path build: ``launches``
     is the count read around the main path's (first) build; ``ms``,
     ``plain_ms``, ``product_ms`` and ``bound_ms`` sum every call of the
-    build that times each call alone (:func:`time_every_build_call`)."""
+    build that times each call alone (:func:`time_every_build_call`),
+    which must launch as often as the main path's build."""
     source, replaces = KERNELS[name]
     mine = [t for t in timed if t["kernel"] == name]
-    if len(mine) != launches:
-        raise AssertionError(f"{name}: the timed build made {len(mine)} calls, the main build {launches}")
+    if sum(t["launches"] for t in mine) != launches:
+        raise AssertionError(f"{name}: the timed build made {sum(t['launches'] for t in mine)} "
+                             f"launches in {len(mine)} calls, the main build {launches}")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,

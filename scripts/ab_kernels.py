@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Time this checkout's verification kernels against another tree's on the
-main path's own calls, in turns, in one process:
+"""Time this checkout's verification kernels and ``kmeans_assign`` against
+another tree's on the main path's own calls, in turns, in one process:
 
     python3 scripts/ab_kernels.py OTHER_TREE
 
 OTHER_TREE is another commit unpacked with ``git archive``. Its
 ``repro_torch`` package is imported under another name (the package's
 imports are relative), so its own wrappers launch its own
-``fused_verify``, ``sketch_prefilter`` and ``fused_verify_grouped``,
-built from its sources into ``OTHER_TREE/build/kernels``; a call its
-wrappers do not take fails as a Python error. The calls are recorded from
-one batch of 256 queries on each operating point of ``chip_smoke.py`` (F32
-on the float32 index, Q8 and Q8-cm on the int8 index, Q4-sk and Q4-sk-cm
-on the int4 index; the ``lider-msmarco`` configuration at full width, seed
-0). Each call is timed other, this, this, other (CUDA events, the mean of
-``reps`` calls a turn; then each tree's kernels' device time from a
-``torch.profiler`` trace of 5 calls), and the two trees' outputs must be
-bit-equal (ids equal up to near-tie swaps on float32). Prints the card's
-name and power limit, a line per call beside its bound (and the per-query
-or per-step floor), and one JSON line.
+``fused_verify``, ``sketch_prefilter``, ``fused_verify_grouped`` and
+``kmeans_assign``, built from its sources into
+``OTHER_TREE/build/kernels``; a call its wrappers do not take fails as a
+Python error. The verification calls are recorded from one batch of 256
+queries on each operating point of ``chip_smoke.py`` (F32 on the float32
+index, Q8 and Q8-cm on the int8 index, Q4-sk and Q4-sk-cm on the int4
+index; the ``lider-msmarco`` configuration at full width, seed 0), the
+``kmeans_assign`` call from the float32 build's first k-means step. Each
+call is timed other, this, this, other (CUDA events, the mean of ``reps``
+calls a turn; then each tree's kernels' device time from a
+``torch.profiler`` trace of 5 calls). The two trees' verification outputs
+must be bit-equal (ids equal up to near-tie swaps on float32); their
+k-means assignments may differ only within float32 rounding of the
+decision, and each tree's distances err against float64 at most
+``F32_ERROR_FACTOR`` times the plain version's. Prints the card's name and
+power limit, a line per call beside its bound (and the per-query or
+per-step floor, or the cuBLAS product alone), and one JSON line.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ SOURCES = ("fused_verify", "sketch_prefilter", "fused_verify_grouped")
 
 
 def load_other(tree: Path) -> dict:
-    """The other tree's three verification wrappers, its kernels built."""
+    """The other tree's three verification wrappers and its
+    ``kmeans_assign``, their kernels built."""
     import importlib
     import importlib.util
 
@@ -47,9 +53,10 @@ def load_other(tree: Path) -> dict:
         "other_repro_torch", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     sys.modules["other_repro_torch"] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules["other_repro_torch"])
-    importlib.import_module("other_repro_torch.kernels.build").build_all(list(SOURCES))
+    importlib.import_module("other_repro_torch.kernels.build").build_all([*SOURCES, "kmeans_assign"])
     wrappers = importlib.import_module("other_repro_torch.kernels.fused_verify")
-    return {name: getattr(wrappers, name) for name in SOURCES}
+    km = importlib.import_module("other_repro_torch.kernels.kmeans_assign")
+    return {**{name: getattr(wrappers, name) for name in SOURCES}, "kmeans_assign": km.kmeans_assign}
 
 
 def record(params, queries, cfg, k, **kw) -> list:
@@ -80,7 +87,8 @@ def time_pair(path: str, role: str, name: str, args, kw, other: dict) -> dict:
     reps = 3 if name == "fused_verify" and args[1].shape[1] > 10_000 and not exact else 10
     times = [cs.cuda_ms(f, reps) for f in (run_other, lambda: this_fn(*args, **kw),
                                            lambda: this_fn(*args, **kw), run_other)]
-    dev = [cs.device_ms(name, f) for f in (run_other, lambda: this_fn(*args, **kw))]
+    dev = [cs.device_ms(name, run_other, other[name]),
+           cs.device_ms(name, lambda: this_fn(*args, **kw), this_fn)]
     bound_ms, bound_by = cs.bound(name, args, kw)
     floor = (cs.per_step_floor(args) if name == "fused_verify_grouped"
              else cs.per_query_floor(name, args, kw)[1])
@@ -95,6 +103,44 @@ def time_pair(path: str, role: str, name: str, args, kw, other: dict) -> dict:
            f"{'per-step' if name == 'fused_verify_grouped' else 'per-query'} floor {floor:.4f} ms; "
            "outputs " + ("bit-equal" if exact else "ids equal"))
     return res
+
+
+def time_kmeans(args, other: dict) -> dict:
+    """The first k-means step of the float32 build: other, this, this,
+    other; assignments held to the rounding bound, distances to float64."""
+    from repro_torch.testing import assignment_flips
+
+    x, cen = args
+    this_fn = cs.wrappers()["kmeans_assign"]
+    run_other, run_this = (lambda: other["kmeans_assign"](x, cen)), (lambda: this_fn(x, cen))
+    a, b = run_other(), run_this()
+    torch.cuda.synchronize()
+    flips = assignment_flips(x, cen, b[0], a[0])
+    want = cs.plain_fns()["kmeans_assign"](x, cen)
+    errs = cs.min_dist_errors(x, cen, b, want)
+    held = cs.hold_min_dist(errs, "this tree")
+    other_errs = cs.min_dist_errors(x, cen, a, want)
+    cs.hold_min_dist(other_errs, "the other tree")
+    del a, b, want
+    times = [cs.cuda_ms(f, 5) for f in (run_other, run_this, run_this, run_other)]
+    dev = [cs.device_ms("kmeans_assign", run_other, other["kmeans_assign"]),
+           cs.device_ms("kmeans_assign", run_this, this_fn)]
+    product, bound_ms, bound_by, shape = cs.build_call_model("kmeans_assign", args, {})
+    f32_bound_ms = shape.pop("f32_bound_ms")
+    product_ms = cs.cuda_ms(product, 5)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    cs.log("ab", f"F32 k-means step: kmeans_assign [N={shape['N']}, c={shape['c']}, d={shape['d']}]: "
+           f"other {times[0]:.4f}, {times[3]:.4f} ms; this {times[1]:.4f}, {times[2]:.4f} ms; device "
+           f"time of the kernels: other {fmt(dev[0])}, this {fmt(dev[1])}; cuBLAS product alone "
+           f"{product_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; one float32 product on the "
+           f"CUDA cores {f32_bound_ms:.4f} ms); {flips['differ']} of {flips['rows']} "
+           f"assignments differ between the trees, each within the rounding bound; this tree's {held}; "
+           f"the other tree's max rel err {other_errs['kernel']:.3g}")
+    return {"path": "F32", "call": "k-means step", "kernel": "kmeans_assign", **shape,
+            "other_ms": [times[0], times[3]], "this_ms": [times[1], times[2]],
+            "other_device_ms": dev[0], "this_device_ms": dev[1], "product_ms": product_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "rows_differ": flips["differ"],
+            "f64_rel_err": errs, "other_f64_rel_err": other_errs["kernel"]}
 
 
 def main() -> int:
@@ -115,12 +161,17 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
-    build.build_all(list(SOURCES))
+    build.build_all([*SOURCES, "kmeans_assign"])
     other = load_other(Path(sys.argv[1]).resolve())
     cfg, k = CONFIG.lider, CONFIG.k
     corpus = synthetic.retrieval_corpus(cs.SEED, CONFIG.corpus_size, CONFIG.dim, device=dev)
     queries, _ = synthetic.retrieval_queries(cs.SEED + 1, corpus, cs.BATCH)
-    rows = []
+    km_calls = []
+    with cs.recording(km_calls, lambda name, a, kw_: name == "kmeans_assign" and not km_calls):
+        params = lider.build_lider(cs.SEED, corpus, cfg, device=dev)
+    del params
+    rows = [time_kmeans(km_calls[0][1], other)]
+    del km_calls
     for storage, points in (("float32", [("F32", {})]),
                             ("int8", [(p.name, p.search_kwargs()) for p in QUANTIZED
                                       if p.storage_dtype == "int8"]),

@@ -1,8 +1,8 @@
 """K-means clustering (paper Sec. 3.2 — LIDER Stage 1).
 
 Lloyd's algorithm. The assignment step (:func:`assign_chunked`) runs
-through ``kernels.ops.kmeans_assign_op``: on the card one launch of the
-``kmeans_assign`` CUDA kernel over all N, which never builds the (N, c)
+through ``kernels.ops.kmeans_assign_op``: on the card one call of the
+``kmeans_assign`` CUDA kernels over all N, which never builds the (N, c)
 distance matrix; on the CPU its plain version, a matmul plus an argmin over
 chunks of points, as in the JAX package.
 """

@@ -14,10 +14,10 @@ I = ctypes.c_int
 LL = ctypes.c_longlong
 
 
-def bind(library: str, symbol: str, argtypes):
+def bind(library: str, symbol: str, argtypes, restype=ctypes.c_int):
     fn = getattr(build.load_library(library), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

@@ -129,8 +129,8 @@ def kmeans_assign_op(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest centroid -> (assignment (N,) int32, min squared L2 (N,)).
 
-    On the card one ``kmeans_assign`` launch covers all N (the kernel never
-    builds the (N, c) distances); the plain version runs ``chunk`` rows at
+    On the card one ``kmeans_assign`` call covers all N (its kernels never
+    build the (N, c) distances); the plain version runs ``chunk`` rows at
     a time so its (chunk, c) distances stay small.
     """
     x = x.to(torch.float32)

@@ -133,14 +133,19 @@ def test_cpu_tensors_never_reach_the_build_kernels():
 
 
 def test_build_kernel_sources_name_what_they_replace():
+    """Each source names the TPU kernel it replaces and calls no library;
+    ``lsh_hash`` sums on the CUDA cores. ``kmeans_assign``'s split-TF32
+    precision is held by the float64 gate (the gpu tests and the chip
+    smoke run), not by its text."""
     from repro_torch.kernels import build
 
     for name in ("lsh_hash", "kmeans_assign"):
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f"repro/kernels/{name}.py::{name}" in src
         assert f'extern "C" int {name}_launch' in src
-        assert "cublas" not in src.lower() and "wmma" not in src and "mma." not in src
+        assert "cublas" not in src.lower() and "wmma" not in src
         assert build.library_path(name).name.startswith(f"lib{name}-")
+    assert "mma." not in (build.CSRC / "lsh_hash.cu").read_text()
 
 
 def test_rounding_bound_checks_admit_only_near_ties():
@@ -183,6 +188,55 @@ def _tf32(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to TF32's 10-bit mantissa (nearest, ties away)."""
     bits = t.contiguous().view(torch.int32).to(torch.int64)
     return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def _split_tf32_dot(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``x @ c.T`` as the CUDA kernel forms it, emulated in float32: each
+    operand split into ``big = tf32(v)`` and ``small = tf32(v - big)``,
+    then ``small_x big_c + big_x small_c + big_x big_c`` (the small terms
+    first; ``small_x small_c`` dropped)."""
+    xb, cb = _tf32(x), _tf32(c)
+    xs, cs = _tf32(x - xb), _tf32(c - cb)
+    return (xs @ cb.T + xb @ cs.T) + xb @ cb.T
+
+
+# (seed, n, c, d, clustered): the shapes of the parity tests, at full width too.
+SPLIT_CASES = [(1, 3000, 70, 768, False), (2, 4099, 1024, 64, False), (3, 2000, 64, 768, True),
+               (4, 513, 70, 64, False), (5, 1000, 130, 33, True)]
+
+
+@pytest.mark.parametrize("seed,n,c,d,clustered", SPLIT_CASES)
+def test_split_tf32_product_passes_the_float64_gate(seed, n, c, d, clustered):
+    """The gate the card applies to ``kmeans_assign``, rehearsed on the CPU:
+    distances from the split-TF32 product (emulated here by rounding to
+    TF32 with bit masks) err against float64 within ``F32_ERROR_FACTOR``
+    times the plain float32 version's error, while a one-pass TF32 product
+    errs beyond it. Clustered cases are unit-norm rows near their
+    centroids, where the dot products are large and positive."""
+    rng = np.random.default_rng(seed)
+    if clustered:
+        modes = rng.standard_normal((c, d))
+        x = modes[rng.integers(0, c, n)] + 0.35 * rng.standard_normal((n, d))
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        cen = modes / np.linalg.norm(modes, axis=1, keepdims=True)
+    else:
+        x, cen = rng.standard_normal((n, d)), rng.standard_normal((c, d))
+    x = torch.from_numpy(x.astype(np.float32))
+    cen = torch.from_numpy(cen.astype(np.float32))
+    a, dist = ref.kmeans_assign_ref(x, cen)
+    plain = min_dist_error(x, cen, a, dist)
+    x_sq, c_sq = (x * x).sum(-1, keepdim=True), (cen * cen).sum(-1)
+
+    def assigned(dot):
+        d2 = x_sq - 2.0 * dot + c_sq
+        ai = torch.argmin(d2, dim=-1)
+        return ai.to(torch.int32), d2.gather(1, ai[:, None])[:, 0]
+
+    split_a, split_d = assigned(_split_tf32_dot(x, cen))
+    assignment_flips(x, cen, split_a, a)
+    assert 0 < plain
+    assert min_dist_error(x, cen, split_a, split_d) <= F32_ERROR_FACTOR * plain
+    assert min_dist_error(x, cen, *assigned(_tf32(x) @ _tf32(cen).T)) > F32_ERROR_FACTOR * plain
 
 
 def test_min_dist_error_tells_float32_from_tf32():
@@ -291,3 +345,80 @@ def test_cuda_build_kernels_are_row_deterministic():
         sa, sd = kmeans_assign(x[s:e].contiguous(), cen)
         assert torch.equal(sa, a[s:e])
         assert torch.equal(sd.view(torch.int32), dist[s:e].view(torch.int32))
+
+
+# Off every tile of the kernel's design: 128 rows a block, 128 centroids a
+# tile, 32-deep stages of 16-byte (d % 4 == 0, aligned) or 4-byte loads.
+EDGE_N = (1, 127, 129, 20000)
+EDGE_C = (1, 7, 70, 129, 1024)
+
+
+def _rows(g, dev, n, d, offset):
+    """(n, d) float32 rows; with ``offset`` 1 a contiguous view that starts
+    4 bytes past a 16-byte boundary of a larger buffer."""
+    flat = torch.randn((n * d + 4,), generator=g, device=dev)
+    return flat[offset : offset + n * d].view(n, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,offset", [(8, 0), (33, 0), (770, 0), (768, 0), (768, 1), (8, 1)])
+def test_cuda_kmeans_assign_edges(d, offset):
+    """N and c off every tile, d off every stage and load width, rows that
+    start off a 16-byte boundary: assignments within the rounding bound of
+    the plain version's, distances within ``F32_ERROR_FACTOR`` times its
+    float64 error (over the case's shapes), duplicate centroids (in one
+    tile and across tiles) resolving to the first index, rows on a
+    centroid at distance ~0, and each row's result the same alone, in
+    sub-batches and at another offset, bit for bit."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(d + offset)
+    errs = {"kernel": 0.0, "plain": 0.0}
+    for n in EDGE_N:
+        for c in EDGE_C:
+            x = _rows(g, dev, n, d, offset)
+            if offset:
+                assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+            cen = torch.randn((c, d), generator=g, device=dev)
+            dup = c >= 7
+            if dup:  # 5, 6 and the last copy 2; row 0 on it, row 1 (if any) on the last
+                cen[5] = cen[2]
+                cen[6] = cen[2]
+                cen[c - 1] = cen[2]
+                x[0] = cen[2]
+                if n > 1:
+                    x[1] = cen[c - 1]
+            got_a, got_d = kmeans_assign(x, cen)
+            torch.cuda.synchronize()
+            want_a, want_d = ref.kmeans_assign_ref(x, cen)
+            assignment_flips(x, cen, got_a, want_a)
+            errs["kernel"] = max(errs["kernel"], min_dist_error(x, cen, got_a, got_d))
+            errs["plain"] = max(errs["plain"], min_dist_error(x, cen, want_a, want_d))
+            if dup:
+                on = min(n, 2)
+                assert got_a[:on].tolist() == [2] * on
+                assert not bool(((got_a == 5) | (got_a == 6) | (got_a == c - 1)).any())
+                mag = 4 * float((x[0].double() ** 2).sum())
+                assert abs(float(got_d[0])) <= d * 2.0**-24 * mag
+            if n >= 129:
+                for s, e in ((0, 1), (n - 1, n), (3, 128), (100, n)):
+                    alone_a, alone_d = kmeans_assign(x[s:e].contiguous(), cen)
+                    assert torch.equal(alone_a, got_a[s:e])
+                    assert torch.equal(alone_d.view(torch.int32), got_d[s:e].view(torch.int32))
+                moved = torch.cat([x[n // 2 :], x[: n // 2]])  # every row at another position
+                ma, md = kmeans_assign(moved, cen)
+                assert torch.equal(torch.cat([ma[n - n // 2 :], ma[: n - n // 2]]), got_a)
+                back = torch.cat([md[n - n // 2 :], md[: n - n // 2]])
+                assert torch.equal(back.view(torch.int32), got_d.view(torch.int32))
+    assert errs["kernel"] <= F32_ERROR_FACTOR * errs["plain"], errs
+
+
+@pytest.mark.gpu
+def test_cuda_kmeans_assign_counts_two_launches():
+    """A call launches the centroid-norm kernel and the assignment kernel."""
+    from repro_torch.kernels import kmeans_assign as km_mod
+
+    dev = _cuda()
+    x = torch.randn((300, 64), device=dev)
+    before = kmeans_assign.launches
+    kmeans_assign(x, x[:10].contiguous())
+    assert kmeans_assign.launches - before == km_mod.LAUNCHES_PER_CALL == 2
