@@ -9,8 +9,7 @@ Phases, each printing its lines; any failure exits non-zero:
                device is an error, never a fall-back to the CPU.
 2. build     — ``nvcc`` builds every kernel source under ``csrc/``, one
                process per source, all at once; ``cuobjdump -res-usage``
-               prints the registers and stack frame of each verification
-               kernel and of ``kmeans_assign``.
+               prints the registers and stack frame of every kernel.
 3. parity    — each kernel against its plain version on edge cases
                (duplicates, dead tiles, an all-invalid row, k above the
                valid count, heavy score ties): ``fused_verify`` on float32,
@@ -28,10 +27,12 @@ Phases, each printing its lines; any failure exits non-zero:
                sketch tables). Then a small quantized index: a covering
                ``sketch_factor`` and the cluster-major schedule give the
                unfiltered search, bit for bit. Then the build kernels:
-               ``lsh_hash`` (N off every tile, d in {8, 33, 768}, H=1, M in
-               {1, 16, 31}, bfloat16 rows) and ``kmeans_assign`` (N, c and d
-               off its tiles, rows off a 16-byte boundary, duplicate
-               centroids in one tile and across tiles) within float32
+               ``lsh_hash`` (N off the 64-row block and on both sides of the
+               layouts' switch, d in {8, 33, 768, 770}, H=1, M in {1, 10, 16,
+               31}; bfloat16 rows, which must hash exactly as their float32
+               widening) and ``kmeans_assign`` (N, c and d off its tiles,
+               rows off a 16-byte boundary, duplicate centroids in one tile
+               and across tiles) within float32
                rounding of their plain versions, k-means distances within
                16 times the plain version's error against float64 (a TF32
                product, run to show the check can fail, must exceed it),
@@ -44,11 +45,12 @@ Phases, each printing its lines; any failure exits non-zero:
                process is the main path's (its launches counted, its
                stages timed, run under ``cProfile``, the arguments of each
                kernel's first call kept); a second, warm build is timed the
-               same way and its k-means centroids and assignments compared
-               with the first's, bit for bit (printed, not held: the Lloyd
-               sums use ``index_add_``); a third times every build-kernel
-               call on its own, beside its plain version and the cuBLAS
-               product. Then 4 batches of 256 queries through
+               same way and its k-means centroids and assignments must equal
+               the first's, bit for bit (the Lloyd sums add each cluster's
+               rows in one fixed order); then the Lloyd sums at full size,
+               timed beside ``index_add_``; a third build times every
+               build-kernel call on its own, beside its plain version and
+               the cuBLAS product. Then 4 batches of 256 queries through
                ``search_lider`` at k=100, recall@100 against Flat, the first 8 queries against
                the same search with every kernel swapped for its plain
                version (query keys compared first), launches per batch
@@ -58,7 +60,9 @@ Phases, each printing its lines; any failure exits non-zero:
                search batch's), on the arguments it was given, held against
                the plain version over the whole call and timed with CUDA
                events beside its bound and its kernels' device time (and,
-               for the build kernels, beside the cuBLAS product alone; for
+               for the build kernels, beside the cuBLAS product alone and
+               the float32 bound; a hash call also with the bits a cuBLAS
+               TF32 product puts outside the rounding bound; for
                ``fused_verify`` and ``sketch_prefilter``, beside the
                per-query floor: the distinct (query, row) pairs read once
                each, and for a
@@ -135,16 +139,32 @@ KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
                       "src/repro/kernels/kmeans_assign.py:27"),
 }
 BUILD_KERNELS = ("lsh_hash", "kmeans_assign")
-# Kernel launches per search batch, in KERNELS order: (fused_verify,
+# Kernel calls per search batch, in KERNELS order: (fused_verify,
 # sketch_prefilter, fused_verify_grouped, lsh_hash, kmeans_assign). Every
 # search hashes its queries twice: the centroid model's keys in routing,
-# then the bank's in candidate generation. A grouped call is two launches,
-# its score kernel and then its select kernel.
+# then the bank's in candidate generation. A grouped call is counted as its
+# two launches, its score kernel and then its select kernel; a hash call is
+# ``lsh_hash.LAUNCHES_PER_CALL`` launches (:func:`per_batch`).
 PER_BATCH = {
     "F32": (2, 0, 0, 2, 0),
     "Q8": (3, 0, 0, 2, 0), "Q8-cm": (2, 0, 2, 2, 0),
     "Q4-sk": (3, 1, 0, 2, 0), "Q4-sk-cm": (2, 1, 2, 2, 0),
 }
+
+
+def per_batch(point: str) -> tuple:
+    """Launches per search batch of an operating point: ``PER_BATCH`` with
+    each hash call counted as ``lsh_hash.LAUNCHES_PER_CALL`` launches."""
+    from repro_torch.kernels.lsh_hash import LAUNCHES_PER_CALL
+
+    fv, sk, gr, lsh, km = PER_BATCH[point]
+    return (fv, sk, gr, lsh * LAUNCHES_PER_CALL, km)
+
+
+def hash_launches(calls: int) -> int:
+    from repro_torch.kernels.lsh_hash import LAUNCHES_PER_CALL
+
+    return calls * LAUNCHES_PER_CALL
 
 
 def per_build(cfg, *, kmeans: bool = True) -> tuple:
@@ -153,12 +173,14 @@ def per_build(cfg, *, kmeans: bool = True) -> tuple:
     ``kmeans_assign`` call each, of ``LAUNCHES_PER_CALL`` launches: the
     centroid norms, then the assignment; a build with given centroids
     assigns once); the bank fit hashes ``bank._FIT_CHUNK`` clusters per
-    ``lsh_hash`` call, and the centroid model hashes the centroids once."""
+    ``lsh_hash`` call, and the centroid model hashes the centroids once
+    (``lsh_hash.LAUNCHES_PER_CALL`` launches a call)."""
     from repro_torch.core import bank
     from repro_torch.kernels.kmeans_assign import LAUNCHES_PER_CALL
 
     n_fit = math.ceil(cfg.n_clusters / bank._FIT_CHUNK)
-    return (0, 0, 0, n_fit + 1, LAUNCHES_PER_CALL * (cfg.kmeans_iters + 1 if kmeans else 1))
+    return (0, 0, 0, hash_launches(n_fit + 1),
+            LAUNCHES_PER_CALL * (cfg.kmeans_iters + 1 if kmeans else 1))
 
 
 def log(phase: str, msg: str) -> None:
@@ -329,7 +351,7 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     log("build", f"{len(libs)} kernel libraries built in {secs:.2f} s (one nvcc each, in "
         f"parallel): {', '.join(p.name for p in libs.values())}")
-    for name in ("fused_verify", "sketch_prefilter", "fused_verify_grouped", "kmeans_assign"):
+    for name in KERNELS:
         log("build", f"cuobjdump -res-usage {name}: {res_usage(libs[name])}")
     return secs
 
@@ -589,10 +611,13 @@ def phase_parity_search(dev) -> None:
         "sketch_factor=2 + block_q=8 equal to the all-plain search")
 
 
-LSH_CASES = [  # (n, d, H, M, row dtype): N off every tile, H=1, M in {1, 16, 31}
+LSH_CASES = [  # (n, d, H, M, row dtype): N off the 64-row block and on both sides of the
+    # layouts' switch at 16,384 rows, d off the 32-deep stage and 16-byte rows, H=1, M in {1, 16, 31}
     (1, 8, 1, 1, torch.float32), (37, 33, 3, 31, torch.float32), (1000, 768, 10, 16, torch.float32),
     (4099, 768, 10, 16, torch.bfloat16), (513, 33, 1, 16, torch.bfloat16),
     (300, 768, 10, 10, torch.float32), (2000, 8, 7, 31, torch.float32), (65, 768, 1, 1, torch.bfloat16),
+    (256, 768, 10, 16, torch.float32), (129, 768, 3, 31, torch.float32),
+    (17000, 768, 10, 10, torch.float32), (20000, 770, 16, 16, torch.bfloat16),
 ]
 KMEANS_CASES = [  # (n, c, d, offset): N, c and d off every tile and stage; rows 4 bytes off 16
     (1, 1, 8, 0), (257, 7, 33, 0), (1000, 70, 768, 0), (4099, 1, 768, 0), (129, 70, 8, 0),
@@ -621,10 +646,13 @@ def phase_parity_build(dev) -> float:
             raise AssertionError(f"lsh_hash keys out of range at {(n, d, h, m)}")
         r = lsh_key_flips(x, p, h, m, got, ref.lsh_hash_ref(x, p, n_arrays=h, key_len=m))
         tot = {k: tot[k] + r[k] for k in tot}
+        if dtype == torch.bfloat16 and not torch.equal(lsh_hash(x.float(), p, n_arrays=h, key_len=m), got):
+            raise AssertionError(f"bfloat16 rows hash unlike their float32 widening at {(n, d, h, m)}")
     log("parity", f"lsh_hash x {len(LSH_CASES)} cases (float32 + bfloat16 rows): {tot['flips']} of "
         f"{tot['bits']} key bits differ from the plain version ({tot['flips'] / tot['bits'] * 1e6:.2f} "
         f"per million), each within the rounding bound; {tot['near']} bits are near-ties "
-        f"({tot['near'] / tot['bits'] * 1e6:.2f} per million)")
+        f"({tot['near'] / tot['bits'] * 1e6:.2f} per million); bfloat16 rows hash exactly as their "
+        "float32 widening")
 
     rows = differ = 0
     worst = 0.0
@@ -742,6 +770,7 @@ def phase_main(dev) -> dict:
     warm = build_counted("main", dev, corpus, cfg)
     del warm.params
     log("main", same_builds(first.km, warm.km))
+    log("main", lloyd_sums(corpus, first.km.assignment, cfg.n_clusters))
     timed = time_every_build_call(dev, corpus, cfg)
     log("main", f"data {t_data:.2f} s; capacity Lp={stats.capacity}; indexed {stats.n_indexed}, "
         f"dropped {stats.n_dropped}; peak device memory of the first build "
@@ -755,8 +784,7 @@ def phase_main(dev) -> dict:
             f"{sum(t['ms'] for t in mine):.3f} ms in all, plain version "
             f"{sum(t['plain_ms'] for t in mine):.3f} ms, cuBLAS product alone "
             f"{sum(t['product_ms'] for t in mine):.3f} ms, bound {sum(t['bound_ms'] for t in mine):.3f} ms"
-            + (f" (one float32 product on the CUDA cores: {sum(t['f32_bound_ms'] for t in mine):.3f} ms)"
-               if name == "kmeans_assign" else ""))
+            f" (one float32 product on the CUDA cores: {sum(t['f32_bound_ms'] for t in mine):.3f} ms)")
 
     k, n_probe = CONFIG.k, cfg.n_probe
     search = lambda q: lider.search_lider(
@@ -785,7 +813,7 @@ def phase_main(dev) -> dict:
         wall_ms.append((time.perf_counter() - h0) * 1e3)
         lat_ms.append(s.elapsed_time(e))
     counts = read_counts()
-    want = tuple(N_BATCHES * v for v in PER_BATCH["F32"])
+    want = tuple(N_BATCHES * v for v in per_batch("F32"))
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     ids = torch.cat([o.ids for o in outs])
@@ -800,7 +828,7 @@ def phase_main(dev) -> dict:
     rec = float(recall_at_k(ids, gt.ids))
     med = statistics.median(lat_ms)
     log("main", f"{N_BATCHES} x {BATCH} queries at k={k}: launches {fmt_counts(counts)} "
-        f"({PER_BATCH['F32']} per batch, as the code predicts); per-batch latency median "
+        f"({per_batch('F32')} per batch, as the code predicts); per-batch latency median "
         f"{med:.3f} ms (CUDA events; all {', '.join(f'{v:.3f}' for v in lat_ms)}), host wall "
         f"median {statistics.median(wall_ms):.3f} ms, {BATCH / med * 1e3:.0f} queries/s")
     log("main", f"recall@{k} vs Flat = {rec:.4f} (floor {RECALL_FLOOR}); Flat {t_flat:.2f} s")
@@ -886,17 +914,42 @@ def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, **
 
 
 def same_builds(a, b) -> str:
-    """Whether two builds of the same corpus and seed reached the same
-    k-means result, bit for bit (a kernel fault or a non-deterministic
-    Lloyd sum would show here)."""
+    """Two builds of the same corpus and seed must reach the same k-means
+    result, bit for bit (a kernel fault or a Lloyd sum in atomic order
+    would show here); raises otherwise."""
     same_c = same_bits(a.centroids, b.centroids)
     rows = int((a.assignment != b.assignment).sum())
     if same_c and rows == 0:
         return "first and warm build: k-means centroids and assignments identical bit for bit"
     diff = (a.centroids - b.centroids).abs()
-    return (f"first and warm build differ: {int((diff > 0).any(1).sum())} of {diff.shape[0]} "
-            f"centroids (max |diff| {float(diff.max()):.3g}), {rows} of "
-            f"{a.assignment.numel()} assignments")
+    raise AssertionError(
+        f"first and warm build differ: {int((diff > 0).any(1).sum())} of {diff.shape[0]} "
+        f"centroids (max |diff| {float(diff.max()):.3g}), {rows} of {a.assignment.numel()} "
+        "assignments")
+
+
+def lloyd_sums(x, assignment, n_clusters: int) -> str:
+    """The Lloyd step's sums at the main path's shape (the corpus and the
+    first build's final assignment): ``clustering.cluster_sums``, which
+    adds each cluster's rows in one fixed order (two calls must be equal
+    bit for bit), timed beside ``index_add_``, which adds in atomic order
+    (two calls compared)."""
+    from repro_torch.core import clustering
+
+    idx = assignment.to(torch.int64)
+    fixed = lambda: clustering.cluster_sums(x, idx, n_clusters)
+    atomic = lambda: torch.zeros((n_clusters, x.shape[1]), dtype=x.dtype,
+                                 device=x.device).index_add_(0, idx, x)
+    if not same_bits(fixed(), fixed()):
+        raise AssertionError("two calls of cluster_sums on the same inputs differ")
+    a, b = atomic(), atomic()
+    differ = int((a != b).any(1).sum())
+    del a, b
+    fixed_ms, atomic_ms = cuda_ms(fixed, 5), cuda_ms(atomic, 5)
+    return (f"Lloyd sums at N={x.shape[0]}, d={x.shape[1]}, c={n_clusters} (CUDA events, mean of "
+            f"5): cluster_sums (index_put_, fixed order) {fixed_ms:.3f} ms, two calls equal bit for "
+            f"bit; index_add_ (atomic order) {atomic_ms:.3f} ms, two calls differ in {differ} of "
+            f"{n_clusters} clusters")
 
 
 def fmt_stages(build) -> str:
@@ -975,7 +1028,7 @@ def time_every_build_call(dev, corpus, cfg) -> list[dict]:
             _, product_ms = event_ms(product)
             rows.append({"kernel": name, "launches": launches, "ms": ms, "plain_ms": plain_ms,
                          "product_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "f32_bound_ms": shape.get("f32_bound_ms")})
+                         "f32_bound_ms": shape["f32_bound_ms"]})
             return out
         return f
 
@@ -1250,10 +1303,10 @@ def build_call_model(name: str, args, kw):
     ``lsh_hash`` or ``kmeans_assign`` call. Bound: the operations the
     kernel's design must do over their peak, or the bytes (rows and P or
     the centroids read once, the int32 keys or the assignment and distance
-    written once), whichever is larger. ``lsh_hash``: 2 d per output of one
-    float32 product on the CUDA cores. ``kmeans_assign``: three TF32
-    products (split TF32) on the tensor cores; ``shape["f32_bound_ms"]``
-    gives one float32 product on the CUDA cores beside it."""
+    written once), whichever is larger. Both kernels run three TF32
+    products (split TF32) on the tensor cores, 2 d per output each;
+    ``shape["f32_bound_ms"]`` gives one float32 product on the CUDA cores
+    beside it."""
     x = args[0]
     n, d = x.shape
     if name == "lsh_hash":
@@ -1261,16 +1314,15 @@ def build_call_model(name: str, args, kw):
         h, m = kw["n_arrays"], kw["key_len"]
         product = lambda: x.to(torch.float32) @ proj
         n_bytes, ops = x.numel() * x.element_size() + proj.numel() * 4 + n * h * 4, 2 * n * d * h * m
-        t_ops = ops / PEAK_OPS[torch.float32]
         shape = {"N": n, "d": d, "H": h, "M": m, "rows": str(x.dtype).removeprefix("torch.")}
     else:
         cen = args[1]
         c = cen.shape[0]
         product = lambda: x @ cen.T
         n_bytes, ops = (x.numel() + cen.numel()) * 4 + n * 8, 2 * n * c * d
-        t_ops = 3 * ops / PEAK_OPS["tf32"]
-        shape = {"N": n, "c": c, "d": d,
-                 "f32_bound_ms": max(n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS[torch.float32]) * 1e3}
+        shape = {"N": n, "c": c, "d": d}
+    t_ops = 3 * ops / PEAK_OPS["tf32"]
+    shape["f32_bound_ms"] = max(n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS[torch.float32]) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     return product, max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), shape
 
@@ -1283,8 +1335,13 @@ def time_build_call(path: str, role: str, name: str, args, kw, *, reps: int) -> 
     against float64), then the kernel, the plain version and the cuBLAS
     product alone (``x @ P``, ``x @ c.T``: no single PyTorch call computes
     hash or assignment, so there is no library time) timed with CUDA
-    events, per call, beside the call's bound (:func:`build_call_model`)."""
-    from repro_torch.testing import assignment_flips, lsh_key_flips
+    events, per call, beside the call's bound (:func:`build_call_model`).
+    Beside a hash call's flips: how many bits the plain version run on a
+    cuBLAS TF32 product puts outside the rounding bound (printed, not
+    held: the bound refuses one-pass TF32 at ~2e-7 a bit, so a small call
+    may show none; ``tests/test_torch_build_kernels.py`` holds the check
+    to refusing it)."""
+    from repro_torch.testing import assignment_flips, lsh_bits_outside_bound, lsh_key_flips
 
     run = lambda: wrappers()[name](*args, **kw)
     plain = lambda: plain_fns()[name](*args, **kw)
@@ -1294,12 +1351,19 @@ def time_build_call(path: str, role: str, name: str, args, kw, *, reps: int) -> 
     x = args[0]
     product, bound_ms, bound_by, shape = build_call_model(name, args, kw)
     if name == "lsh_hash":
-        rep = lsh_key_flips(x, args[1], kw["n_arrays"], kw["key_len"], got, want)
+        h, m = kw["n_arrays"], kw["key_len"]
+        rep = lsh_key_flips(x, args[1], h, m, got, want)
+        with tf32_products():
+            tf = plain()
+        tf_out = lsh_bits_outside_bound(x, args[1], h, m, tf, want)
+        del tf
         err = 0.0
         check = (f"{rep['flips']} of {rep['bits']} key bits differ from the plain version "
                  f"({rep['flips'] / rep['bits'] * 1e6:.2f} per million), each within the rounding "
-                 f"bound; {rep['near']} near-ties ({rep['near'] / rep['bits'] * 1e6:.2f} per million)")
-        extra = {"bits": rep["bits"], "flips": rep["flips"], "near_ties": rep["near"]}
+                 f"bound; {rep['near']} near-ties ({rep['near'] / rep['bits'] * 1e6:.2f} per "
+                 f"million); a TF32 product puts {tf_out} bits outside the bound")
+        extra = {"bits": rep["bits"], "flips": rep["flips"], "near_ties": rep["near"],
+                 "tf32_bits_outside_bound": tf_out}
     else:
         cen = args[1]
         rep = assignment_flips(x, cen, got[0], want[0])
@@ -1316,9 +1380,7 @@ def time_build_call(path: str, role: str, name: str, args, kw, *, reps: int) -> 
     dev_ms = device_ms(name, run, wrappers()[name])
     plain_ms = cuda_ms(plain, 1)
     product_ms = cuda_ms(product, reps)
-    f32_bound_ms = shape.pop("f32_bound_ms", None)
-    f32 = ("" if f32_bound_ms is None
-           else f", one float32 product on the CUDA cores {f32_bound_ms:.4f} ms")
+    f32 = f", one float32 product on the CUDA cores {shape.pop('f32_bound_ms'):.4f} ms"
     dims = ", ".join(f"{k}={v}" for k, v in shape.items())
     log("shapes", f"{path} {role}: {name} [{dims}]: "
         f"{check}; per call: kernel {ms:.4f} ms (device time of its kernels "
@@ -1398,7 +1460,7 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
             torch.cuda.synchronize()
             lat_ms.append(s.elapsed_time(e))
         counts = read_counts()
-        want = tuple(N_BATCHES * v for v in PER_BATCH[op.name])
+        want = tuple(N_BATCHES * v for v in per_batch(op.name))
         if counts != want:
             raise AssertionError(f"{op.name}: kernel launches {counts}, expected {want}")
         ids = torch.cat([o.ids for o in outs])
@@ -1443,7 +1505,7 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
             else:
                 role, reps, chunk = _role(name, args, kw, first=call is first)
                 res = time_call(op.name, role, name, args, kw, reps=reps, chunk=chunk)
-            res["launches_per_batch"] = PER_BATCH[op.name][list(KERNELS).index(name)]
+            res["launches_per_batch"] = per_batch(op.name)[list(KERNELS).index(name)]
             out["calls"].append(res)
     for name in ("Q8", "Q8-cm") if storage == "int8" else ("Q4-sk-cm",):
         traced = out["paths"][name]
@@ -1593,7 +1655,7 @@ def phase_lifecycle(dev, main) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
-        want = (0, 0, 0, chunks(st.n_refit), LAUNCHES_PER_CALL)
+        want = (0, 0, 0, hash_launches(chunks(st.n_refit)), LAUNCHES_PER_CALL)
         if counts != want or st.capacity_grew or st.n_added != part.shape[0]:
             raise AssertionError(f"upsert batch {i}: launches {counts} (expected {want}), {st}")
         t_up.append(dt)
@@ -1626,7 +1688,7 @@ def phase_lifecycle(dev, main) -> dict:
     torch.cuda.synchronize()
     t_delete = time.perf_counter() - t0
     counts = read_counts()
-    if counts != (0, 0, 0, chunks(dst.n_refit), 0) or dst.n_deleted != dead.numel():
+    if counts != (0, 0, 0, hash_launches(chunks(dst.n_refit)), 0) or dst.n_deleted != dead.numel():
         raise AssertionError(f"delete: launches {counts}, {dst}")
     del up
     ids_del, _ = search_all(deleted, queries, cfg, k)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time this checkout's verification kernels and ``kmeans_assign`` against
+"""Time this checkout's verification kernels and build kernels against
 another tree's on the main path's own calls, in turns, in one process:
 
     python3 scripts/ab_kernels.py OTHER_TREE
@@ -7,23 +7,26 @@ another tree's on the main path's own calls, in turns, in one process:
 OTHER_TREE is another commit unpacked with ``git archive``. Its
 ``repro_torch`` package is imported under another name (the package's
 imports are relative), so its own wrappers launch its own
-``fused_verify``, ``sketch_prefilter``, ``fused_verify_grouped`` and
-``kmeans_assign``, built from its sources into
+``fused_verify``, ``sketch_prefilter``, ``fused_verify_grouped``,
+``kmeans_assign`` and ``lsh_hash``, built from its sources into
 ``OTHER_TREE/build/kernels``; a call its wrappers do not take fails as a
 Python error. The verification calls are recorded from one batch of 256
 queries on each operating point of ``chip_smoke.py`` (F32 on the float32
 index, Q8 and Q8-cm on the int8 index, Q4-sk and Q4-sk-cm on the int4
-index; the ``lider-msmarco`` configuration at full width, seed 0), the
-``kmeans_assign`` call from the float32 build's first k-means step. Each
-call is timed other, this, this, other (CUDA events, the mean of ``reps``
-calls a turn; then each tree's kernels' device time from a
-``torch.profiler`` trace of 5 calls). The two trees' verification outputs
-must be bit-equal (ids equal up to near-tie swaps on float32); their
-k-means assignments may differ only within float32 rounding of the
-decision, and each tree's distances err against float64 at most
-``F32_ERROR_FACTOR`` times the plain version's. Prints the card's name and
-power limit, a line per call beside its bound (and the per-query or
-per-step floor, or the cuBLAS product alone), and one JSON line.
+index; the ``lider-msmarco`` configuration at full width, seed 0); the
+``kmeans_assign`` call from the float32 build's first k-means step; the
+``lsh_hash`` calls from the same build's first bank-fit chunk and its
+centroid fit, and from the F32 batch's two query hashes. Each call is timed
+other, this, this, other (CUDA events, the mean of ``reps`` calls a turn;
+then each tree's kernels' device time from a ``torch.profiler`` trace of 5
+calls). The two trees' verification outputs must be bit-equal (ids equal up
+to near-tie swaps on float32); their k-means assignments and hash keys may
+differ only within float32 rounding of the decision, and each tree's
+distances err against float64 at most ``F32_ERROR_FACTOR`` times the plain
+version's, and each tree's key bits differ from the plain version's only
+within the rounding bound. Prints the card's name and power limit, a line
+per call beside its bound (and the per-query or per-step floor, or the
+cuBLAS product alone), and one JSON line.
 """
 from __future__ import annotations
 
@@ -40,11 +43,12 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts this tree's src on the path)
 
 SOURCES = ("fused_verify", "sketch_prefilter", "fused_verify_grouped")
+BUILD = ("kmeans_assign", "lsh_hash")
 
 
 def load_other(tree: Path) -> dict:
-    """The other tree's three verification wrappers and its
-    ``kmeans_assign``, their kernels built."""
+    """The other tree's three verification wrappers and its build kernels'
+    wrappers, their kernels built."""
     import importlib
     import importlib.util
 
@@ -53,20 +57,21 @@ def load_other(tree: Path) -> dict:
         "other_repro_torch", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     sys.modules["other_repro_torch"] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules["other_repro_torch"])
-    importlib.import_module("other_repro_torch.kernels.build").build_all([*SOURCES, "kmeans_assign"])
+    importlib.import_module("other_repro_torch.kernels.build").build_all([*SOURCES, *BUILD])
     wrappers = importlib.import_module("other_repro_torch.kernels.fused_verify")
-    km = importlib.import_module("other_repro_torch.kernels.kmeans_assign")
-    return {**{name: getattr(wrappers, name) for name in SOURCES}, "kmeans_assign": km.kmeans_assign}
+    built = {name: getattr(importlib.import_module(f"other_repro_torch.kernels.{name}"), name)
+             for name in BUILD}
+    return {**{name: getattr(wrappers, name) for name in SOURCES}, **built}
 
 
-def record(params, queries, cfg, k, **kw) -> list:
+def record(params, queries, cfg, k, names=SOURCES, **kw) -> list:
     from repro_torch.core import lider
 
     search = lambda: lider.search_lider(params, queries, k=k, n_probe=cfg.n_probe, r0=cfg.r0,
                                         r0_centroid=cfg.r0_centroid, **kw)
     search()
     calls = []
-    keep = lambda name, a, kw_: name in SOURCES
+    keep = lambda name, a, kw_: name in names
     with cs.recording(calls, keep):
         search()
     torch.cuda.synchronize()
@@ -143,6 +148,45 @@ def time_kmeans(args, other: dict) -> dict:
             "f64_rel_err": errs, "other_f64_rel_err": other_errs["kernel"]}
 
 
+def time_hash(path: str, role: str, args, kw, other: dict) -> dict:
+    """One recorded ``lsh_hash`` call: other, this, this, other; each tree's
+    keys held to the plain version's by ``lsh_key_flips``, and to each
+    other."""
+    from repro_torch.testing import lsh_key_flips
+
+    x, proj = args
+    h, m = kw["n_arrays"], kw["key_len"]
+    this_fn = cs.wrappers()["lsh_hash"]
+    run_other, run_this = (lambda: other["lsh_hash"](*args, **kw)), (lambda: this_fn(*args, **kw))
+    a, b = run_other(), run_this()
+    torch.cuda.synchronize()
+    want = cs.plain_fns()["lsh_hash"](*args, **kw)
+    reps = {"this": lsh_key_flips(x, proj, h, m, b, want), "other": lsh_key_flips(x, proj, h, m, a, want),
+            "between": lsh_key_flips(x, proj, h, m, b, a)}
+    del a, b, want
+    n_reps = 20 if x.shape[0] > 10_000 else 50
+    times = [cs.cuda_ms(f, n_reps) for f in (run_other, run_this, run_this, run_other)]
+    dev = [cs.device_ms("lsh_hash", run_other, other["lsh_hash"]),
+           cs.device_ms("lsh_hash", run_this, this_fn)]
+    product, bound_ms, bound_by, shape = cs.build_call_model("lsh_hash", args, kw)
+    f32_bound_ms = shape.pop("f32_bound_ms")
+    product_ms = cs.cuda_ms(product, n_reps)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    dims = ", ".join(f"{k_}={v}" for k_, v in shape.items())
+    cs.log("ab", f"{path} {role}: lsh_hash [{dims}]: other {times[0]:.4f}, {times[3]:.4f} ms; this "
+           f"{times[1]:.4f}, {times[2]:.4f} ms; device time of the kernels: other {fmt(dev[0])}, "
+           f"this {fmt(dev[1])}; cuBLAS product alone {product_ms:.4f} ms; bound {bound_ms:.4f} ms "
+           f"({bound_by}; one float32 product on the CUDA cores {f32_bound_ms:.4f} ms); key bits "
+           f"differing from the plain version, each within the rounding bound: this "
+           f"{reps['this']['flips']}, other {reps['other']['flips']} of {reps['this']['bits']}; "
+           f"between the trees {reps['between']['flips']}")
+    return {"path": path, "call": role, "kernel": "lsh_hash", **shape,
+            "other_ms": [times[0], times[3]], "this_ms": [times[1], times[2]],
+            "other_device_ms": dev[0], "this_device_ms": dev[1], "product_ms": product_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "flips": {k_: v["flips"] for k_, v in reps.items()}}
+
+
 def main() -> int:
     if len(sys.argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -161,17 +205,30 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
-    build.build_all([*SOURCES, "kmeans_assign"])
+    build.build_all([*SOURCES, *BUILD])
     other = load_other(Path(sys.argv[1]).resolve())
     cfg, k = CONFIG.lider, CONFIG.k
     corpus = synthetic.retrieval_corpus(cs.SEED, CONFIG.corpus_size, CONFIG.dim, device=dev)
     queries, _ = synthetic.retrieval_queries(cs.SEED + 1, corpus, cs.BATCH)
-    km_calls = []
-    with cs.recording(km_calls, lambda name, a, kw_: name == "kmeans_assign" and not km_calls):
+    build_calls, roles = [], set()
+
+    def first_of_role(name, a, kw_):
+        role = cs.build_role(name, a, cfg.n_clusters)
+        if role is None or role in roles:
+            return False
+        roles.add(role)
+        return True
+
+    with cs.recording(build_calls, first_of_role):
         params = lider.build_lider(cs.SEED, corpus, cfg, device=dev)
     del params
-    rows = [time_kmeans(km_calls[0][1], other)]
-    del km_calls
+    rows = []
+    for name, args, kw in build_calls:
+        if name == "kmeans_assign":
+            rows.append(time_kmeans(args, other))
+        else:
+            rows.append(time_hash("build", cs.build_role(name, args, cfg.n_clusters), args, kw, other))
+    del build_calls
     for storage, points in (("float32", [("F32", {})]),
                             ("int8", [(p.name, p.search_kwargs()) for p in QUANTIZED
                                       if p.storage_dtype == "int8"]),
@@ -180,6 +237,11 @@ def main() -> int:
         params = lider.build_lider(cs.SEED, corpus, dataclasses.replace(cfg, storage_dtype=storage),
                                    device=dev)
         for path, kw in points:
+            if path == "F32":
+                hashes = record(params, queries, cfg, k, names=("lsh_hash",), **kw)
+                for role, (_, args, ckw) in zip(("query hash (centroids)", "query hash (bank)"), hashes):
+                    rows.append(time_hash(path, role, args, ckw, other))
+                del hashes
             calls = record(params, queries, cfg, k, **kw)
             first = next(c for c in calls if c[0] == "fused_verify")
             for call in calls:

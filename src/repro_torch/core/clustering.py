@@ -4,7 +4,10 @@ Lloyd's algorithm. The assignment step (:func:`assign_chunked`) runs
 through ``kernels.ops.kmeans_assign_op``: on the card one call of the
 ``kmeans_assign`` CUDA kernels over all N, which never builds the (N, c)
 distance matrix; on the CPU its plain version, a matmul plus an argmin over
-chunks of points, as in the JAX package.
+chunks of points, as in the JAX package. The Lloyd sums
+(:func:`cluster_sums`) add each cluster's rows in one fixed order on every
+device, so two builds of the same corpus and seed give the same centroids
+bit for bit.
 """
 from __future__ import annotations
 
@@ -32,16 +35,33 @@ def assign_chunked(
     return kmeans_assign_op(x, centroids, chunk=chunk)
 
 
+def cluster_sums(x: torch.Tensor, idx: torch.Tensor, n_clusters: int) -> torch.Tensor:
+    """Per-cluster sums of the rows of ``x``, ``(N, d), (N,) -> (c, d)``.
+
+    On the CPU an ``index_add_``, which adds in index order, the order of
+    the JAX package's ``segment_sum`` there (the CPU parity tests rely on
+    it). On the card ``index_add_`` adds in the order its atomics land,
+    which changes from run to run, so there the sums are an
+    ``index_put_`` with ``accumulate``: PyTorch's CUDA path sorts the
+    indices stably and adds each cluster's rows serially in row order, one
+    order for every call, so a rebuild reproduces a build's centroids bit
+    for bit (``chip_smoke.py`` holds two builds equal).
+    """
+    sums = torch.zeros((n_clusters, x.shape[1]), dtype=x.dtype, device=x.device)
+    if x.device.type == "cpu":
+        return sums.index_add_(0, idx, x)
+    return sums.index_put_((idx,), x, accumulate=True)
+
+
 def kmeans_step(
     x: torch.Tensor, centroids: torch.Tensor, *, n_clusters: int, chunk: int = 4096
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One Lloyd iteration -> (sums (c,d), counts (c,), assignment (N,))."""
+    """One Lloyd iteration -> (sums (c,d), counts (c,), assignment (N,)).
+    The counts are integers below 2**24, exact in float32."""
     assignment, _ = assign_chunked(x, centroids, chunk=chunk)
     idx = assignment.to(torch.int64)
-    sums = torch.zeros((n_clusters, x.shape[1]), dtype=x.dtype, device=x.device)
-    sums.index_add_(0, idx, x)
-    counts = torch.zeros((n_clusters,), dtype=torch.float32, device=x.device)
-    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    sums = cluster_sums(x, idx, n_clusters)
+    counts = torch.bincount(idx, minlength=n_clusters).to(torch.float32)
     return sums, counts, assignment
 
 

@@ -29,8 +29,9 @@
 //
 // The dot product on the tensor cores, in split TF32 ("3xTF32"): each
 // float32 v is written as big + small, big = tf32(v), small = tf32(v - big)
-// (cvt.rna; TF32 keeps 10 mantissa bits, so v - big is exact and small
-// leaves at most 2^-22 |v| out). x.c is the float32-accumulated sum of
+// (rounded as cvt.rna rounds; TF32 keeps 10 mantissa bits, so v - big is
+// exact and small leaves at most 2^-22 |v| out). x.c is the
+// float32-accumulated sum of
 // small_x*big_c + big_x*small_c + big_x*big_c (wgmma TF32 -> float32, the
 // small terms first in each 8-deep step); small_x*small_c (~2^-22 |x_k c_k|)
 // is dropped. Per term that errs by ~3 * 2^-22 |x_k c_k|, so the distance
@@ -77,10 +78,7 @@
 // splits once per call. At the end of each centroid tile the distances fold
 // into a running (min, first argmin) per row in registers.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
@@ -93,68 +91,6 @@ constexpr int kTileBytes = 128 * kBK * 4;  // a 128 x 32 float32 tile, 16 KB
 constexpr int kStageBytes = 3 * kTileBytes;  // centroid big, centroid small, rows
 constexpr size_t kSmemBytes = static_cast<size_t>(kStages) * kStageBytes + 1024;  // + alignment
 constexpr int kPrepThreads = 256;
-
-__host__ __device__ constexpr long long round_up(long long v, long long m) {
-  return (v + m - 1) / m * m;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = big + small, both TF32.
-__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
-  big = tf32(v);
-  small = tf32(__fsub_rn(v, __uint_as_float(big)));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 128-row, 32-column box of a 2-D float32 tensor map at (col, row) into
-// shared memory at dst (128-byte swizzled, zeros outside the tensor).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int row,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
-      : "memory");
-}
-
-// Shared-memory descriptor of a K-major tile of 8-row, 128-byte swizzled
-// atoms (rows 128 bytes apart, atoms 1024 bytes apart); addr is the tile's
-// 1024-byte aligned base plus the byte offset of the k slice.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
 
 // d (64 x 128 over the warpgroup) = A (64 x 8, registers) * B (8 x 128,
 // shared memory) + (accumulate ? d : 0), TF32 in, float32 sums.
@@ -187,16 +123,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // Scratch layout (floats): big (c_pad, d_pad), small (c_pad, d_pad), c_sq
@@ -398,31 +324,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // A (rows, cols) float32 tensor with rows ld floats apart, read in 128 x
 // 32 boxes, 128-byte swizzled, zeros outside.
 int encode(CUtensorMap* map, const float* base, long long rows, long long cols, long long ld) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    cudaDriverEntryPointQueryResult q;
-    void* p = nullptr;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (q != cudaDriverEntryPointSuccess || p == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
-  const cuuint32_t box[2] = {kBK, 128}, unit[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rows, cols, ld * 4, kBK, 128,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

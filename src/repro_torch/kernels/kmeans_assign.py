@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .launch import I, LL, P, bind, check, launch, on_cuda
+from .launch import I, LL, P, bind, check, launch, on_cuda, tma_rows
 
 LAUNCHES_PER_CALL = 2  # the centroid-norm kernel, then the assignment kernel
 
@@ -42,10 +42,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> tuple[torch.Tenso
     min_d = torch.empty((n,), dtype=torch.float32, device=device)
     if n == 0:
         return assign, min_d
-    ld = d
-    if d % 4 or x.data_ptr() % 16:  # the kernel's tensor map reads 16-byte aligned rows
-        ld = -(-d // 4) * 4
-        x = torch.nn.functional.pad(x, (0, ld - d)) if ld > d else x.clone()
+    x, ld = tma_rows(x)  # the kernel's tensor map reads 16-byte aligned rows
     # The centroids' TF32 splits (padded to whole tiles) and norms.
     floats = bind("kmeans_assign", "kmeans_assign_scratch_floats", [I, I], LL)(c, d)
     scratch = torch.empty((floats,), dtype=torch.float32, device=device)

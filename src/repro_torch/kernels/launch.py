@@ -1,6 +1,7 @@
 """What every kernel wrapper shares: binding a symbol of a built library
-with ``ctypes``, checking a tensor argument, refusing CPU tensors, and
-launching on the current stream with the launch's error raised."""
+with ``ctypes``, checking a tensor argument, refusing CPU tensors, laying
+out rows for a TMA tensor map, and launching on the current stream with the
+launch's error raised."""
 from __future__ import annotations
 
 import ctypes
@@ -14,10 +15,18 @@ I = ctypes.c_int
 LL = ctypes.c_longlong
 
 
+_bound: dict = {}
+
+
 def bind(library: str, symbol: str, argtypes, restype=ctypes.c_int):
-    fn = getattr(build.load_library(library), symbol)
-    fn.argtypes = argtypes
-    fn.restype = restype
+    """The C function ``symbol`` of ``library``, its argument and return
+    types declared once (a short launch's time is mostly the host's)."""
+    fn = _bound.get((library, symbol))
+    if fn is None:
+        fn = getattr(build.load_library(library), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _bound[(library, symbol)] = fn
     return fn
 
 
@@ -39,6 +48,18 @@ def on_cuda(name: str, t: torch.Tensor, plain: str) -> torch.device:
             f"ref.{plain}"
         )
     return t.device
+
+
+def tma_rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """A (rows, cols) tensor as a TMA tensor map reads it: 16-byte aligned
+    rows a multiple of 16 bytes apart. Any other tensor is copied into a
+    zero-padded buffer. Returns the tensor and its row pitch in elements."""
+    per16 = 16 // t.element_size()
+    cols = t.shape[1]
+    if cols % per16 == 0 and t.data_ptr() % 16 == 0:
+        return t, cols
+    ld = -(-cols // per16) * per16
+    return (torch.nn.functional.pad(t, (0, ld - cols)) if ld > cols else t.clone()), ld
 
 
 def launch(name: str, fn, *args, device) -> None:

@@ -2,22 +2,27 @@
 
 Replaces ``repro/kernels/lsh_hash.py::lsh_hash``: ``(N, d)`` rows times the
 ``(d, H*M)`` projections in float32, the sign bits, M per array packed
-big-endian into ``(N, H)`` keys, without writing the projection. The source
-says what bounds it and how its design answers that. A row's keys depend
-only on the row and the projections (a fixed order over d), so an upserted
-row hashes as a rebuild hashes it.
+big-endian into ``(N, H)`` keys, without writing the projection. The
+product runs on the tensor cores in split TF32 (three TF32 products per
+float32 product, within float32 rounding), one launch a call: each block
+splits its stage's slice of the projections itself. The source says what
+bounds it and how its design answers that. A row's keys depend only on the
+row and the projections (a fixed order over d), so an upserted row hashes as
+a rebuild hashes it.
 
 The wrapper validates, allocates and launches on the current stream; it
 never runs on CPU tensors (``ops`` sends those to ``ref.lsh_hash_ref``)
-and raises when the launch fails. ``lsh_hash.launches`` counts launches.
+and raises when the launch fails. ``lsh_hash.launches`` counts launches,
+``LAUNCHES_PER_CALL`` a call.
 """
 from __future__ import annotations
 
 import torch
 
-from .launch import I, LL, P, bind, check, launch, on_cuda
+from .launch import I, LL, P, bind, check, launch, on_cuda, tma_rows
 
 MAX_KEY_LEN = 31  # keys stay non-negative in the kernel's int32 output
+LAUNCHES_PER_CALL = 1
 
 
 def lsh_hash(x: torch.Tensor, proj: torch.Tensor, *, n_arrays: int, key_len: int) -> torch.Tensor:
@@ -36,12 +41,15 @@ def lsh_hash(x: torch.Tensor, proj: torch.Tensor, *, n_arrays: int, key_len: int
     keys = torch.empty((n, n_arrays), dtype=torch.int32, device=device)
     if n == 0:
         return keys.to(torch.int64)
-    fn = bind("lsh_hash", "lsh_hash_launch", [P, I, LL, I, P, I, I, P, P])
+    # The kernel's tensor maps read 16-byte aligned rows.
+    x, ld = tma_rows(x)
+    proj, ld_p = tma_rows(proj)
+    fn = bind("lsh_hash", "lsh_hash_launch", [P, I, LL, I, LL, P, LL, I, I, P, P])
     launch(
-        "lsh_hash", fn, x.data_ptr(), int(x.dtype == torch.bfloat16), n, d,
-        proj.data_ptr(), n_arrays, key_len, keys.data_ptr(), device=device,
+        "lsh_hash", fn, x.data_ptr(), int(x.dtype == torch.bfloat16), n, d, ld,
+        proj.data_ptr(), ld_p, n_arrays, key_len, keys.data_ptr(), device=device,
     )
-    lsh_hash.launches += 1
+    lsh_hash.launches += LAUNCHES_PER_CALL
     return keys.to(torch.int64)
 
 

@@ -11,8 +11,9 @@ exact value is within rounding of the decision. :func:`lsh_key_flips` and
 :func:`assignment_flips` admit a difference only there: where the float64
 value lies within ``d * 2**-24`` times the sum of the magnitudes of its
 terms (the worst-case float32 error of a d-term sum in any order).
-That bound is loose enough to admit a TF32 product, so k-means distances
-are also held to float64 (:func:`min_dist_error`), at most
+That bound refuses a one-pass TF32 product only rarely (about 2e-7 of the
+bits at d = 768; :func:`lsh_bits_outside_bound` counts them), so k-means
+distances are also held to float64 (:func:`min_dist_error`), at most
 ``F32_ERROR_FACTOR`` times the plain float32 version's error.
 """
 from __future__ import annotations
@@ -99,12 +100,10 @@ def _rounding_bound(d: int) -> float:
     return d * 2.0**-24
 
 
-def lsh_key_flips(x, proj, n_arrays: int, key_len: int, got, want) -> dict:
-    """Compare two (N, H) key tensors for rows ``x`` and projections
-    ``proj``; raise ``AssertionError`` on any bit that differs where the
-    float64 projection is not within the rounding bound of 0. Returns
-    ``{"bits", "flips", "near"}``: bits compared, bits that differ, and
-    bits whose projection lies within the bound (where a flip is allowed)."""
+def _key_bits(x, proj, key_len: int, got, want):
+    """(flipped, near) bit masks of two (N, H) key tensors: bits that
+    differ, and bits whose float64 projection lies within the rounding
+    bound of 0; and the float64 projections."""
     xd = x.detach().to(torch.float64)
     pd = proj.detach().to(device=xd.device, dtype=torch.float64)
     shifts = torch.arange(key_len - 1, -1, -1, device=xd.device)
@@ -118,7 +117,16 @@ def lsh_key_flips(x, proj, n_arrays: int, key_len: int, got, want) -> dict:
     # An all-zero product (a zero pad row) sums exactly in any order: no
     # bound, so it is not a near-tie.
     bound = _rounding_bound(x.shape[1]) * (xd.abs() @ pd.abs())
-    near = (acc.abs() <= bound) & (bound > 0)
+    return flips, (acc.abs() <= bound) & (bound > 0), acc
+
+
+def lsh_key_flips(x, proj, n_arrays: int, key_len: int, got, want) -> dict:
+    """Compare two (N, H) key tensors for rows ``x`` and projections
+    ``proj``; raise ``AssertionError`` on any bit that differs where the
+    float64 projection is not within the rounding bound of 0. Returns
+    ``{"bits", "flips", "near"}``: bits compared, bits that differ, and
+    bits whose projection lies within the bound (where a flip is allowed)."""
+    flips, near, acc = _key_bits(x, proj, key_len, got, want)
     bad = flips & ~near
     if bool(bad.any()):
         r, j = (int(v) for v in bad.nonzero()[0])
@@ -127,6 +135,15 @@ def lsh_key_flips(x, proj, n_arrays: int, key_len: int, got, want) -> dict:
             f"{r}, bit {j}: projection {float(acc[r, j]):.3e}"
         )
     return {"bits": flips.numel(), "flips": int(flips.sum()), "near": int(near.sum())}
+
+
+def lsh_bits_outside_bound(x, proj, n_arrays: int, key_len: int, got, want) -> int:
+    """How many bits of ``got`` differ from ``want`` where the float64
+    projection is not within the rounding bound of 0: what
+    :func:`lsh_key_flips` refuses, counted (say, for a TF32 product, to
+    show that the check can refuse one)."""
+    flips, near, _ = _key_bits(x, proj, key_len, got, want)
+    return int((flips & ~near).sum())
 
 
 def assignment_flips(x, centroids, got, want) -> dict:

@@ -22,7 +22,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.lsh_hash import lsh_hash
 from repro_torch.testing import (
-    F32_ERROR_FACTOR, assignment_flips, lsh_key_flips, min_dist_error,
+    F32_ERROR_FACTOR, assignment_flips, lsh_bits_outside_bound, lsh_key_flips, min_dist_error,
 )
 
 LSH_SHAPES = [(64, 32, 2, 8), (100, 64, 4, 12), (257, 128, 10, 24), (16, 256, 1, 31), (8, 8, 3, 5)]
@@ -133,10 +133,10 @@ def test_cpu_tensors_never_reach_the_build_kernels():
 
 
 def test_build_kernel_sources_name_what_they_replace():
-    """Each source names the TPU kernel it replaces and calls no library;
-    ``lsh_hash`` sums on the CUDA cores. ``kmeans_assign``'s split-TF32
-    precision is held by the float64 gate (the gpu tests and the chip
-    smoke run), not by its text."""
+    """Each source names the TPU kernel it replaces and calls no library.
+    Both compute their products in split TF32 on the tensor cores; that
+    precision is held by the key gate and the float64 gate (the gpu tests
+    and the chip smoke run), not by the text."""
     from repro_torch.kernels import build
 
     for name in ("lsh_hash", "kmeans_assign"):
@@ -145,7 +145,6 @@ def test_build_kernel_sources_name_what_they_replace():
         assert f'extern "C" int {name}_launch' in src
         assert "cublas" not in src.lower() and "wmma" not in src
         assert build.library_path(name).name.startswith(f"lib{name}-")
-    assert "mma." not in (build.CSRC / "lsh_hash.cu").read_text()
 
 
 def test_rounding_bound_checks_admit_only_near_ties():
@@ -255,6 +254,74 @@ def test_min_dist_error_tells_float32_from_tf32():
     moved = dist.clone()
     moved[1234] += 1e-3 * float(x_sq[1234] + c_sq[a[1234]])
     assert min_dist_error(x, cen, a, moved) >= 0.99e-3
+
+
+def _keys_of(acc: torch.Tensor, n_arrays: int, key_len: int) -> torch.Tensor:
+    """(N, H*M) projections -> (N, H) keys: sign bits (``>= 0``), packed
+    big-endian, as ``ref.lsh_hash_ref`` packs them."""
+    bits = (acc >= 0).reshape(acc.shape[0], n_arrays, key_len).to(torch.int64)
+    return (bits << torch.arange(key_len - 1, -1, -1)).sum(-1)
+
+
+@pytest.mark.parametrize("clustered", [False, True], ids=["gaussian", "clustered"])
+def test_key_gate_tells_split_tf32_from_one_tf32_product(clustered):
+    """The gate the card applies to ``lsh_hash``, rehearsed on the CPU at
+    the bank fit's width (d = 768, H = 10, M = 16): keys from the
+    split-TF32 product (emulated by rounding to TF32 with bit masks, as
+    ``lsh_hash.cu`` forms it) pass ``lsh_key_flips`` on every row, while
+    keys from a one-pass TF32 product put bits outside the rounding bound.
+    It does so at ~2e-7 a bit, so the rows grow 16,384 at a time until
+    the gate refuses the one-pass product: at these seeds both cases need
+    65,536 rows (4 chunks); the bound itself is unchanged. Clustered rows
+    are unit-norm rows near 64 modes, as the bank's are."""
+    d, h, m, chunk = 768, 10, 16, 16384
+    rng = np.random.default_rng(11 + clustered)
+    p = torch.from_numpy(rng.standard_normal((d, h * m)).astype(np.float32))
+    modes = rng.standard_normal((64, d))
+    pb = _tf32(p)
+    ps = _tf32(p - pb)
+    refused = 0
+    for i in range(16):
+        r = np.random.default_rng([11 + clustered, i])
+        if clustered:
+            x = modes[r.integers(0, 64, chunk)] + 0.35 * r.standard_normal((chunk, d))
+            x /= np.linalg.norm(x, axis=1, keepdims=True)
+        else:
+            x = r.standard_normal((chunk, d))
+        x = torch.from_numpy(x.astype(np.float32))
+        want = ref.lsh_hash_ref(x, p, n_arrays=h, key_len=m)
+        xb = _tf32(x)
+        split = (_tf32(x - xb) @ pb + xb @ ps) + xb @ pb
+        lsh_key_flips(x, p, h, m, _keys_of(split, h, m), want)
+        refused += lsh_bits_outside_bound(x, p, h, m, _keys_of(xb @ pb, h, m), want)
+        if refused:
+            break
+    assert refused > 0 and i == 3, (refused, i)
+
+
+def test_kmeans_step_sums_in_index_order_on_the_cpu():
+    """On the CPU the Lloyd sums add each cluster's rows in index order
+    (``index_add_``): bit for bit a float32 loop over the rows in order,
+    and within the parity tolerance of the JAX package's ``segment_sum``
+    (rtol 1e-5, atol 1e-5, as ``test_torch_core.py`` holds them); the
+    counts are exact. On the card the order is fixed too (a gpu test)."""
+    import jax.numpy as jnp
+    from repro.core import clustering as jclust
+
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((3000, 48)).astype(np.float32)
+    cen = x[rng.choice(3000, 24, replace=False)]
+    sums, counts, assign = clustering.kmeans_step(torch.from_numpy(x), torch.from_numpy(cen),
+                                                  n_clusters=24)
+    loop = np.zeros((24, 48), np.float32)
+    for i, a in enumerate(assign.numpy()):
+        loop[a] += x[i]
+    np.testing.assert_array_equal(sums.numpy(), loop)
+    np.testing.assert_array_equal(counts.numpy(), np.bincount(assign.numpy(), minlength=24))
+    js, jc, ja = jclust.kmeans_step(jnp.asarray(x), jnp.asarray(cen), n_clusters=24)
+    np.testing.assert_array_equal(assign.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(sums.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
 
 
 GPU_KMEANS = [(1, 1, 8), (257, 7, 33), (1000, 70, 768), (4099, 1024, 64), (129, 130, 16)]
@@ -422,3 +489,86 @@ def test_cuda_kmeans_assign_counts_two_launches():
     before = kmeans_assign.launches
     kmeans_assign(x, x[:10].contiguous())
     assert kmeans_assign.launches - before == km_mod.LAUNCHES_PER_CALL == 2
+
+
+# The new design's edges: N off the 64-row block and across the layouts'
+# switch (16,384 rows), d off the 32-deep stage and the 16-byte rows, keys
+# from 1 to 31 bits, arrays that fill a 40-column wgmma or not, one to four
+# tiles of whole arrays.
+LSH_EDGE_N = (1, 63, 65, 127, 129, 256, 20000)
+LSH_EDGE_HM = ((1, 1), (1, 31), (3, 31), (7, 5), (10, 10), (10, 16), (16, 16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,offset", [(8, 0), (33, 0), (770, 0), (768, 0), (768, 1)])
+def test_cuda_lsh_hash_edges(d, offset, dtype):
+    """Every (N, H, M) of the edges at this d: key bits equal to the plain
+    version's except within the rounding bound (``lsh_key_flips``), zero
+    rows giving all-ones keys, bfloat16 rows hashing exactly as their
+    float32 widening, and each row's keys the same alone, in sub-batches
+    and at another offset, bit for bit. With ``offset`` 1 the rows start
+    one element past a 16-byte boundary."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(d + offset)
+    for n in LSH_EDGE_N:
+        flat = torch.randn((n * d + 8,), generator=g, device=dev).to(dtype)
+        x = flat[offset : offset + n * d].view(n, d)
+        if offset:
+            assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+        x[0] = 0
+        if n > 64:
+            x[64] = 0
+        for h, m in LSH_EDGE_HM:
+            p = torch.randn((d, h * m), generator=g, device=dev)
+            got = lsh_hash(x, p, n_arrays=h, key_len=m)
+            torch.cuda.synchronize()
+            assert got.shape == (n, h) and got.dtype == torch.int64
+            lsh_key_flips(x, p, h, m, got, ref.lsh_hash_ref(x, p, n_arrays=h, key_len=m))
+            assert bool((got[0] == 2**m - 1).all())
+            if n > 64:
+                assert bool((got[64] == 2**m - 1).all())
+            if dtype == torch.bfloat16:
+                assert torch.equal(lsh_hash(x.float(), p, n_arrays=h, key_len=m), got)
+            if n >= 129:
+                for s, e in ((0, 1), (n - 1, n), (3, 128), (100, n)):
+                    assert torch.equal(lsh_hash(x[s:e].contiguous(), p, n_arrays=h, key_len=m),
+                                       got[s:e])
+                moved = torch.cat([x[n // 2 :], x[: n // 2]])
+                mk = lsh_hash(moved, p, n_arrays=h, key_len=m)
+                assert torch.equal(torch.cat([mk[n - n // 2 :], mk[: n - n // 2]]), got)
+
+
+@pytest.mark.gpu
+def test_cuda_lsh_hash_counts_one_launch():
+    """A call is one launch: each block splits its own slice of P."""
+    from repro_torch.kernels import lsh_hash as lsh_mod
+
+    dev = _cuda()
+    x = torch.randn((300, 64), device=dev)
+    before = lsh_hash.launches
+    lsh_hash(x, torch.randn((64, 160), device=dev), n_arrays=10, key_len=16)
+    assert lsh_hash.launches - before == lsh_mod.LAUNCHES_PER_CALL == 1
+
+
+@pytest.mark.gpu
+def test_cuda_kmeans_step_is_deterministic():
+    """Two Lloyd steps on the same inputs on the card give the same sums
+    and counts bit for bit (the sums add each cluster's rows in one fixed
+    order), and agree with the float64 sums within float32 rounding."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((300_000, 96), generator=g, device=dev)
+    cen = x[:1024].clone()
+    first = clustering.kmeans_step(x, cen, n_clusters=1024)
+    second = clustering.kmeans_step(x, cen, n_clusters=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(first[2], second[2])
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+    assert torch.equal(first[1], second[1])
+    idx = first[2].long()
+    exact = torch.zeros((1024, 96), dtype=torch.float64, device=dev).index_add_(0, idx, x.double())
+    mag = torch.zeros((1024, 96), dtype=torch.float64, device=dev).index_add_(0, idx, x.double().abs())
+    n_max = float(torch.bincount(idx, minlength=1024).max())
+    assert bool(((first[0].double() - exact).abs() <= n_max * 2.0**-24 * mag).all())
+    assert torch.equal(first[1], torch.bincount(idx, minlength=1024).float())
