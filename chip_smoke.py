@@ -84,7 +84,35 @@ Phases, each printing its lines; any failure exits non-zero:
                search bit for bit; the covering sketch factor (m = C =
                80,000) == the unfiltered Q4 search bit for bit; each of
                their grouped and sketch calls timed.
-7. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
+7. serve     — the int8 and int4 indexes again, built on the host rescore
+               tier (``configs.lider_msmarco.HOST_TIER``) and copied to the
+               device tier (``nbytes_by_tier`` and the device memory the
+               host tier frees printed): Q8, Q8-cm, Q4-sk and Q4-sk-cm over
+               4 x 256 queries == the device tier, ids and scores bit for
+               bit, with the device tier's launches per batch; one host-tier Q8 batch
+               split into its stages (first pass, rows to the host, the
+               gather by ``torch.index_select`` and by numpy ``take``,
+               bit-equal, H2D from pinned and pageable memory, rescore);
+               the rescore over fetched rows timed as a ``fused_verify``
+               call, its launches counted around one ``host_rescore``. Then ``RetrievalEngine`` (``configs.lider_msmarco.
+               SERVING``): a closed loop of 16 x 256 queries on host-tier
+               Q8 (every answer == ``search_lider`` on its batch, bit for
+               bit; some gather began while the device still ran the
+               next batch's first pass, read from that pass's CUDA event;
+               AQT, batch and request p50 /
+               p99, fetch ms, gather and H2D GB/s), the same on host-tier
+               Q8-cm and on device-tier Q8; an open loop of 2,048 Zipf
+               arrivals at half the closed loop's queries/s (answers ==
+               ``search_lider``, latency p50 / p99); an index over 99% of
+               the corpus on the host tier taking an upsert of the other 1%
+               in ``apply_updates`` (no growth, ``recompiles`` 0, the host
+               generation bumped, 4 batches after it == a device-tier copy
+               given the same upsert); a failed host fetch retried (answers
+               unchanged) and exhausted retries (answers ==
+               ``compressed_only_topk``, degraded); a host-tier checkpoint
+               at full width loaded on both tiers (every leaf and the
+               search identical).
+8. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
                path's centroids frozen and the capacity fixed from the full
                assignment: build on 80%, upsert 20% in 4 batches, equal bit
                for bit to a rebuild over 100% (bank and search ids); delete
@@ -92,7 +120,7 @@ Phases, each printing its lines; any failure exits non-zero:
                survivors, deleted ids never surfacing; ``save_index`` then
                ``load_index``, every leaf and the search ids identical;
                small int8 and int4 indexes through upsert == rebuild.
-8. kernels   — one JSON line with an entry per kernel.
+9. kernels   — one JSON line with an entry per kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -115,6 +143,7 @@ import types
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -1430,7 +1459,7 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
     cfg = CONFIG.lider
     k = CONFIG.k
     torch.cuda.reset_peak_memory_stats()
-    built = build_counted("quantized", dev, main["corpus"], dataclasses.replace(cfg, storage_dtype=storage))
+    built = build_counted("quantized", dev, main["corpus"], points[0].lider_config(cfg))
     params, stats, t_build = built.params, built.stats, built.secs
     del built
     b = params.bank
@@ -1583,6 +1612,415 @@ def phase_wide(params, storage: str, batches, results: dict, paths: dict) -> lis
                              chunk=8 if name == "sketch_prefilter" else 32))
         res[-1]["launches_per_batch"] = per_batch[name]
     return res
+
+
+def host_ms(fn) -> tuple:
+    """(result, milliseconds) of ``fn`` on the host clock, the device
+    synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve_search(params, q, **kw):
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import lider
+
+    cfg = CONFIG.lider
+    return lider.search_lider(params, q, k=CONFIG.k, n_probe=cfg.n_probe, r0=cfg.r0,
+                              r0_centroid=cfg.r0_centroid, **kw)
+
+
+def serve_batches(params, queries, **kw):
+    """``search_lider`` over ``queries`` in batches of ``BATCH``, on the host:
+    the reference answers the engine is held to."""
+    outs = [serve_search(params, queries[i : i + BATCH], **kw) for i in range(0, queries.shape[0], BATCH)]
+    return torch.cat([o.ids for o in outs]).cpu(), torch.cat([o.scores for o in outs]).cpu()
+
+
+def make_engine(params, **kw):
+    """The ``SERVING`` engine (lider backend, updatable) over ``params``;
+    keyword arguments go to the backend, ``engine_kw`` to the engine."""
+    from repro_torch.configs.lider_msmarco import CONFIG, SERVING
+    from repro_torch.serving import RetrievalEngine, make_backend
+
+    engine_kw = kw.pop("engine_kw", {})
+    cfg = CONFIG.lider
+    backend = make_backend("lider", None, updatable=True, n_probe=cfg.n_probe, r0=cfg.r0, **kw)
+    return RetrievalEngine(backend, batch_size=SERVING.batch, k=CONFIG.k, dim=CONFIG.dim,
+                           params=params, scheduler=SERVING.scheduler, **engine_kw)
+
+
+def run_engine(eng, pool_np, rids=None):
+    """Submit every row of ``pool_np`` (unless ``rids`` were submitted
+    already), drain, and return the answers as (ids, scores, results)."""
+    if rids is None:
+        rids = [eng.submit(v) for v in pool_np]
+        eng.drain()
+    out = [eng.result(r) for r in rids]
+    if not all(hasattr(r, "ids") for r in out):
+        raise AssertionError("an engine request was not answered")
+    return (torch.from_numpy(np.stack([r.ids for r in out])),
+            torch.from_numpy(np.stack([r.scores for r in out])), out)
+
+
+def engine_line(name: str, eng) -> str:
+    s = eng.stats
+    fetch = (f"; host fetch {s.host_fetch_us / max(s.n_host_fetches, 1) / 1e3:.3f} ms a batch "
+             f"({s.n_host_fetches} fetches; overlap dispatched-before {s.overlap_fraction:.3f}, measured "
+             f"{s.measured_overlap_fraction:.3f}), gather "
+             f"{s.gather_gb_per_s:.2f} GB/s, H2D {s.h2d_gb_per_s:.2f} GB/s" if s.n_host_fetches else "")
+    return (f"{name}: {s.n_queries} queries in {s.n_batches} batches; AQT {s.aqt * 1e6:.3f} us, "
+            f"{1 / max(s.aqt, 1e-12):.0f} queries/s; batch latency (dispatch to answers) p50 "
+            f"{s.batch_latency_quantile(0.5) * 1e3:.3f} ms, p99 {s.batch_latency_quantile(0.99) * 1e3:.3f} "
+            f"ms; request latency p50 {s.latency_quantile(0.5) * 1e3:.3f} ms, p99 "
+            f"{s.latency_quantile(0.99) * 1e3:.3f} ms (window of the last "
+            f"{len(s.recent_latency_s)})" + fetch)
+
+
+def stage_split(ph, qb) -> dict:
+    """Where one host-tier Q8 batch's time goes, each stage alone and
+    synchronised (medians of 5): the first pass, the provisional rows'
+    copy to the host, the host gather (``torch.index_select``, and numpy's
+    ``take`` on the same rows, bit-equal), the rows' copy to the card from
+    pinned and from pageable memory, and the rescore."""
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import lider
+
+    store = ph.bank.store
+    d = store.shape[-1]
+    prov, _ = serve_search_stage1(ph, qb)
+    rows = prov.ids.cpu()
+    n = rows.numel()
+    pinned = torch.empty((n, d), dtype=torch.float32, pin_memory=True)
+    table_np = store.rescore.numpy().reshape(-1, d)
+    rows_np = np.maximum(rows.numpy().reshape(-1), 0)
+    out_np = np.empty((n, d), np.float32)
+    times = {key: [] for key in ("stage1", "rows_d2h", "gather_torch", "gather_numpy",
+                                 "h2d_pinned", "h2d_pageable", "rescore")}
+    for _ in range(5):
+        (prov, _), t = host_ms(lambda: serve_search_stage1(ph, qb))
+        times["stage1"].append(t)
+        rows, t = host_ms(lambda: prov.ids.cpu())
+        times["rows_d2h"].append(t)
+        fetched, t = host_ms(lambda: store.fetch(rows, out=pinned))
+        times["gather_torch"].append(t)
+        _, t = host_ms(lambda: np.take(table_np, rows_np, axis=0, out=out_np))
+        times["gather_numpy"].append(t)
+        dev_rows, t = host_ms(lambda: fetched.to(qb.device, non_blocking=True))
+        times["h2d_pinned"].append(t)
+        _, t = host_ms(lambda: torch.from_numpy(out_np).to(qb.device))
+        times["h2d_pageable"].append(t)
+        _, t = host_ms(lambda: lider.host_rescore(ph.bank.gids, dev_rows, prov.ids, qb, k=CONFIG.k))
+        times["rescore"].append(t)
+    if not np.array_equal(out_np, fetched.reshape(n, d).numpy()):
+        raise AssertionError("numpy take and torch.index_select gathered different rows")
+    med = {key: statistics.median(v) for key, v in times.items()}
+    nbytes = n * d * 4
+    med["bytes"] = nbytes
+    log("serve", f"one host-tier Q8 batch, each stage alone (synchronised, median of 5): first pass "
+        f"{med['stage1']:.3f} ms; provisional rows to the host {med['rows_d2h']:.3f} ms; gather of "
+        f"{n} rows ({nbytes / 1e6:.1f} MB) by torch.index_select {med['gather_torch']:.3f} ms "
+        f"({nbytes / med['gather_torch'] / 1e6:.2f} GB/s), by numpy take {med['gather_numpy']:.3f} ms "
+        f"({nbytes / med['gather_numpy'] / 1e6:.2f} GB/s; bit-equal); H2D from pinned "
+        f"{med['h2d_pinned']:.3f} ms ({nbytes / med['h2d_pinned'] / 1e6:.2f} GB/s), from pageable "
+        f"{med['h2d_pageable']:.3f} ms ({nbytes / med['h2d_pageable'] / 1e6:.2f} GB/s); rescore "
+        f"{med['rescore']:.3f} ms; sum {sum(med[s] for s in ('stage1', 'rows_d2h', 'gather_torch', 'h2d_pinned', 'rescore')):.3f} ms")
+    return med
+
+
+def serve_search_stage1(ph, qb):
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import lider
+
+    cfg = CONFIG.lider
+    return lider.host_first_pass(ph, qb, k=CONFIG.k, n_probe=cfg.n_probe, r0=cfg.r0,
+                                 r0_centroid=cfg.r0_centroid)
+
+
+def phase_serve(dev, main) -> dict:
+    """The host rescore tier and the serving engine at full width, on the
+    int8 and int4 indexes of the quantized phase (built again): tiers, the
+    engine closed and open loop, an update under serving, faults, a
+    host-tier checkpoint, and the rescore over fetched rows timed."""
+    from repro_torch import faults
+    from repro_torch.configs.lider_msmarco import CONFIG, HOST_TIER, SERVING
+    from repro_torch.core import clustering, lider, update
+    from repro_torch.data import synthetic
+    from repro_torch.serving import DegradePolicy, make_trace, run_open_loop
+    from repro_torch.training import checkpoint
+
+    cfg, k = CONFIG.lider, CONFIG.k
+    batches = [main["queries"][i * BATCH : (i + 1) * BATCH] for i in range(N_BATCHES)]
+    out = {"tiers": {}}
+
+    # 1. Tiers: each quantized index is built on the tier its points name
+    # (``HOST_TIER``: the table built on the card, then moved to the host),
+    # and a device-tier copy made with ``set_rescore_tier``; every point must
+    # return the device tier's ids and scores, bit for bit.
+    hosts = {}
+    for storage in ("int8", "int4"):
+        points = [p for p in HOST_TIER if p.storage_dtype == storage]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ph, t_build = host_ms(lambda: lider.build_lider(SEED, main["corpus"], points[0].lider_config(cfg),
+                                                        device=dev))
+        if ph.bank.rescore_tier != "host":
+            raise AssertionError(f"{storage}: the HOST_TIER build is on the {ph.bank.rescore_tier} tier")
+        peak = torch.cuda.max_memory_allocated()
+        m_host = torch.cuda.memory_allocated()
+        pd, t_dev = host_ms(lambda: lider.set_rescore_tier(ph, "device"))
+        m_dev = torch.cuda.memory_allocated()
+        dev_results = {}
+        for op in points:
+            outs = [serve_search(pd, qb, **op.search_kwargs()) for qb in batches]
+            dev_results[op.name] = (torch.cat([o.ids for o in outs]), torch.cat([o.scores for o in outs]))
+        before = pd.bank.nbytes_by_tier()
+        del ph
+        ph, t_move = host_ms(lambda: lider.set_rescore_tier(pd, "host"))
+        del pd
+        gc.collect()
+        torch.cuda.empty_cache()
+        m1 = torch.cuda.memory_allocated()
+        after = ph.bank.nbytes_by_tier()
+        log("serve", f"{storage} index built on the host tier in {t_build / 1e3:.2f} s (peak device "
+            f"memory {peak / 2**30:.2f} GiB, the device tier's build; then {m_host / 1e9:.3f} GB "
+            f"allocated); set_rescore_tier(device) {t_dev / 1e3:.2f} s: {m_dev / 1e9:.3f} GB allocated; "
+            f"set_rescore_tier(host) {t_move / 1e3:.2f} s and empty_cache: {m1 / 1e9:.3f} GB (freed "
+            f"{(m_dev - m1) / 1e9:.3f} GB; the host table is {after['host'] / 1e9:.3f} GB); "
+            f"nbytes_by_tier {before} -> {after}")
+        out["tiers"][storage] = {"nbytes_device": before, "nbytes_host": after,
+                                 "freed_gb": (m_dev - m1) / 1e9, "move_s": t_move / 1e3,
+                                 "build_s": t_build / 1e3, "build_peak_gib": peak / 2**30}
+        for op in points:
+            serve_search(ph, batches[0], **op.search_kwargs())  # warm
+            reset_counts()
+            outs, lat = [], []
+            for qb in batches:
+                o, t = host_ms(lambda: serve_search(ph, qb, **op.search_kwargs()))
+                outs.append(o)
+                lat.append(t)
+            counts = read_counts()
+            want = tuple(N_BATCHES * v for v in per_batch(op.name))
+            if counts != want:
+                raise AssertionError(f"host-tier {op.name}: launches {counts}, expected {want}")
+            got = (torch.cat([o.ids for o in outs]), torch.cat([o.scores for o in outs]))
+            if not bit_equal(got, dev_results[op.name]):
+                raise AssertionError(f"host-tier {op.name} differs from the device tier")
+            med = statistics.median(lat)
+            out["tiers"][op.name] = {"latency_ms": med}
+            log("serve", f"host-tier {op.name}: {N_BATCHES} x {BATCH} queries == the device tier, "
+                f"ids and scores bit for bit; launches per batch {fmt_counts(c // N_BATCHES for c in counts)}"
+                f" (the device tier's); batch latency (host clock, synchronised) median {med:.3f} ms "
+                f"(all {', '.join(f'{v:.3f}' for v in lat)}), {BATCH / med * 1e3:.0f} queries/s")
+        hosts[storage] = ph
+    del hosts["int4"]
+    ph8 = hosts.pop("int8")
+    gc.collect()
+    out["split"] = stage_split(ph8, batches[0])
+
+    # The rescore over fetched rows as a kernel call, timed as the shapes
+    # phase times a call.
+    calls = []
+    with recording(calls, lambda name, a, kw_: name == "fused_verify" and kw_.get("scales") is None):
+        serve_search(ph8, batches[0])
+    torch.cuda.synchronize()
+    name, args, kw_ = calls[-1]
+    n_fetched = BATCH * HOST_TIER[0].rescore_factor * k  # B * k' rows (Q8)
+    if args[0].shape[0] != n_fetched:
+        raise AssertionError(f"the rescore's table has {args[0].shape[0]} rows, not B * k' = {n_fetched}")
+    out["rescore_call"] = time_call("Q8 host", "rescore (fetched rows)", name, args, kw_, reps=20,
+                                    chunk=256)
+    # Its launches: one host_rescore of batch 0, counts reset around it.
+    prov, _ = serve_search_stage1(ph8, batches[0])
+    fetched = lider.host_fetch(ph8, prov.ids).to(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    lider.host_rescore(ph8.bank.gids, fetched, prov.ids, batches[0], k=k)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fv = counts[list(KERNELS).index("fused_verify")]
+    if fv == 0 or sum(counts) != fv:
+        raise AssertionError(f"host_rescore launched {fmt_counts(counts)}")
+    out["rescore_call"]["launches_per_batch"] = fv
+    log("serve", f"host_rescore of one batch launches {fmt_counts(counts)}")
+    del prov, fetched
+
+    # 2. The engine, closed loop: 16 x 256 queries, then drain.
+    n_closed = SERVING.closed_loop_batches * SERVING.batch
+    pool, _ = synthetic.retrieval_queries(SEED + 11, main["corpus"], SERVING.open_loop_pool)
+    pool_np = pool.cpu().numpy()
+    closed = pool[:n_closed]
+    want_ids, want_sc = serve_batches(ph8, closed)
+
+    def closed_loop(params, name, **kw):
+        eng = make_engine(params, **kw)
+        _, t_warm = host_ms(eng.warmup)
+        reset_counts()
+        ids, sc, _ = run_engine(eng, pool_np[:n_closed])
+        counts = read_counts()
+        wid, wsc = (want_ids, want_sc) if not kw else serve_batches(params, closed, **kw)
+        if not (torch.equal(ids, wid) and torch.equal(sc.view(torch.int32), wsc.view(torch.int32))):
+            raise AssertionError(f"{name}: engine answers differ from search_lider")
+        if min(counts[0], counts[3]) == 0:
+            raise AssertionError(f"{name}: launches {counts}")
+        log("serve", engine_line(name, eng) + f"; warmup {t_warm / 1e3:.2f} s; launches "
+            f"{fmt_counts(counts)}; every answer == search_lider on its batch, ids and scores bit for bit")
+        return eng
+
+    eng = closed_loop(ph8, "engine, closed loop, host-tier Q8")
+    s = eng.stats
+    # Overlap, measured: a fetch counts when, as its gather began, the
+    # device was still running the next batch's first pass. A drain that
+    # waited on the stream, or copied the rows back blocking, counts none.
+    if s.n_fetches_under_device_work == 0:
+        raise AssertionError(f"no host fetch ran under device work ({s.n_overlapped_fetches} of "
+                             f"{s.n_host_fetches} had a next batch dispatched)")
+    split = out["split"]
+    serial = sum(split[key] for key in ("stage1", "rows_d2h", "gather_torch", "h2d_pinned", "rescore"))
+    log("serve", f"overlap, closed loop host-tier Q8: {s.n_fetches_under_device_work} of "
+        f"{s.n_host_fetches} gathers began under the next batch's first pass (measured "
+        f"{s.measured_overlap_fraction:.3f}; dispatched-before {s.overlap_fraction:.3f}); "
+        f"{s.aqt * SERVING.batch * 1e3:.3f} ms a batch (AQT x {SERVING.batch}) against the "
+        f"serial stages' {serial:.3f} ms")
+    out["closed_host"] = {"aqt_us": s.aqt * 1e6, "qps": 1 / s.aqt, "overlap": s.overlap_fraction,
+                          "measured_overlap": s.measured_overlap_fraction,
+                          "batch_ms": s.aqt * SERVING.batch * 1e3, "serial_ms": serial,
+                          "batch_p50_ms": s.batch_latency_quantile(0.5) * 1e3,
+                          "batch_p99_ms": s.batch_latency_quantile(0.99) * 1e3,
+                          "fetch_ms": s.host_fetch_us / s.n_host_fetches / 1e3,
+                          "gather_gbps": s.gather_gb_per_s, "h2d_gbps": s.h2d_gb_per_s}
+    closed_qps = 1 / s.aqt
+    eng_cm = closed_loop(ph8, "engine, closed loop, host-tier Q8-cm", block_q=8)
+    if eng_cm.stats.n_host_fetches == 0:
+        raise AssertionError("host-tier Q8-cm did not fetch")
+    del eng_cm
+    pd8 = lider.set_rescore_tier(ph8, "device")
+    eng_d = closed_loop(pd8, "engine, closed loop, device-tier Q8")
+    s = eng_d.stats
+    out["closed_device"] = {"aqt_us": s.aqt * 1e6, "qps": 1 / s.aqt,
+                            "batch_p50_ms": s.batch_latency_quantile(0.5) * 1e3,
+                            "batch_p99_ms": s.batch_latency_quantile(0.99) * 1e3}
+    del eng_d, pd8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. The engine, open loop: Zipf arrivals at half the closed loop's rate.
+    rate = SERVING.open_loop_rate_fraction * closed_qps
+    trace = make_trace(seed=0, n_arrivals=SERVING.open_loop_arrivals, pool_size=SERVING.open_loop_pool,
+                       mean_rate=rate, pattern=SERVING.open_loop_pattern)
+    pool_ids, pool_sc = serve_batches(ph8, pool)
+    eng = make_engine(ph8)
+    eng.warmup()
+    t0 = time.perf_counter()
+    rids = run_open_loop(eng, trace, pool_np)
+    wall = time.perf_counter() - t0
+    ids, sc, res = run_engine(eng, None, rids)
+    qidx = torch.tensor([a.query_idx for a in trace])
+    if not (torch.equal(ids, pool_ids[qidx]) and torch.equal(sc.view(torch.int32), pool_sc[qidx].view(torch.int32))):
+        raise AssertionError("open loop: engine answers differ from search_lider")
+    lat = np.array([r.latency_s for r in res]) * 1e3
+    out["open"] = {"rate_qps": rate, "p50_ms": float(np.quantile(lat, 0.5)),
+                   "p99_ms": float(np.quantile(lat, 0.99)), "batches": eng.stats.n_batches,
+                   "overlap": eng.stats.overlap_fraction,
+                   "measured_overlap": eng.stats.measured_overlap_fraction, "wall_s": wall}
+    log("serve", f"engine, open loop, host-tier Q8: {len(trace)} Zipf arrivals over a "
+        f"{SERVING.open_loop_pool}-query pool at {rate:.0f} queries/s (half the closed loop's), "
+        f"{wall:.2f} s; request latency p50 {out['open']['p50_ms']:.3f} ms, p99 "
+        f"{out['open']['p99_ms']:.3f} ms over all {len(res)}; {eng.stats.n_batches} batches "
+        f"(padding {eng.stats.padding_fraction:.3f}), overlap {eng.stats.overlap_fraction:.3f}; "
+        "every answer == search_lider on its query, ids and scores bit for bit")
+    del eng, pool_ids, pool_sc
+
+    # 4. An update under serving: an index over 99% of the corpus on the
+    # host tier takes an upsert of the other 1% in apply_updates.
+    corpus, cen = main["corpus"], main["centroids"]
+    n = corpus.shape[0]
+    n_base = int(n * (1 - SERVING.held_out_fraction))
+    assign, _ = clustering.assign_chunked(corpus, cen)
+    cap = lider.padded_capacity(
+        int(torch.bincount(assign.long(), minlength=cfg.n_clusters).max()), None, cfg.pad_multiple)
+    fcfg = dataclasses.replace(cfg, storage_dtype="int8", capacity=cap)
+    pd99 = lider.build_lider(SEED, corpus[:n_base], fcfg, centroids=cen, device=dev)
+    eng = make_engine(lider.set_rescore_tier(pd99, "host"))
+    eng.warmup()
+    run_engine(eng, pool_np[:BATCH])
+    upsert = lambda p: update.upsert(p, corpus[n_base:], pad_multiple=cfg.pad_multiple, route="exact")
+    grew, t_up = host_ms(lambda: eng.apply_updates(upsert))
+    if grew or eng.recompiles != 0 or eng.host_generation != 1 or eng.device_generation != 1:
+        raise AssertionError(f"update under serving: grew {grew}, recompiles {eng.recompiles}, "
+                             f"generations host {eng.host_generation} device {eng.device_generation}")
+    reset_counts()
+    ids, sc, _ = run_engine(eng, main["queries"].cpu().numpy())
+    counts = read_counts()
+    pd_up, _ = upsert(pd99)
+    want = serve_batches(pd_up, main["queries"])
+    if not bit_equal((ids, sc), want):
+        raise AssertionError("after the update, the host-tier engine differs from the device tier")
+    out["update"] = {"apply_s": t_up / 1e3, "n_upserted": n - n_base}
+    log("serve", f"update under serving: int8 index over {n_base} passages (capacity Lp={cap} from "
+        f"the full assignment) on the host tier; apply_updates(upsert of the other {n - n_base}) "
+        f"{t_up / 1e3:.3f} s: no growth, recompiles 0, host generation 1, device generation 1; "
+        f"{N_BATCHES} batches served after it == a device-tier copy given the same upsert, ids and "
+        f"scores bit for bit; launches {fmt_counts(counts)}")
+    del eng, pd99, pd_up
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. Faults: one failed host fetch is retried; exhausted retries answer
+    # compressed-only.
+    qb = pool[:BATCH]
+    for times_, degraded in (((0,), False), ((0, 1, 2), True)):
+        plan = faults.FaultPlan([faults.FaultSpec("host_fetch", mode="error", times=times_)])
+        eng = make_engine(ph8, engine_kw=dict(
+            fault_plan=plan, policy=DegradePolicy(fetch_retries=2, fetch_backoff_s=0.0)))
+        eng.warmup()
+        ids, sc, res = run_engine(eng, pool_np[:BATCH])
+        if degraded:
+            prov, _ = serve_search_stage1(ph8, qb)
+            want = lider.compressed_only_topk(ph8.bank.gids, prov, k=k)
+            want = (want.ids.cpu(), want.scores.cpu())
+        else:
+            want = (want_ids[:BATCH], want_sc[:BATCH])
+        if not (all(r.degraded == degraded for r in res) and bit_equal((ids, sc), want)):
+            raise AssertionError(f"fault plan {times_}: answers differ")
+        log("serve", f"faults: host fetch failing at calls {times_}: {eng.stats.n_fetch_retries} "
+            f"retries, {eng.stats.n_fetch_failures} failures; answers "
+            + ("compressed-only (degraded) == compressed_only_topk" if degraded else
+               "unchanged == search_lider") + ", ids and scores bit for bit")
+        del eng
+
+    # 6. A host-tier checkpoint at full width, loaded on both tiers.
+    d = ROOT / "build" / "serve_index"
+    shutil.rmtree(d, ignore_errors=True)
+    _, t_save = host_ms(lambda: checkpoint.save_index(str(d), ph8))
+    size = sum(f.stat().st_size for f in (d / "index").iterdir())
+    want = dict(checkpoint.index_leaves(ph8))
+    want_search = serve_batches(ph8, main["queries"])
+    loads = {}
+    for tier in ("host", "device"):
+        loaded, t_load = host_ms(lambda: checkpoint.load_index(str(d), device=dev, rescore_tier=tier))
+        got = dict(checkpoint.index_leaves(loaded))
+        bad = [n_ for n_ in want if n_ not in got or not same_bits(want[n_].to(got[n_].device), got[n_])]
+        if bad or set(got) != set(want) or loaded.bank.rescore_tier != tier:
+            raise AssertionError(f"host-tier checkpoint loaded on the {tier} tier: leaves {bad} differ")
+        if not bit_equal(serve_batches(loaded, main["queries"]), want_search):
+            raise AssertionError(f"host-tier checkpoint loaded on the {tier} tier: search differs")
+        loads[tier] = t_load / 1e3
+        del loaded, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    out["checkpoint"] = {"save_s": t_save / 1e3, "load_s": loads, "gb": size / 1e9}
+    log("serve", f"host-tier int8 checkpoint at full width: save_index {t_save / 1e3:.2f} s "
+        f"({size / 1e9:.2f} GB on disk); load_index as host {loads['host']:.2f} s, as device "
+        f"{loads['device']:.2f} s; all {len(want)} leaves identical and search ids and scores "
+        "identical on both tiers")
+    del ph8
+    return out
 
 
 LIFE_BANK = ("sorted_keys", "sorted_pos", "gids", "sizes", "embs", "next_gid")
@@ -1845,6 +2283,9 @@ def main() -> int:
     q4 = phase_quantized(dev, main_res, "int4", [p for p in QUANTIZED if p.storage_dtype == "int4"])
     gc.collect()
     torch.cuda.empty_cache()
+    serve = phase_serve(dev, main_res)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_lifecycle(dev, main_res)
     qcalls = q8["calls"] + q4["calls"]
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]
@@ -1852,7 +2293,8 @@ def main() -> int:
     counts, timed = main_res["build_launches"], main_res["build_timed"]
     kernels = [
         # fused_verify: the float main path (routing + in-cluster per batch).
-        entry("fused_verify", f32_calls + by("fused_verify"), main_res["launches"][0], f32_calls[:2]),
+        entry("fused_verify", f32_calls + by("fused_verify") + [serve["rescore_call"]],
+              main_res["launches"][0], f32_calls[:2]),
         # sketch_prefilter: the Q4-sk path (one call per batch).
         entry("sketch_prefilter", by("sketch_prefilter"),
               q4["paths"]["Q4-sk"]["launches"][1], by("sketch_prefilter", "Q4-sk")),

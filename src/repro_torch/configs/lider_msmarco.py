@@ -17,6 +17,17 @@ with two cuts:
 the same corpus: the JAX package's own values (``LiderConfig.rescore_factor``
 default 4; ``BENCH_verify.json``: ``sketch_factor`` 4, ``block_q`` 8).
 
+``HOST_TIER`` holds the same quantized points with the float32 rescore
+table on the host tier (``rescore_tier="host"``: ``lider_config`` builds
+their index there), and ``SERVING`` the serving engine's setting for
+them: batches of 256, the default ``SchedulerConfig`` (fixed batches, one
+FIFO tenant, no cache, no SLO), the engine's fixed pipeline depth of 2
+(``serving.engine.PIPELINE_DEPTH``, the JAX engine's double buffer), and
+the traffic the engine is driven with: a closed loop of 16 x 256 queries,
+and an open loop of 2,048 Zipf-skewed arrivals over a 4,096-query pool at
+half the closed loop's measured rate (the JAX package's
+``traffic.make_trace``).
+
 ``LIFECYCLE`` is the index-update scenario run on the same corpus: the JAX
 package's ``benchmarks/index_update.py`` split (build on 80%, upsert the
 other 20% in 4 batches by the exact route, layer 1 frozen), then a delete
@@ -27,6 +38,7 @@ at random touches every cluster.)
 import dataclasses
 
 from ..core.lider import LiderConfig
+from ..serving.scheduler import SchedulerConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,14 +79,20 @@ CONFIG = RetrievalConfig(
 
 @dataclasses.dataclass(frozen=True)
 class OperatingPoint:
-    """A quantized device-tier search: the bank's storage and the search
-    options passed to ``search_lider``."""
+    """A quantized search: the bank it runs on (storage, rescore tier;
+    :meth:`lider_config`) and the options passed to ``search_lider``."""
 
     name: str
     storage_dtype: str
     rescore_factor: int = 4
     sketch_factor: int | None = None
     block_q: int | None = None
+    rescore_tier: str = "device"
+
+    def lider_config(self, base: LiderConfig) -> LiderConfig:
+        """``base`` with this point's storage and rescore tier: the config
+        ``build_lider`` builds the point's index from."""
+        return dataclasses.replace(base, storage_dtype=self.storage_dtype, rescore_tier=self.rescore_tier)
 
     def search_kwargs(self) -> dict:
         return {
@@ -90,6 +108,26 @@ QUANTIZED = (
     OperatingPoint("Q4-sk", "int4", sketch_factor=4),  # sketch -> int4 -> rescore
     OperatingPoint("Q4-sk-cm", "int4", sketch_factor=4, block_q=8),
 )
+
+# The same points with the rescore table in host memory.
+HOST_TIER = tuple(dataclasses.replace(p, rescore_tier="host") for p in QUANTIZED)
+
+
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    """The engine setting and the traffic it is driven with."""
+
+    batch: int = 256
+    scheduler: SchedulerConfig = SchedulerConfig()
+    closed_loop_batches: int = 16  # closed loop: 16 x 256 queries, then drain
+    open_loop_arrivals: int = 2048
+    open_loop_pool: int = 4096
+    open_loop_pattern: str = "zipf"
+    open_loop_rate_fraction: float = 0.5  # of the closed loop's queries/s
+    held_out_fraction: float = 0.01  # update under serving: upsert 1% held out
+
+
+SERVING = Serving()
 
 @dataclasses.dataclass(frozen=True)
 class Lifecycle:

@@ -21,21 +21,214 @@ clusters, batched over clusters (:func:`refit_clusters`) in fixed-size
 chunks (:func:`fit_chunks`) that bound the temporaries and give every fit
 one shape. The fit hashes the rows as the first pass scores them: the
 dequantized codes of a quantized bank. :func:`grow_bank` widens the slot
-axis for ``core.update``. The host rescore tier (``store``) stays
-``None``: it is a later slice.
+axis for ``core.update``.
+
+The rescore table of a quantized bank lives on one of two tiers
+(``rescore_tier``): ``device``, the ``rescore_embs`` tensor next to the
+codes, or ``host``, an :class:`EmbStore` holding it in host memory
+(``store``), from which a search fetches only the ``B * k'`` rows its
+provisional top-k' names.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from . import clustering, lsh as lsh_lib, rescale as rescale_lib, rmi as rmi_lib
+from .. import faults
 from ..kernels import quant
+from .types import tensor_leaves
 
 STORAGE_DTYPES = ("float32", "bfloat16", "int8", "int4")
 QUANTIZED_DTYPES = ("int8", "int4")
+RESCORE_TIERS = ("device", "host")
 _FLOAT_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _host(t, dtype) -> torch.Tensor:
+    """``t`` (a tensor on any device, or an array) as a contiguous CPU
+    tensor of ``dtype``."""
+    return torch.as_tensor(t).to(device="cpu", dtype=dtype).contiguous()
+
+
+class EmbStore:
+    """The host tier of the float32 rescore table.
+
+    Holds the table as a contiguous CPU tensor of shape ``(c, Lp, d)``
+    (``rescore``; ``rescore.numpy()`` shares its memory), outside the
+    bank's device tensors. A search fetches the rows of its provisional
+    top-k' with :meth:`fetch` and moves only those ``B * k' * d`` floats
+    to the card.
+
+    ``gids`` is a host copy of the bank's gid table, re-synced after every
+    update, for callers that map flat rows to passage ids on the host
+    (:meth:`take_gids`). The port's search never reads it: it maps rows
+    through the device tier's ``bank.gids``.
+
+    The store is mutable shared state: the index lifecycle
+    (``core.update``) writes both tiers in lockstep. Content writes
+    (:meth:`write_rows`, :meth:`compact_clusters`) change the table in
+    place, so an index that shares the store sees them; growth is
+    copy-on-grow (:meth:`grown`), because it changes the flat-row
+    arithmetic an older index still uses. ``version`` is bumped on every
+    host write, so serving can track the host tier's generations apart
+    from the device tier's. ``__eq__`` / ``__hash__`` key on (tier, shape,
+    dtype) only: content never changes a store's identity.
+    """
+
+    tier = "host"
+
+    def __init__(self, rescore, *, gids=None):
+        self.rescore = _host(rescore, torch.float32)
+        self.shape = tuple(self.rescore.shape)
+        self.dtype = self.rescore.dtype
+        self.gids = None if gids is None else _host(gids, torch.int32)
+        self.version = 0  # bumped on every host-tier content write
+        self._txn = None  # undo journal while a transaction is open
+
+    def _key(self):
+        return (self.tier, self.shape, str(self.dtype))
+
+    def __eq__(self, other):
+        return isinstance(other, EmbStore) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        return f"EmbStore({self.tier}, {self.shape}, {self.dtype}, v{self.version})"
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+    def _table(self) -> torch.Tensor:
+        return self.rescore.view(-1, self.shape[-1])
+
+    # -- host-tier access ---------------------------------------------------
+    def fetch(self, rows, *, out: torch.Tensor | None = None) -> torch.Tensor:
+        """Gather flat bank rows ``(...)`` -> ``(..., d)`` float32 on the
+        CPU, into ``out`` when given (a CPU buffer of at least that many
+        rows; the result is a view of it).
+
+        ``rows < 0`` (provisional padding) gather row 0; callers report by
+        the row array, so padded gathers never surface (the device tier's
+        rescore gathers the same way).
+        """
+        faults.fire(faults.HOST_FETCH)
+        rows = torch.as_tensor(rows).cpu()
+        flat = torch.clamp(rows.reshape(-1), min=0)
+        shape = tuple(rows.shape) + (self.shape[-1],)
+        if out is None:
+            return torch.index_select(self._table(), 0, flat).view(shape)
+        dst = out.view(-1, self.shape[-1])[: flat.numel()]
+        torch.index_select(self._table(), 0, flat, out=dst)
+        return dst.view(shape)
+
+    def take_gids(self, rows) -> torch.Tensor:
+        """Map flat bank rows -> global passage ids via the synced gid copy."""
+        if self.gids is None:
+            raise ValueError("EmbStore has no synced gids (call sync_gids)")
+        rows = torch.as_tensor(rows).cpu()
+        out = self.gids.reshape(-1)[torch.clamp(rows, min=0).to(torch.int64)]
+        return torch.where(rows < 0, -1, out)
+
+    # -- transactions -------------------------------------------------------
+    # The lifecycle writes the table in place, so an exception in the middle
+    # of an update would leave a store of mixed generations. A transaction
+    # journals the first-touch pre-image of every in-place write; rollback
+    # replays the journal in reverse, restoring the table's bytes, the gid
+    # copy and ``version``. Growth returns a new store, so rolling back a
+    # grown update is dropping the new index.
+
+    def begin_txn(self) -> None:
+        """Open a transaction; later in-place writes are journaled."""
+        if self._txn is not None:
+            raise RuntimeError("EmbStore transaction already open")
+        self._txn = {
+            "log": [],
+            "gids": None if self.gids is None else self.gids.clone(),
+            "version": self.version,
+        }
+
+    def commit(self) -> None:
+        """Close the transaction, keeping every write."""
+        if self._txn is None:
+            raise RuntimeError("no open EmbStore transaction")
+        self._txn = None
+
+    def rollback(self) -> None:
+        """Undo every journaled write since :meth:`begin_txn`, newest first."""
+        txn = self._txn
+        if txn is None:
+            raise RuntimeError("no open EmbStore transaction")
+        for kind, key, old in reversed(txn["log"]):
+            if kind == "rows":
+                self._table()[key] = old
+            else:  # "clusters"
+                self.rescore[key] = old
+        self.gids = txn["gids"]
+        self.version = txn["version"]
+        self._txn = None
+
+    @property
+    def in_txn(self) -> bool:
+        return self._txn is not None
+
+    # -- host-tier lifecycle writes (lockstep with the device tier) ---------
+    def sync_gids(self, gids) -> None:
+        self.gids = _host(gids, torch.int32)
+
+    def write_rows(self, flat_slots, rows) -> None:
+        """Write ``rows`` at flat slots ``flat_slots``; slots outside the
+        table are dropped."""
+        table = self._table()
+        flat_slots = torch.as_tensor(flat_slots).cpu().reshape(-1).to(torch.int64)
+        rows = _host(rows, torch.float32).reshape(-1, self.shape[-1])
+        keep = (flat_slots >= 0) & (flat_slots < table.shape[0])
+        sel = flat_slots[keep]
+        if self._txn is not None:
+            self._txn["log"].append(("rows", sel.clone(), table[sel].clone()))
+        table[sel] = rows[keep]
+        self.version += 1
+        # Fires after the write: an update that fails here leaves the host
+        # tier ahead of the device tier, the state a transaction undoes.
+        faults.fire(faults.HOST_WRITE)
+
+    def grown(self, new_capacity: int) -> "EmbStore":
+        """A new store with the slot axis ``Lp`` grown to ``new_capacity``
+        (zero rows and gid -1 in the new slots, as the device tier pads).
+        Copy-on-grow: an index that still holds this store keeps fetching
+        with its own ``Lp``."""
+        lp = self.shape[1]
+        if new_capacity < lp:
+            raise ValueError(f"cannot shrink capacity {lp} -> {new_capacity}")
+        if new_capacity == lp:
+            return self
+        gids = self.gids
+        if gids is not None:
+            gids = torch.nn.functional.pad(gids, (0, new_capacity - lp), value=-1)
+        out = EmbStore(torch.nn.functional.pad(self.rescore, (0, 0, 0, new_capacity - lp)), gids=gids)
+        out.version = self.version + 1
+        return out
+
+    def compact_clusters(self, cids, gid_rows) -> None:
+        """The host tier's half of ``update._compact_clusters``: a stable
+        repack of each cluster's live rows to its slot prefix, zeros after.
+        ``gid_rows`` are the clusters' gid rows before compaction (live =
+        ``gid >= 0``)."""
+        table = self.rescore
+        cids = torch.as_tensor(cids).cpu().to(torch.int64)
+        gid_rows = torch.as_tensor(gid_rows).cpu()
+        if self._txn is not None:
+            self._txn["log"].append(("clusters", cids.clone(), table[cids].clone()))
+        order = torch.sort((gid_rows < 0).to(torch.uint8), dim=-1, stable=True).indices
+        live = torch.gather(gid_rows, 1, order) >= 0
+        rows = torch.take_along_dim(table[cids], order[..., None], dim=1)
+        table[cids] = torch.where(live[..., None], rows, 0.0)
+        self.version += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +246,7 @@ class ClusterBank:
     emb_scales: torch.Tensor | None = None
     rescore_embs: torch.Tensor | None = None
     sketches: torch.Tensor | None = None
-    store: object | None = None
+    store: EmbStore | None = None  # the host tier; None on the device tier
     code_dtype: str = "int8"
 
     @property
@@ -83,7 +276,15 @@ class ClusterBank:
 
     @property
     def rescore_tier(self) -> str:
+        """Where the float32 rescore table lives: ``device`` or ``host``."""
         return "host" if self.store is not None else "device"
+
+    def nbytes_by_tier(self) -> dict[str, int]:
+        """Index bytes by tier: ``device`` (every tensor of the bank, what
+        must sit on the card to search) and ``host`` (the host store)."""
+        device = sum(t.numel() * t.element_size() for t in tensor_leaves(self))
+        host = self.store.nbytes if self.store is not None else 0
+        return {"device": int(device), "host": int(host)}
 
     def float_rows(self) -> torch.Tensor:
         """(c, Lp, d) rows as the first pass scores them: dequantized codes
@@ -224,6 +425,31 @@ def store_rows(raw_rows: torch.Tensor, storage_dtype: str):
     return raw_rows.to(_FLOAT_STORAGE[storage_dtype]), None, None, None
 
 
+def set_rescore_tier(bank: ClusterBank, tier: str) -> ClusterBank:
+    """Move the float32 rescore table between tiers.
+
+    ``device -> host`` copies ``rescore_embs`` into an :class:`EmbStore`
+    and drops the tensor from the bank (its device memory is freed once no
+    index holds it); ``host -> device`` copies the store's table back to
+    the device of the codes. Search results are bit-identical across the
+    move: the same rows, the same kernel, the same tie-break.
+    """
+    if tier not in RESCORE_TIERS:
+        raise ValueError(f"rescore_tier must be one of {RESCORE_TIERS}, got {tier!r}")
+    if tier == bank.rescore_tier:
+        return bank
+    if not bank.quantized:
+        raise ValueError(
+            "rescore_tier='host' requires quantized (int8/int4) storage: "
+            "float banks have no rescore side table to move off-device"
+        )
+    if tier == "host":
+        store = EmbStore(bank.rescore_embs, gids=bank.gids)
+        return dataclasses.replace(bank, rescore_embs=None, store=store)
+    rescore = bank.store.rescore.to(bank.embs.device)
+    return dataclasses.replace(bank, rescore_embs=rescore, store=None)
+
+
 class CapacityOverflowError(ValueError):
     """A pack dropped passages because ``capacity`` < max cluster size."""
 
@@ -255,9 +481,18 @@ def build_bank(
 
     Returns ``(bank, n_dropped)``; a lossy pack raises
     :class:`CapacityOverflowError` unless ``allow_drops=True``.
+
+    ``rescore_tier="host"`` (quantized storage only) builds the rescore
+    table on the device as the device tier does, then moves it to an
+    :class:`EmbStore`: the build's peak device memory is the device tier's.
     """
-    if rescore_tier != "device":
-        raise NotImplementedError("the host rescore tier is a later port slice")
+    if rescore_tier not in RESCORE_TIERS:
+        raise ValueError(f"rescore_tier must be one of {RESCORE_TIERS}, got {rescore_tier!r}")
+    if rescore_tier == "host" and storage_dtype not in QUANTIZED_DTYPES:
+        raise ValueError(
+            f"rescore_tier='host' requires quantized storage ({QUANTIZED_DTYPES}): "
+            "float banks have no rescore side table to move off-device"
+        )
     raw_sizes = torch.bincount(assignment.to(torch.int64), minlength=n_clusters)
     n_dropped = int(torch.clamp(raw_sizes - capacity, min=0).sum())
     if n_dropped and not allow_drops:
@@ -279,7 +514,7 @@ def build_bank(
         emb_scales=emb_scales, rescore_embs=rescore_embs, sketches=sketches,
         code_dtype=code_dtype,
     )
-    return bank, n_dropped
+    return set_rescore_tier(bank, rescore_tier), n_dropped
 
 
 def grow_bank(bank: ClusterBank, new_capacity: int) -> ClusterBank:
@@ -289,9 +524,8 @@ def grow_bank(bank: ClusterBank, new_capacity: int) -> ClusterBank:
     (padding sorts last, so sortedness and every fit statistic are kept and
     no refit is needed), ``gids`` with -1, scales with 1.0 and codes, rescore
     rows and sketches with zeros: a grown slot is what a fresh pack pads.
+    A host store grows with it, copy-on-grow (:meth:`EmbStore.grown`).
     """
-    if bank.store is not None:
-        raise NotImplementedError("the host rescore tier is a later port slice")
     lp = bank.capacity
     if new_capacity < lp:
         raise ValueError(f"cannot shrink capacity {lp} -> {new_capacity}")
@@ -307,6 +541,7 @@ def grow_bank(bank: ClusterBank, new_capacity: int) -> ClusterBank:
 
     return dataclasses.replace(
         bank,
+        store=None if bank.store is None else bank.store.grown(new_capacity),
         sorted_keys=slots(bank.sorted_keys, lsh_lib.UINT32_PAD),
         sorted_pos=slots(bank.sorted_pos, -1),
         embs=rows(bank.embs),

@@ -16,9 +16,13 @@ kernels on the card, their plain versions on the CPU.
   1-bit ``sketch_prefilter`` pass ahead of the code pass; ``block_q``
   runs the code pass cluster-major (``fused_verify_grouped``) on a host
   schedule. Both spellings give the same ids and scores, bit for bit.
-
-The host rescore tier is a later slice: ``search_lider`` and
-``build_lider`` raise ``NotImplementedError`` for it.
+- int8 / int4 bank, host tier (``rescore_tier="host"``): the float32
+  table stays in host memory (``bank.EmbStore``) and the search runs in
+  three stages: the first pass on the card (:func:`host_first_pass`), the
+  host gather of the provisional rows (:func:`host_fetch`), and the same
+  ``fused_verify`` rescore over the fetched block (:func:`host_rescore`).
+  Ids and scores equal the device tier's, bit for bit. The serving engine
+  pipelines the stages across batches.
 """
 from __future__ import annotations
 
@@ -62,7 +66,10 @@ class LiderConfig:
     # exact rescore of the provisional top-(rescore_factor * k).
     storage_dtype: str = "float32"
     rescore_factor: int = 4  # k' = rescore_factor * k (quantized storage only)
-    rescore_tier: str = "device"  # the host tier is a later slice
+    # Where the float32 rescore table lives (quantized storage only):
+    # "device" next to the codes, or "host" in host memory, fetched B*k'
+    # rows at a time.
+    rescore_tier: str = "device"
     # Cluster-major first pass (quantized banks only): queries probing the
     # same cluster share one read of its rows, block_q at a time.
     block_q: int | None = None
@@ -227,6 +234,13 @@ def route_queries(
     return TopK(ids=cids, scores=torch.where(cids >= 0, routed.scores, float("-inf")))
 
 
+def set_rescore_tier(params: LiderParams, tier: str) -> LiderParams:
+    """Move the index's float32 rescore table between tiers
+    (``bank.set_rescore_tier``); search results are bit-identical across
+    the move, only which search pipeline runs changes."""
+    return dataclasses.replace(params, bank=bank_lib.set_rescore_tier(params.bank, tier))
+
+
 def _bank_candidates(
     bank: ClusterBank,
     queries: torch.Tensor,
@@ -328,9 +342,7 @@ def _rescore_provisional(
         k=k,
         out_ids=prov_rows,
     )
-    flat_gids = gids.reshape(-1)
-    ids = torch.where(rows >= 0, flat_gids[torch.clamp(rows, min=0).to(torch.int64)], -1)
-    return TopK(ids=ids.to(torch.int32), scores=scores)
+    return TopK(ids=_row_gids(gids, rows), scores=scores)
 
 
 def _verify_bank_rows(
@@ -390,6 +402,12 @@ def incluster_search(
             raise ValueError("prune_margin needs cid_scores (layer-1 scores)")
         cids = prune_probes(cids, cid_scores, prune_margin)
     bank = params.bank
+    if bank.rescore_tier == "host":
+        raise ValueError(
+            "incluster_search cannot complete on a host-tier bank: the rescore "
+            "table is off the device; use search_lider (the staged fetch -> "
+            "rescore search) or provisional_rows + rescore_fetched_rows"
+        )
     b, p = cids.shape
     flat_emb, gids = _bank_candidates(bank, queries, cids, k=k, r0=r0, refine=refine)
     kw = dict(k=k, rescore_factor=rescore_factor, sketch_factor=sketch_factor)
@@ -428,6 +446,127 @@ def _search_lider_device(
         rescore_factor=rescore_factor, sketch_factor=sketch_factor,
     )
     return (out, pruned) if with_stats else out
+
+
+# ---------------------------------------------------------------------------
+# Tiered search (host-resident rescore table): three explicit stages
+# ---------------------------------------------------------------------------
+
+
+def provisional_rows(
+    params: LiderParams,
+    queries: torch.Tensor,
+    cids: torch.Tensor,
+    *,
+    k: int,
+    r0: int = 4,
+    refine: bool = False,
+    merge: bool = True,
+    rescore_factor: int = 4,
+    sketch_factor: int | None = None,
+) -> TopK:
+    """Stage 1 of the tiered search: the first pass over the codes only.
+
+    The same candidates and first pass as the device tier's quantized
+    search, stopped at the provisional top-``k' = rescore_factor * k``:
+    ``ids`` are flat bank rows (-1 padding) and ``scores`` code-domain
+    scores. ``merge=False`` keeps the (B, P, k') per-(query, probe) shape.
+    """
+    bank = params.bank
+    if not bank.quantized:
+        raise ValueError("provisional_rows needs a quantized (int8/int4) bank")
+    b, p = cids.shape
+    flat_emb, gids = _bank_candidates(bank, queries, cids, k=k, r0=r0, refine=refine)
+    if merge:
+        fr, og, q = flat_emb.reshape(b, -1), gids.reshape(b, -1), queries
+    else:
+        fr, og = flat_emb.reshape(b * p, -1), gids.reshape(b * p, -1)
+        q = queries[:, None, :].expand(b, p, queries.shape[-1]).reshape(b * p, -1)
+    out_rows = torch.where(og >= 0, fr, -1)
+    kp = min(max(rescore_factor, 1) * k, fr.shape[-1])
+    rows, sc = _provisional_topk(bank, fr, out_rows, q, kp=kp, sketch_factor=sketch_factor)
+    if not merge:
+        return TopK(ids=rows.reshape(b, p, kp), scores=sc.reshape(b, p, kp))
+    return TopK(ids=rows, scores=sc)
+
+
+def rescore_fetched_rows(
+    fetched: torch.Tensor, out_ids: torch.Tensor, queries: torch.Tensor, *, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 3 of the tiered search: the exact rescore over fetched rows.
+
+    ``fetched``: (B, k', d) float32 rows, on the device of ``queries``;
+    ``out_ids``: (B, k') the ids to dedup and report by (flat bank rows).
+    The same ``verify_topk_op`` as the device tier's rescore, with the
+    fetched block as its table and ``arange`` row ids, so scores and
+    tie-breaks are bit-identical to scoring the resident table.
+    """
+    b, kp, d = fetched.shape
+    row_ids = torch.arange(b * kp, dtype=torch.int32, device=fetched.device).reshape(b, kp)
+    return verify_topk_op(fetched.reshape(b * kp, d), row_ids, queries, k=k, out_ids=out_ids)
+
+
+def host_first_pass(
+    params: LiderParams,
+    queries: torch.Tensor,
+    *,
+    k: int,
+    n_probe: int = 20,
+    r0: int = 4,
+    r0_centroid: int = 4,
+    refine: bool = False,
+    prune_margin: float | None = None,
+    rescore_factor: int = 4,
+    sketch_factor: int | None = None,
+) -> tuple[TopK, torch.Tensor]:
+    """Route, prune, then :func:`provisional_rows` -> ``(prov, pruned (B,
+    P))``, ``prov`` the provisional top-k' (flat rows, code-domain scores).
+    Nothing here waits for the device, so a caller can fetch an earlier
+    batch's rows while this one runs (the serving engine's pipeline)."""
+    cids, pruned = _route_pruned(
+        params, queries, n_probe=n_probe, r0_centroid=r0_centroid, prune_margin=prune_margin
+    )
+    prov = provisional_rows(
+        params, queries, cids, k=k, r0=r0, refine=refine,
+        rescore_factor=rescore_factor, sketch_factor=sketch_factor,
+    )
+    return prov, pruned
+
+
+def host_fetch(params: LiderParams, prov_rows, *, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Stage 2 of the tiered search: gather the provisional rows' float32
+    rows from the host store, into ``out`` (a CPU buffer) when given. Rows
+    on the card are copied to the host first, which waits for them."""
+    return params.bank.store.fetch(prov_rows, out=out)
+
+
+def host_rescore(
+    gids: torch.Tensor,
+    fetched: torch.Tensor,
+    prov_rows: torch.Tensor,
+    queries: torch.Tensor,
+    *,
+    k: int,
+) -> TopK:
+    """Stage 3: :func:`rescore_fetched_rows` (``fetched`` moved to the
+    queries' device if it is not there), deduped by flat row as on the
+    device tier, then rows mapped to global ids through ``gids``."""
+    rows, scores = rescore_fetched_rows(fetched.to(queries.device), prov_rows, queries, k=k)
+    return TopK(ids=_row_gids(gids, rows), scores=scores)
+
+
+def compressed_only_topk(gids: torch.Tensor, prov: TopK, *, k: int) -> TopK:
+    """The degraded answer from stage 1 alone (no fetch, no rescore): the
+    provisional top-k' is sorted and deduped by flat row already, so its
+    first ``k`` entries, mapped to global ids, are the int8/int4 first
+    pass's answer."""
+    return TopK(ids=_row_gids(gids, prov.ids[..., :k]), scores=prov.scores[..., :k])
+
+
+def _row_gids(gids: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Flat bank rows -> global ids (-1 stays -1)."""
+    flat = gids.reshape(-1)[torch.clamp(rows, min=0).to(torch.int64)]
+    return torch.where(rows >= 0, flat, -1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -607,7 +746,8 @@ def _search_lider_cluster_major(
     block_q: int,
     sketch_factor: int | None = None,
 ) -> TopK | tuple[TopK, torch.Tensor]:
-    """Route -> host schedule -> grouped first pass -> exact rescore."""
+    """Route -> host schedule -> grouped first pass -> exact rescore, from
+    the resident table or, on the host tier, from the fetched rows."""
     bank = params.bank
     if not bank.quantized:
         raise ValueError(
@@ -619,7 +759,10 @@ def _search_lider_cluster_major(
         refine=refine, prune_margin=prune_margin, rescore_factor=rescore_factor,
         block_q=block_q, sketch_factor=sketch_factor,
     )
-    out = _rescore_provisional(bank.gids, bank.rescore_embs, prov.ids, queries, k=k)
+    if bank.rescore_tier == "host":
+        out = host_rescore(bank.gids, host_fetch(params, prov.ids), prov.ids, queries, k=k)
+    else:
+        out = _rescore_provisional(bank.gids, bank.rescore_embs, prov.ids, queries, k=k)
     return (out, pruned) if with_stats else out
 
 
@@ -651,6 +794,11 @@ def search_lider(
     (quantized banks only: ``ValueError`` on a float bank). Both give the
     same ids and scores as the plain quantized search, bit for bit, when
     the sketch factor covers every candidate; ``block_q`` always does.
+
+    On a host-tier bank the search runs as three stages (first pass on the
+    card, host gather of the ``B * k'`` provisional rows, rescore of the
+    fetched block) and returns the device tier's ids and scores, bit for
+    bit.
     """
     queries = torch.as_tensor(queries, dtype=torch.float32, device=params.device)
     kw = dict(
@@ -658,8 +806,11 @@ def search_lider(
         prune_margin=prune_margin, with_stats=with_stats,
         rescore_factor=rescore_factor, sketch_factor=sketch_factor,
     )
-    if params.bank.rescore_tier == "host":
-        raise NotImplementedError("the host rescore tier is a later port slice")
     if block_q is not None:
         return _search_lider_cluster_major(params, queries, block_q=block_q, **kw)
+    if params.bank.rescore_tier == "host":
+        with_stats = kw.pop("with_stats")
+        prov, pruned = host_first_pass(params, queries, **kw)
+        out = host_rescore(params.bank.gids, host_fetch(params, prov.ids), prov.ids, queries, k=k)
+        return (out, pruned) if with_stats else out
     return _search_lider_device(params, queries, **kw)

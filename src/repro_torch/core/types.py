@@ -1,8 +1,8 @@
 """Plain dataclass helpers for the parameter containers of the port.
 
 The JAX package registers its containers as pytrees; here they are frozen
-dataclasses holding tensors, and :func:`map_tensors` is the one tree walk
-the port needs (moving an index between devices).
+dataclasses holding tensors: :func:`map_tensors` maps their tensors (moving
+an index between devices) and :func:`tensor_leaves` lists them.
 """
 from __future__ import annotations
 
@@ -10,6 +10,14 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+
+
+def tensor_leaves(obj: Any) -> list[torch.Tensor]:
+    """Every tensor inside nested dataclasses / named tuples, in field order."""
+    out: list[torch.Tensor] = []
+    map_tensors(lambda t: out.append(t) or t, obj)
+    return out
+
 
 def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], obj: Any) -> Any:
     """Apply ``fn`` to every tensor inside nested dataclasses / tuples."""

@@ -24,10 +24,14 @@ the same. JAX's ``.at[...].set(mode="drop")`` becomes an explicit mask of
 in-range targets; every argsort stays stable. Refits run in the build's
 fixed-size chunks (``bank.fit_chunks``), so a refit cluster is fitted bit
 for bit as a build fits it. Each call returns new tensors for what it
-changes and leaves the caller's index as it was.
+changes and leaves the caller's device tensors as they were.
 
-The host rescore tier is a later slice: its branches raise
-``NotImplementedError``.
+A host-tier index (``bank.EmbStore``) is written in lockstep: the upsert's
+appended rows and the compaction's repack go to the host table in place
+(an older index sharing the store sees them, as in the JAX package;
+``RetrievalEngine.apply_updates`` wraps them in a store transaction),
+growth is copy-on-grow, and the store's gid copy is re-synced after each
+call.
 """
 from __future__ import annotations
 
@@ -39,8 +43,6 @@ from . import bank as bank_lib
 from . import clustering
 from .bank import ClusterBank
 from .lider import LiderParams, padded_capacity, route_queries
-
-_HOST_TIER = "the host rescore tier is a later port slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +100,10 @@ def _refit_clusters(bank: ClusterBank, cids: torch.Tensor) -> ClusterBank:
 
 def _append_rows(
     bank: ClusterBank, new_embs: torch.Tensor, assignment: torch.Tensor
-) -> ClusterBank:
-    """Scatter ``new_embs`` into the free slot prefix of their clusters.
+) -> tuple[ClusterBank, torch.Tensor, torch.Tensor | None]:
+    """Scatter ``new_embs`` into the free slot prefix of their clusters;
+    returns ``(bank, flat slots written, the float32 rows written there)``
+    (rows None for a float bank), which a host store writes too.
 
     A point's slot is its cluster's occupied prefix (live + tombstoned)
     plus its rank among this batch's points of that cluster, in input
@@ -132,13 +136,14 @@ def _append_rows(
     extra = {}
     if bank.quantized:
         extra["emb_scales"] = put_rows(bank.emb_scales, scl)
-        extra["rescore_embs"] = put_rows(bank.rescore_embs, res)
+        if bank.rescore_embs is not None:  # the device tier; upsert writes a host store
+            extra["rescore_embs"] = put_rows(bank.rescore_embs, res)
         if bank.sketches is not None:
             # Sketches are row-local (signs of the raw row), so the append
             # keeps them byte-identical to a rebuild's sketch table.
             extra["sketches"] = put_rows(bank.sketches, sk)
     new_gids = (bank.next_gid.to(torch.int64) + rows).to(torch.int32)
-    return dataclasses.replace(
+    bank = dataclasses.replace(
         bank,
         gids=put_rows(bank.gids, new_gids),
         embs=put_rows(bank.embs, stored),
@@ -146,6 +151,7 @@ def _append_rows(
         next_gid=bank.next_gid + int(((a >= 0) & (a < c)).sum()),
         **extra,
     )
+    return bank, flat_slot, res
 
 
 def upsert(
@@ -164,8 +170,6 @@ def upsert(
     never refit. ``stats.capacity_grew`` says whether ``Lp`` changed.
     """
     bank = params.bank
-    if bank.store is not None:
-        raise NotImplementedError(_HOST_TIER)
     c = bank.n_clusters
     new_embs = torch.as_tensor(new_embs, dtype=torch.float32, device=params.device)
     if route == "exact":
@@ -181,7 +185,11 @@ def upsert(
     grew = needed > bank.capacity
     if grew:
         bank = bank_lib.grow_bank(bank, padded_capacity(needed, None, pad_multiple))
-    bank = _append_rows(bank, new_embs, assignment)
+    bank, flat_slot, raw_rows = _append_rows(bank, new_embs, assignment)
+    if bank.store is not None:
+        # The host tier takes the same rows at the same slots.
+        bank.store.write_rows(flat_slot, raw_rows)
+        bank.store.sync_gids(bank.gids)
     dirty = torch.unique(assignment.to(torch.int64))
     dirty = dirty[(dirty >= 0) & (dirty < c)]
     bank = _refit_clusters(bank, dirty)
@@ -259,14 +267,17 @@ def delete(
     ``refit_threshold`` are compacted at once; ``0.0`` compacts every
     touched cluster, ``1.0`` defers indefinitely. Capacity never changes.
     """
-    if params.bank.store is not None:
-        raise NotImplementedError(_HOST_TIER)
     gids = torch.as_tensor(gids, device=params.device)
     bank, n_dead = _tombstone(params.bank, gids)
     frac = tombstone_fraction(bank)
     to_compact = torch.nonzero((frac > refit_threshold) & (bank.tombstones > 0))[:, 0]
     if to_compact.numel():
+        if bank.store is not None:
+            # The same stable live-first order, from the same gid rows.
+            bank.store.compact_clusters(to_compact, bank.gids[to_compact])
         bank = _compact_clusters(bank, to_compact)
+    if bank.store is not None:
+        bank.store.sync_gids(bank.gids)
     stats = UpdateStats(
         n_deleted=int(n_dead.sum()),
         n_refit=int(to_compact.numel()),

@@ -20,8 +20,12 @@ checkpoints (``save`` / ``restore``) are a later slice.
 the sign sketches of a quantized index, which stay 32-bit words (int32 bit
 patterns). int8 / int4 indexes bring ``bank__emb_scales``,
 ``bank__rescore_embs`` and ``bank__sketches`` (recomputed from the rescore
-table when a checkpoint predates the sketch tier). Host-tier indexes are a
-later slice and raise ``NotImplementedError``.
+table when a checkpoint predates the sketch tier).
+
+The format does not depend on the rescore tier: a host-tier index saves its
+host table under the same leaf name, ``bank__rescore_embs``, so a save of
+either tier loads as either tier (``load_index(rescore_tier=...)``; the
+default is the tier it was saved from), in both packages.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import faults
-from ..core.bank import QUANTIZED_DTYPES, ClusterBank
+from ..core.bank import QUANTIZED_DTYPES, RESCORE_TIERS, ClusterBank, EmbStore
 from ..core.core_model import CoreModelParams
 from ..core.lider import LiderParams
 from ..core.lsh import LSHParams
@@ -118,7 +122,9 @@ def _leaf_array(name: str, t: torch.Tensor) -> tuple[np.ndarray, str | None]:
 
 def index_leaves(params: LiderParams):
     """``(name, tensor)`` for every array leaf, in the order (and with the
-    names) of the JAX package's tree flattening of its ``LiderParams``."""
+    names) of the JAX package's tree flattening of its ``LiderParams``; a
+    host-tier index's host table comes last, as ``bank__rescore_embs``,
+    where the JAX package's ``save_index`` writes it."""
 
     def rescale(prefix, p):
         return [(f"{prefix}__rescale__{f}", getattr(p, f)) for f in ("key_min", "key_max", "length")]
@@ -137,6 +143,8 @@ def index_leaves(params: LiderParams):
               "emb_scales", "rescore_embs", "sketches"):
         if getattr(b, f) is not None:
             out.append((f"bank__{f}", getattr(b, f)))
+    if b.store is not None:
+        out.append(("bank__rescore_embs", b.store.rescore))
     return out
 
 
@@ -162,8 +170,6 @@ def save_index(directory: str, params: LiderParams) -> str:
     fault site fires before the swap (``truncate``, ``torn_write``; the
     latter then raises ``faults.InjectedFault`` inside the swap window).
     """
-    if params.bank.store is not None:
-        raise NotImplementedError("host-tier indexes are a later port slice")
     os.makedirs(directory, exist_ok=True)
     sweep_orphan_tmp(directory)
     final = os.path.join(directory, INDEX_DIRNAME)
@@ -232,13 +238,23 @@ def read_index_dir(d: str) -> tuple[dict[str, np.ndarray], dict]:
 
 
 def params_from_numpy(
-    leaves: dict[str, np.ndarray], meta: dict, device: str | torch.device
+    leaves: dict[str, np.ndarray],
+    meta: dict,
+    device: str | torch.device,
+    rescore_tier: str | None = None,
 ) -> LiderParams:
-    """Assemble ``LiderParams`` on ``device`` from named numpy leaves."""
+    """Assemble ``LiderParams`` on ``device`` from named numpy leaves, the
+    rescore table on ``rescore_tier`` (default: the meta's)."""
     storage = meta.get("storage_dtype", "float32")
     quantized = storage in QUANTIZED_DTYPES
-    if meta.get("rescore_tier", "device") != "device":
-        raise NotImplementedError("host-tier indexes are a later port slice")
+    tier = rescore_tier or meta.get("rescore_tier", "device")
+    if tier not in RESCORE_TIERS:
+        raise ValueError(f"rescore_tier must be one of {RESCORE_TIERS}, got {tier!r}")
+    if tier == "host" and not quantized:
+        raise ValueError(
+            "rescore_tier='host' requires a quantized (int8/int4) index "
+            "(float banks have no rescore table)"
+        )
 
     def leaf(*path: str) -> torch.Tensor:
         arr = leaves["__".join(path)]
@@ -284,10 +300,13 @@ def params_from_numpy(
         sorted_keys=leaf("centroid_cm", "sorted_keys"),
         sorted_ids=leaf("centroid_cm", "sorted_ids"),
     )
-    emb_scales = rescore = sketches = None
+    emb_scales = rescore = sketches = store = None
     if quantized:
         emb_scales = leaf("bank", "emb_scales")
-        rescore = leaf("bank", "rescore_embs")
+        if tier == "host":
+            store = EmbStore(leaves["bank__rescore_embs"], gids=leaves["bank__gids"])
+        else:
+            rescore = leaf("bank", "rescore_embs")
         if "bank__sketches" in leaves:
             # uint32 words kept as int32 bit patterns (not widened to int64).
             sk = np.ascontiguousarray(leaves["bank__sketches"]).view(np.int32)
@@ -296,7 +315,8 @@ def params_from_numpy(
             # A checkpoint from before the sketch tier: the sketches are a
             # function of the raw rows, which the rescore table holds, so
             # recomputing them is byte-exact.
-            sketches = quant.sketch_rows(rescore)
+            raw = rescore if store is None else store.rescore
+            sketches = quant.sketch_rows(raw).to(device)
     bank = ClusterBank(
         lsh=lsh_of(("bank", "lsh"), meta["in_lsh"]),
         rescale=rescale_of(("bank", "rescale")),
@@ -311,16 +331,24 @@ def params_from_numpy(
         emb_scales=emb_scales,
         rescore_embs=rescore,
         sketches=sketches,
+        store=store,
         code_dtype=storage if quantized else "int8",
     )
     return LiderParams(centroid_cm=centroid_cm, centroids=leaf("centroids"), bank=bank)
 
 
 def load_index(
-    directory: str, *, device: str | torch.device | None = None
+    directory: str,
+    *,
+    device: str | torch.device | None = None,
+    rescore_tier: str | None = None,
 ) -> LiderParams:
-    """Load an index saved by the JAX package's ``save_index`` onto
-    ``device`` (``None`` = the CUDA device; raises without one).
+    """Load an index saved by the JAX package's ``save_index`` (or this
+    one's) onto ``device`` (``None`` = the CUDA device; raises without one).
+
+    ``rescore_tier`` puts the rescore table of a quantized index on the
+    ``device`` or the ``host`` tier; by default on the tier it was saved
+    from. A float index has no host tier (``ValueError``).
 
     ``directory`` is the save root (holding ``index/``) or the index
     directory itself. A leaf that fails its CRC32 raises
@@ -338,4 +366,4 @@ def load_index(
         if not os.path.isdir(old):
             raise
         leaves, meta = read_index_dir(old)
-    return params_from_numpy(leaves, meta, device)
+    return params_from_numpy(leaves, meta, device, rescore_tier)

@@ -29,6 +29,7 @@ from repro_torch.core import lider
 from repro_torch.core.baselines import flat_search
 from repro_torch.core.utils import recall_at_k
 from repro_torch.data import synthetic
+from repro_torch.serving import make_backend
 from repro_torch.testing import assert_topk_match
 from repro_torch.training import checkpoint
 
@@ -133,16 +134,19 @@ def test_no_card_and_no_device_raises(monkeypatch):
 
 def test_later_slices_raise_not_implemented(port_index, jax_index, tmp_path):
     """What the port still refuses, or treats as the JAX package does: the
-    host rescore tier raises ``NotImplementedError`` (build and load);
-    ``block_q`` on a float bank raises ``ValueError``, as in JAX;
-    ``sketch_factor`` on a float bank (no sketches) is a no-op."""
+    baselines of a later slice raise ``NotImplementedError`` as serving
+    backends; the host rescore tier on a float bank raises ``ValueError``
+    (build and load), as in JAX; ``block_q`` on a float bank raises
+    ``ValueError``, as in JAX; ``sketch_factor`` on a float bank (no
+    sketches) is a no-op."""
     _, q, _, _ = jax_index
-    with pytest.raises(NotImplementedError, match="host"):
+    with pytest.raises(NotImplementedError, match="remaining baselines"):
+        make_backend("pq", None)
+    with pytest.raises(ValueError, match="int8"):
         lider.build_lider(0, np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32),
-                          lider.LiderConfig(n_clusters=4, storage_dtype="int8", rescore_tier="host"),
-                          device="cpu")
+                          lider.LiderConfig(n_clusters=4, rescore_tier="host"), device="cpu")
     leaves, meta = checkpoint.read_index_dir(os.path.join(jax_index[3], "index"))
-    with pytest.raises(NotImplementedError, match="host"):
+    with pytest.raises(ValueError, match="int8"):
         checkpoint.params_from_numpy(leaves, dict(meta, rescore_tier="host"), "cpu")
     with pytest.raises(ValueError, match="quantized"):
         lider.search_lider(port_index, q, k=K, n_probe=4, block_q=8)

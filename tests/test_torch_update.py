@@ -242,14 +242,23 @@ def test_deleted_ids_never_surface(corpus, threshold):
 
 
 def test_update_refuses_the_host_tier_and_a_bad_route(base_pair, corpus):
-    _, _, tp = base_pair
+    """A bad route raises; a float bank refuses the host tier (it has no
+    rescore table, as in JAX); a quantized bank on the host tier takes the
+    same upsert, delete and growth as on the device tier, its host table
+    equal to the device tier's rescore rows (``test_torch_tiered.py`` holds
+    the host tier against JAX)."""
+    sd, _, tp = base_pair
     x, _ = corpus
     with pytest.raises(ValueError, match="route"):
         update.upsert(tp, x[:4], route="nearest")
-    host = dataclasses.replace(tp, bank=dataclasses.replace(tp.bank, store=object()))
-    with pytest.raises(NotImplementedError, match="host"):
-        update.upsert(host, x[:4])
-    with pytest.raises(NotImplementedError, match="host"):
-        update.delete(host, [0])
-    with pytest.raises(NotImplementedError, match="host"):
-        bank.grow_bank(host.bank, tp.capacity + 8)
+    if sd == "float32":
+        with pytest.raises(ValueError, match="int8"):
+            lider.set_rescore_tier(tp, "host")
+        return
+    host = lider.set_rescore_tier(tp, "host")
+    for step in (lambda p: update.upsert(p, x[N_BASE:])[0],
+                 lambda p: update.delete(p, list(range(0, 400, 3)), refit_threshold=0.0)[0],
+                 lambda p: dataclasses.replace(p, bank=bank.grow_bank(p.bank, p.capacity + 8))):
+        tp, host = step(tp), step(host)
+        assert torch.equal(host.bank.store.rescore, tp.bank.rescore_embs)
+        assert torch.equal(host.bank.store.gids, tp.bank.gids)
