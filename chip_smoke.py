@@ -38,7 +38,9 @@ Phases, each printing its lines; any failure exits non-zero:
                product, run to show the check can fail, must exceed it),
                duplicate-centroid ties exact, and each row's key and
                assignment the same alone, in a large batch and at another
-               offset.
+               offset. Then the baselines' shapes: ``lsh_hash`` at H = 24
+               arrays of M = 20 bits, ``kmeans_assign`` on a d = 96 column
+               slice against c = 256 and at c = 1,024, d = 768.
 4. main      — the ``lider-msmarco`` configuration (1,048,576 x 768
                synthetic corpus, float32 bank): ``build_lider`` through
                both build kernels, three times. The first build of the
@@ -112,7 +114,27 @@ Phases, each printing its lines; any failure exits non-zero:
                ``compressed_only_topk``, degraded); a host-tier checkpoint
                at full width loaded on both tiers (every leaf and the
                search identical).
-8. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
+8. fabric    — a ``QueryRouter`` over two replicas of the serve phase's
+               host-tier int8 index (replica 1 a ``clone_params``: device
+               leaves shared, host store copied), each engine on its own
+               stream: 16 x 256 queries == one engine == ``search_lider``
+               bit for bit, with the launches of 16 batches counted across
+               the pool threads; router and one engine's queries/s,
+               request p50 / p99 and availability side by side; a
+               ``replica_kill`` mid-trace, a straggler hedged at the 0.95
+               quantile, and a rolling 1% upsert under traffic (every
+               answer == a fresh search at its generation).
+9. cli       — ``repro_torch.launch.serve.main`` in this process at d = 768,
+               N = 1,048,576, 4,096 queries, k = 100: LIDER int8 on the
+               host tier through two replicas with a rolling upsert and an
+               autotuned point, LIDER int4 with the sketch pass and the
+               cluster-major schedule, then Flat, PQ, IVF-PQ, SK-LSH and
+               MP-LSH. Every query answered, recall@100 over the floor
+               (Flat 1.0), launches counted (exact for the baselines); the
+               baselines' ``lsh_hash`` and ``kmeans_assign`` calls held
+               against their plain versions and timed beside their bounds;
+               IVF-PQ's two k-means, Lloyd step by Lloyd step, by stage.
+10. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
                path's centroids frozen and the capacity fixed from the full
                assignment: build on 80%, upsert 20% in 4 batches, equal bit
                for bit to a rebuild over 100% (bank and search ids); delete
@@ -120,7 +142,8 @@ Phases, each printing its lines; any failure exits non-zero:
                survivors, deleted ids never surfacing; ``save_index`` then
                ``load_index``, every leaf and the search ids identical;
                small int8 and int4 indexes through upsert == rebuild.
-9. kernels   — one JSON line with an entry per kernel.
+11. kernels  — one JSON line with an entry per kernel (the build kernels'
+               calls include the baselines' shapes).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -731,6 +754,45 @@ def phase_parity_build(dev) -> float:
             raise AssertionError(f"rows {s}:{e} hash or assign differently from the same rows in a batch")
     log("parity", "row determinism: rows of a 20,000 x 768 batch hashed and assigned alone, at "
         "other offsets and in sub-batches: keys, assignments and distances identical bit for bit")
+    return max(worst, phase_parity_baselines(g, x))
+
+
+def phase_parity_baselines(g, x) -> float:
+    """The build kernels at the baselines' shapes, against their plain
+    versions with the rounding-bound checks: ``lsh_hash`` at the SK-LSH and
+    MP-LSH banks (H = 24 arrays of M = 20 bits, ``suggest_key_len`` at 1M
+    rows), ``kmeans_assign`` at PQ's sub-spaces (a d = 96 column slice of the
+    768-d rows, c = 256, through ``kmeans_assign_op`` as ``pq._encode``
+    calls it) and at IVF-PQ's coarse lists (c = 1,024 = sqrt(N) at 1M)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lsh_hash import lsh_hash
+    from repro_torch.kernels.ops import kmeans_assign_op
+    from repro_torch.testing import assignment_flips, lsh_key_flips
+
+    dev = x.device
+    p = torch.randn((x.shape[1], 24 * 20), generator=g, device=dev)
+    keys = lsh_hash(x, p, n_arrays=24, key_len=20)
+    torch.cuda.synchronize()
+    if keys.shape != (x.shape[0], 24) or not bool(((keys >= 0) & (keys < 2**20)).all()):
+        raise AssertionError("lsh_hash keys out of range at H=24, M=20")
+    r = lsh_key_flips(x, p, 24, 20, keys, ref.lsh_hash_ref(x, p, n_arrays=24, key_len=20))
+    msg = [f"lsh_hash at H=24, M=20 (N={x.shape[0]}, d={x.shape[1]}): {r['flips']} of {r['bits']} "
+           f"key bits differ, each within the rounding bound ({r['near']} near-ties)"]
+    worst = 0.0
+    for what, xs, c in (("PQ sub-space (column slice 288:384, d=96)", x[:, 288:384], 256),
+                        ("IVF-PQ coarse lists (d=768)", x, 1024)):
+        cen = torch.randn((c, xs.shape[1]), generator=g, device=dev)
+        got = kmeans_assign_op(xs, cen)
+        torch.cuda.synchronize()
+        xc = xs.contiguous()
+        want = plain_fns()["kmeans_assign"](xc, cen)
+        rep = assignment_flips(xc, cen, got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((got[1] - want[1]).abs().max()))
+        msg.append(f"kmeans_assign at {what}, c={c}: {rep['differ']} of {rep['rows']} assignments "
+                   f"differ, each a near-tie; "
+                   + hold_min_dist(min_dist_errors(xc, cen, got, want), f"parity {what}"))
+    log("parity", "the baselines' shapes: " + "; ".join(msg))
     return worst
 
 
@@ -2019,7 +2081,376 @@ def phase_serve(dev, main) -> dict:
         f"({size / 1e9:.2f} GB on disk); load_index as host {loads['host']:.2f} s, as device "
         f"{loads['device']:.2f} s; all {len(want)} leaves identical and search ids and scores "
         "identical on both tiers")
-    del ph8
+    # The fabric phase serves the same index and queries.
+    out["fabric_input"] = {"index": ph8, "pool": pool, "want": (want_ids, want_sc)}
+    return out
+
+
+def serve_closed(server, pool_np, *, max_dispatches=None):
+    """Submit every row of ``pool_np``, drain the server (an engine or a
+    router) until nothing is queued, and collect: (answers, wall seconds)."""
+    t0 = time.perf_counter()
+    rids = [server.submit(v) for v in pool_np]
+    while server.pending_requests:
+        server.drain(max_dispatches=max_dispatches)
+    wall = time.perf_counter() - t0
+    return [server.result(r) for r in rids], wall
+
+
+def answers_equal(res, want, rows=None) -> bool:
+    """Every answer is a ``QueryResult`` whose ids and scores equal row i
+    of ``want`` (or row ``rows[i]``), bit for bit."""
+    from repro_torch.serving import QueryResult
+
+    if not all(isinstance(r, QueryResult) for r in res):
+        return False
+    ids = torch.from_numpy(np.stack([r.ids for r in res]))
+    sc = torch.from_numpy(np.stack([r.scores for r in res]))
+    wi, ws = want
+    if rows is not None:
+        wi, ws = wi[rows], ws[rows]
+    return bit_equal((ids, sc), (wi, ws))
+
+
+def fleet_line(name: str, res, wall: float, stats) -> str:
+    lat = np.array([r.latency_s for r in res if hasattr(r, "latency_s")]) * 1e3
+    return (f"{name}: {len(res)} queries in {wall:.3f} s, {len(res) / wall:.0f} queries/s; request "
+            f"latency p50 {np.quantile(lat, 0.5):.3f} ms, p99 {np.quantile(lat, 0.99):.3f} ms; "
+            f"availability {getattr(stats, 'availability', 1.0):.4f}")
+
+
+def phase_fabric(dev, main, fabric_input) -> dict:
+    """The replica fabric at full width: a ``QueryRouter`` over two replicas
+    of the serve phase's host-tier int8 index (replica 1 a ``clone_params``:
+    device leaves shared, the host store copied) on one card, each replica
+    on its engine's own stream. Gates: the closed loop through the router ==
+    one engine == ``search_lider``, bit for bit, with the launches of that
+    many batches counted across the pool threads; a replica killed
+    mid-trace (every request answered or shed, answers bit-equal, the
+    killed replica never serving again); a straggling replica hedged (some
+    hedge wins, answers bit-equal); a rolling 1% upsert through
+    ``RouterControl.apply_updates`` (nothing shed, every answer == a fresh
+    search at its generation, launches per batch as the device tier's)."""
+    from repro_torch import faults
+    from repro_torch.configs.lider_msmarco import CONFIG, SERVING
+    from repro_torch.core import clustering, lider, update
+    from repro_torch.serving import QueryRouter, RouterConfig, Shed, clone_params
+
+    ph8, pool, want = fabric_input["index"], fabric_input["pool"], fabric_input["want"]
+    n_closed = SERVING.closed_loop_batches * SERVING.batch
+    pool_np = pool[:n_closed].cpu().numpy()
+    q8 = per_batch("Q8")
+    out = {}
+    gc.collect()
+    clone, t_clone = host_ms(lambda: clone_params(ph8))
+    if clone.bank.store is ph8.bank.store or clone.bank.gids is not ph8.bank.gids:
+        raise AssertionError("clone_params must copy the host store and share the device leaves")
+    log("fabric", f"clone_params of the host-tier int8 index: {t_clone / 1e3:.2f} s, "
+        f"{clone.bank.store.nbytes / 1e9:.3f} GB of host memory copied, device leaves shared")
+    e0, e1 = make_engine(ph8), make_engine(clone)
+
+    def router(**kw):
+        r = QueryRouter([e0, e1], scheduler=SERVING.scheduler, **kw)
+        r.warmup()
+        return r
+
+    # 1. One engine, then the router (no hedging: every batch dispatched
+    # once), over the same closed loop; launches counted across the threads.
+    single = make_engine(ph8)
+    single.warmup()
+    reset_counts()
+    res, wall = serve_closed(single, pool_np)
+    counts1 = read_counts()
+    if not answers_equal(res, want):
+        raise AssertionError("fabric: one engine's answers differ from search_lider")
+    line1 = fleet_line("one engine (pipelined drain)", res, wall, None)
+    out["single"] = {"qps": len(res) / wall, "wall_s": wall}
+    out["single"].update(p50_ms=single.stats.latency_quantile(0.5) * 1e3,
+                         p99_ms=single.stats.latency_quantile(0.99) * 1e3)
+    del single
+    r = router(config=RouterConfig(hedge_quantile=None))
+    reset_counts()
+    res, wall = serve_closed(r, pool_np)
+    counts = read_counts()
+    r.close()
+    n_b = SERVING.closed_loop_batches
+    if counts != counts1 or counts != tuple(n_b * v for v in q8):
+        raise AssertionError(f"fabric: router launches {counts}, one engine {counts1}, expected "
+                             f"{tuple(n_b * v for v in q8)}")
+    if not answers_equal(res, want) or {a.replica for a in res} != {"r0", "r1"}:
+        raise AssertionError("fabric: the router's answers differ from one engine's")
+    rs = r.stats
+    out["router"] = {"qps": len(res) / wall, "wall_s": wall, "p50_ms": rs.latency_quantile(0.5) * 1e3,
+                     "p99_ms": rs.latency_quantile(0.99) * 1e3, "availability": rs.availability}
+    log("fabric", line1 + f"; launches {fmt_counts(counts1)}")
+    log("fabric", fleet_line("router over 2 replicas (no hedging)", res, wall, rs)
+        + f"; launches {fmt_counts(counts)} across the pool threads ({n_b} x {q8}, as one engine); "
+        f"every answer == one engine's == search_lider, ids and scores bit for bit; batches per "
+        f"replica r0 {r.replicas.get('r0').n_dispatches}, r1 {r.replicas.get('r1').n_dispatches}")
+
+    # 2. A replica killed mid-trace (at the fourth drain call, one batch a call).
+    plan = faults.FaultPlan([faults.FaultSpec("replica_kill", mode="kill_replica", times=(3,),
+                                              payload={"replica": "r1"})])
+    r = router(fault_plan=plan)
+    res, wall = serve_closed(r, pool_np, max_dispatches=1)
+    r.close()
+    r1 = r.replicas.get("r1")
+    answered = [i for i, a in enumerate(res) if not isinstance(a, Shed)]
+    late = [i for i in answered if res[i].replica == "r1" and i >= 3 * SERVING.batch]
+    if (r.stats.n_replica_kills != 1 or not (r1.killed and r1.state == "dead") or late
+            or not all(hasattr(a, "ids") or isinstance(a, Shed) for a in res)
+            or not answers_equal([res[i] for i in answered], want, answered)):
+        raise AssertionError(f"fabric: replica kill: kills {r.stats.n_replica_kills}, r1 state "
+                             f"{r1.state}, answers by r1 after the kill {len(late)}")
+    out["kill"] = {"answered": len(answered), "shed": len(res) - len(answered),
+                   "availability": r.stats.availability}
+    log("fabric", f"replica_kill of r1 at the 4th drain call: {len(answered)} of {len(res)} "
+        f"requests answered, {len(res) - len(answered)} shed structurally; failovers "
+        f"{r.stats.n_failovers}; every answer bit-equal; r1 dead, never reprobed, served nothing "
+        f"after the kill; " + fleet_line("router", res, wall, r.stats))
+
+    # 3. A straggling replica, hedged at the 0.95 quantile of batch times.
+    plan = faults.FaultPlan([faults.FaultSpec(
+        "replica_dispatch", mode="straggle", times=tuple(range(16, 26)), delay_s=0.3,
+        payload={"replica": "r0"})])
+    r = router(config=RouterConfig(hedge_quantile=0.95), fault_plan=plan)
+    res, wall = serve_closed(r, np.concatenate([pool_np, pool_np]))
+    r.close()
+    rs = r.stats
+    if rs.n_hedge_wins < 1 or not answers_equal(res, (torch.cat([want[0]] * 2), torch.cat([want[1]] * 2))):
+        raise AssertionError(f"fabric: straggle: hedges {rs.n_hedges}, wins {rs.n_hedge_wins}")
+    out["hedge"] = {"hedges": rs.n_hedges, "wins": rs.n_hedge_wins, "losses": rs.n_hedge_losses,
+                    "p99_ms": rs.latency_quantile(0.99) * 1e3}
+    log("fabric", f"straggle of 0.3 s on r0 at dispatches 16-25, hedge_quantile 0.95: "
+        f"{rs.n_hedges} hedges, {rs.n_hedge_wins} won, {rs.n_hedge_losses} lost; every answer "
+        "bit-equal; " + fleet_line("router", res, wall, rs))
+    del e0, e1, r, clone, ph8, fabric_input["index"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. A rolling 1% upsert under traffic (the serve phase's update scenario).
+    cfg = CONFIG.lider
+    corpus, cen = main["corpus"], main["centroids"]
+    n = corpus.shape[0]
+    n_base = int(n * (1 - SERVING.held_out_fraction))
+    assign, _ = clustering.assign_chunked(corpus, cen)
+    cap = lider.padded_capacity(
+        int(torch.bincount(assign.long(), minlength=cfg.n_clusters).max()), None, cfg.pad_multiple)
+    pd99 = lider.build_lider(SEED, corpus[:n_base], dataclasses.replace(
+        cfg, storage_dtype="int8", capacity=cap), centroids=cen, device=dev)
+    upsert = lambda p: update.upsert(p, corpus[n_base:], pad_multiple=cfg.pad_multiple, route="exact")
+    pool_t = pool[:n_closed]
+    gens = {0: serve_batches(pd99, pool_t)}
+    pd_up, _ = upsert(pd99)
+    gens[1] = serve_batches(pd_up, pool_t)
+    del pd_up
+    ph99 = lider.set_rescore_tier(pd99, "host")
+    del pd99
+    r = QueryRouter([make_engine(ph99), make_engine(clone_params(ph99))],
+                    config=RouterConfig(hedge_quantile=None), scheduler=SERVING.scheduler)
+    r.warmup()
+    half = n_closed // 2
+    rids = [r.submit(v) for v in pool_np[:half]]
+    t0 = time.perf_counter()
+    r.control.apply_updates(upsert, block=False)
+    rids += [r.submit(v) for v in pool_np[half:]]
+    while r.pending_requests:
+        r.drain()
+    r.control.wait(timeout=600.0)
+    t_roll = time.perf_counter() - t0
+    res = [r.result(i) for i in rids]
+    by_gen = {g: [i for i, a in enumerate(res) if getattr(a, "generation", None) == g] for g in gens}
+    ok = (all(hasattr(a, "ids") for a in res) and r.stats.n_shed == 0
+          and sum(len(v) for v in by_gen.values()) == len(res)
+          and all(answers_equal([res[i] for i in v], gens[g], v) for g, v in by_gen.items() if v))
+    if (not ok or r.stats.n_rolls_completed != 1 or r.stats.n_roll_replicas_updated != 2
+            or r.generation_window() != (1, 1) or r.stats.n_wrong_generation):
+        raise AssertionError(f"fabric: rolling update: {r.stats_dict()}")
+    reset_counts()
+    res2, _ = serve_closed(r, pool_np)
+    counts = read_counts()
+    r.close()
+    if counts != tuple(n_b * v for v in q8) or not answers_equal(res2, gens[1]):
+        raise AssertionError(f"fabric: after the roll, launches {counts} or answers differ")
+    out["roll"] = {"seconds": t_roll, "gen0": len(by_gen[0]), "gen1": len(by_gen[1])}
+    log("fabric", f"rolling upsert of {n - n_base} passages under traffic in {t_roll:.3f} s: "
+        f"{len(by_gen[0])} answers at generation 0 and {len(by_gen[1])} at generation 1, each == "
+        f"a fresh search_lider at its generation, ids and scores bit for bit; none shed, wrong "
+        f"generation 0, window (1, 1); after it {n_b} batches launched {fmt_counts(counts)} "
+        f"({q8} a batch, the device tier's)")
+    del r, ph99
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# The serve CLI's runs at the lider-msmarco widths, in the order run.
+CLI_COMMON = ["--corpus-size", "1048576", "--dim", "768", "--n-clusters", "1024", "--n-probe", "20",
+              "--batch-size", "256", "--k", "100", "--queries", "4096"]
+CLI_RUNS = [  # (name, backend flags, recall@100 floor)
+    ("lider-int8-host-x2", ["--backend", "lider", "--storage-dtype", "int8", "--rescore-tier", "host",
+                            "--replicas", "2", "--rolling-update", "--update-fraction", "0.01",
+                            "--recall-target", "0.6"], RECALL_FLOOR),
+    ("lider-int4-sk-cm", ["--backend", "lider", "--storage-dtype", "int4", "--sketch-factor", "4",
+                          "--block-q", "8"], RECALL_FLOOR),
+    ("flat", ["--backend", "flat"], 1.0),
+    # The baselines' floor only catches garbage: random answers give k/N = 1e-4.
+    ("pq", ["--backend", "pq"], 0.01),
+    ("ivfpq", ["--backend", "ivfpq"], 0.01),
+    ("sklsh", ["--backend", "sklsh"], 0.01),
+    ("mplsh", ["--backend", "mplsh"], 0.01),
+]
+
+
+def cli_launches(name: str) -> tuple | None:
+    """Launches of a baseline's CLI run, from the code (KERNELS order):
+    PQ trains 8 sub-space codebooks (15 Lloyd steps and a final assignment
+    each) and encodes 8 sub-spaces; IVF-PQ adds the coarse k-means (16
+    calls); SK-LSH and MP-LSH hash the corpus once, the warm-up batch once
+    and each of the 16 batches once. ``kmeans_assign`` is two launches a
+    call. None: a LIDER run, whose reached kernels must be non-zero."""
+    from repro_torch.kernels.kmeans_assign import LAUNCHES_PER_CALL as KM
+
+    pq_calls = 8 * 16 + 8
+    return {"flat": (0, 0, 0, 0, 0), "pq": (0, 0, 0, 0, KM * pq_calls),
+            "ivfpq": (0, 0, 0, 0, KM * (16 + pq_calls)),
+            "sklsh": (0, 0, 0, hash_launches(18), 0),
+            "mplsh": (0, 0, 0, hash_launches(18), 0)}.get(name)
+
+
+def cli_role(name: str, args, kw, backend: str) -> str | None:
+    """The role of a build-kernel call of a baseline run, for the shapes
+    timed after it (None: not kept)."""
+    if backend == "pq" and name == "kmeans_assign":
+        return "PQ sub-space k-means step"
+    if backend == "ivfpq" and name == "kmeans_assign":
+        # The residual sub-spaces have 2**8 codewords; the coarse lists sqrt(N).
+        return "IVF-PQ residual sub-space step" if args[1].shape[0] == 256 else "IVF-PQ coarse k-means step"
+    if backend == "sklsh" and name == "lsh_hash":  # MP-LSH hashes at the same shapes
+        return f"SK-LSH {'corpus hash' if args[0].shape[0] > 4096 else 'query hash'}"
+    return None
+
+
+def lloyd_stages(g, x, n_clusters: int, iters: int = 15) -> dict:
+    """``clustering.kmeans``'s Lloyd steps one by one, each stage
+    synchronised and timed on the host clock (ms): the assignment
+    (``kmeans_assign``), the fixed-order sums, the counts, the update; and
+    each step's largest cluster (the fixed-order sums add a cluster's rows
+    one after another)."""
+    from repro_torch.core import clustering
+
+    cen = clustering.init_centroids(g, x, n_clusters)
+    rows = {"assign": [], "sums": [], "counts": [], "update": [], "largest": []}
+    for _ in range(iters + 1):
+        (a, _), t = host_ms(lambda: clustering.assign_chunked(x, cen))
+        rows["assign"].append(t)
+        idx = a.to(torch.int64)
+        sums, t = host_ms(lambda: clustering.cluster_sums(x, idx, n_clusters))
+        rows["sums"].append(t)
+        counts, t = host_ms(lambda: torch.bincount(idx, minlength=n_clusters).to(torch.float32))
+        rows["counts"].append(t)
+        rows["largest"].append(int(counts.max()))
+        cen, t = host_ms(lambda: clustering.update_centroids(cen, sums, counts))
+        rows["update"].append(t)
+    return rows
+
+
+def ivfpq_build_split(corpus) -> dict:
+    """Where IVF-PQ's build goes (the CLI's corpus, seed 0): the coarse
+    k-means (c = 1,024, d = 768) and one residual sub-space k-means (c =
+    256, the first d = 96 column slice), stage by stage."""
+    from repro_torch.core import clustering
+
+    g = torch.Generator(device=corpus.device).manual_seed(SEED)
+    km = clustering.kmeans(g, corpus, 1024, iters=15)
+    res = corpus - km.centroids[km.assignment.to(torch.int64)]
+    out = {}
+    for name, x, c in (("coarse k-means (c=1024, d=768)", corpus, 1024),
+                       ("residual sub-space k-means (c=256, d=96 column slice)", res[:, :96], 256)):
+        rows = lloyd_stages(g, x, c)
+        tot = {k: sum(v) for k, v in rows.items() if k != "largest"}
+        log("cli", f"IVF-PQ build, {name}: 16 Lloyd steps {sum(tot.values()):.1f} ms: assignment "
+            f"{tot['assign']:.1f}, fixed-order sums {tot['sums']:.1f}, counts {tot['counts']:.1f}, "
+            f"update {tot['update']:.1f} ms; largest cluster by step "
+            f"{', '.join(str(v) for v in rows['largest'])} of {x.shape[0]} rows")
+        out[name] = {**tot, "largest": rows["largest"]}
+    return out
+
+
+def phase_cli(dev, corpus) -> dict:
+    """``repro_torch.launch.serve.main`` in this process at the
+    lider-msmarco widths: LIDER on the host tier through a router over two
+    replicas with a rolling 1% upsert and an autotuned point; LIDER int4
+    with the sketch pass and the cluster-major schedule; then Flat, PQ,
+    IVF-PQ, SK-LSH and MP-LSH, all at N = 1,048,576. Gates: every run
+    answers every query, recall@100 over its floor (Flat: 1.0), launches
+    counted per run (exact for the baselines). The first call of each of
+    the baselines' kernel shapes is kept, then held against its plain
+    version and timed beside its bound (:func:`time_build_call`)."""
+    from repro_torch.launch import serve
+
+    out, shapes = {}, []
+    for name, flags, floor in CLI_RUNS:
+        backend = flags[1]
+        seen, calls = set(), []
+
+        def keep(kname, args, kw, backend=backend):
+            role = cli_role(kname, args, kw, backend)
+            if role is None or role in seen:
+                return False
+            seen.add(role)
+            return True
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with recording(calls, keep):
+            rec = serve.main(CLI_COMMON + flags)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = cli_launches(name)
+        reached = [k for k, c in zip(KERNELS, counts) if c]
+        if rec["n_answered"] != 4096 or rec["n_shed"] or rec["recall_at_k"] < floor:
+            raise AssertionError(f"cli {name}: answered {rec['n_answered']}, shed {rec['n_shed']}, "
+                                 f"recall {rec['recall_at_k']} (floor {floor})")
+        if floor == 1.0 and rec["recall_at_k"] != 1.0:
+            raise AssertionError(f"cli {name}: recall {rec['recall_at_k']}, not 1.0")
+        if want is not None and counts != want:
+            raise AssertionError(f"cli {name}: launches {counts}, expected {want}")
+        if want is None and not ({"fused_verify", "lsh_hash", "kmeans_assign"} <= set(reached)):
+            raise AssertionError(f"cli {name}: kernels reached {reached}")
+        if name == "lider-int4-sk-cm" and not {"sketch_prefilter", "fused_verify_grouped"} <= set(reached):
+            raise AssertionError(f"cli {name}: kernels reached {reached}")
+        router = rec["router"]
+        extra = ""
+        if router is not None:
+            if (router["availability"] != 1.0 or router["n_roll_replicas_updated"] != 2
+                    or router["generation_window"] != [1, 1] or router["n_wrong_generation"]):
+                raise AssertionError(f"cli {name}: router {router}")
+            extra = (f"; router availability {router['availability']:.4f}, request p50 "
+                     f"{router['p50_s'] * 1e3:.3f} ms, p99 {router['p99_s'] * 1e3:.3f} ms, rolling "
+                     f"upsert over {router['n_roll_replicas_updated']} replicas, generation window "
+                     f"{router['generation_window']}")
+        if rec["selected"] is not None:
+            sel = rec["selected"]
+            extra += (f"; autotuned n_probe {sel['n_probe']}, prune_margin {sel['prune_margin']} "
+                      f"(held-out recall {sel['recall']:.4f}, AQT {sel['aqt_s'] * 1e6:.1f} us)")
+        out[name] = {"build_s": rec["build_s"], "aqt_us": rec["aqt_s"] * 1e6,
+                     "recall": rec["recall_at_k"], "wall_s": wall, "launches": counts,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log("cli", f"{name}: build {rec['build_s']:.2f} s, {rec['n_queries']} queries, AQT "
+            f"{rec['aqt_s'] * 1e6:.3f} us, recall@100 vs Flat {rec['recall_at_k']:.4f} (floor "
+            f"{floor}); whole run {wall:.1f} s, peak device memory "
+            f"{out[name]['peak_gib']:.2f} GiB; launches {fmt_counts(counts)}"
+            + (" (as the code predicts)" if want is not None else "") + extra)
+        for kname, args, kw in calls:
+            role = cli_role(kname, args, kw, backend)
+            shapes.append(time_build_call(f"cli {name}", role, kname, args, kw, reps=5))
+        del rec, calls
+    out["shapes"] = shapes
+    out["ivfpq_split"] = ivfpq_build_split(corpus)
     return out
 
 
@@ -2284,6 +2715,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve = phase_serve(dev, main_res)
+    phase_fabric(dev, main_res, serve.pop("fabric_input"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_cli(dev, main_res["corpus"])
     gc.collect()
     torch.cuda.empty_cache()
     phase_lifecycle(dev, main_res)
@@ -2302,11 +2737,12 @@ def main() -> int:
         entry("fused_verify_grouped", by("fused_verify_grouped"),
               q8["paths"]["Q8-cm"]["launches"][2], by("fused_verify_grouped", "Q8-cm")),
         # lsh_hash: the main build (bank-fit chunks + the centroid model).
-        build_entry("lsh_hash", [c for c in build_calls if c["kernel"] == "lsh_hash"] + by("lsh_hash"),
-                    counts[3], timed),
+        # The calls list also holds the baselines' shapes (the cli phase).
+        build_entry("lsh_hash", [c for c in build_calls if c["kernel"] == "lsh_hash"] + by("lsh_hash")
+                    + [c for c in cli["shapes"] if c["kernel"] == "lsh_hash"], counts[3], timed),
         # kmeans_assign: the main build's k-means (Lloyd steps + the final assignment).
-        build_entry("kmeans_assign", [c for c in build_calls if c["kernel"] == "kmeans_assign"],
-                    counts[4], timed),
+        build_entry("kmeans_assign", [c for c in build_calls if c["kernel"] == "kmeans_assign"]
+                    + [c for c in cli["shapes"] if c["kernel"] == "kmeans_assign"], counts[4], timed),
     ]
     log("kernels", f"whole run {time.perf_counter() - t_start:.1f} s ({cfg.n_clusters} clusters: "
         f"{counts[3]} lsh_hash and {counts[4]} kmeans_assign launches in the main build)")

@@ -13,6 +13,26 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(n, min=eps)
 
 
+def stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top ``k`` of the last axis -> ``(values, indices)``, values
+    descending and equal values in index order: the order of
+    ``jax.lax.top_k``, which ``torch.topk`` does not promise. One
+    ``torch.topk`` finds the k-th value; of the values equal to it, the
+    first ones by index fill the k slots; a stable sort orders the k."""
+    c = scores.shape[-1]
+    k = min(k, c)
+    kth = torch.topk(scores, k, dim=-1).values[..., -1:]
+    above = scores > kth
+    tied = scores == kth
+    room = k - above.sum(dim=-1, keepdim=True)
+    take = above | (tied & (torch.cumsum(tied.to(torch.int32), dim=-1) <= room))
+    pos = torch.arange(c, device=scores.device).expand_as(scores)
+    idx = torch.topk(torch.where(take, pos, c), k, dim=-1, largest=False, sorted=True).values
+    vals = torch.gather(scores, -1, idx)
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return vals, torch.gather(idx, -1, order)
+
+
 def dedup_topk(
     ids: torch.Tensor, scores: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:

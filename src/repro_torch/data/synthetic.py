@@ -8,10 +8,17 @@ the same seed gives different data in the two packages.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.utils import l2_normalize
 from ..device import resolve_device
+
+
+def load_embeddings(path: str, *, device: str | torch.device | None = None) -> torch.Tensor:
+    """A ``.npy`` corpus (N, d), row-normalised, as float32 on ``device``."""
+    x = torch.from_numpy(np.load(path).astype(np.float32, copy=False))
+    return l2_normalize(x.to(resolve_device(device)))
 
 
 def retrieval_corpus(

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +26,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # a router's threads may ask for a library at once
 
 
 def sources() -> list[str]:
@@ -107,6 +109,17 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and ``dlopen`` the kernel library ``name``."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build(name)))
+                _loaded[name] = lib
     return lib
+
+
+def load_all() -> None:
+    """Build every source at once, then load every library: what a
+    multi-threaded caller runs first, so no thread builds or loads."""
+    build_all()
+    for name in sources():
+        load_library(name)

@@ -33,7 +33,8 @@ import torch
 
 from . import quant
 from .launch import I as _I, LL as _LL, P as _P
-from .launch import bind as _bind, check as _check, launch as _launch, on_cuda as _on_cuda
+from .launch import bind as _bind, check as _check, count as _count
+from .launch import launch as _launch, on_cuda as _on_cuda
 
 MAX_CHUNK = 4096  # candidates per block: its (row, id) hash set fits in shared memory
 MAX_SMEM_K = 4096  # above it, a query's top-k is merged in global memory (topk.cuh kMaxSmemK)
@@ -181,7 +182,7 @@ def fused_verify(
         b, c, chunk, n_chunks, k, ids.data_ptr(), scores.data_ptr(), _ptr(ws), _ptr(arrive),
         device=device,
     )
-    fused_verify.launches += 1
+    _count(fused_verify, 1)
     return ids, scores
 
 
@@ -232,7 +233,7 @@ def sketch_prefilter(
         out_ids.data_ptr(), q_sk.data_ptr(), b, c, chunk, n_chunks, k, ids.data_ptr(),
         scores.data_ptr(), _ptr(ws), _ptr(arrive), device=device,
     )
-    sketch_prefilter.launches += 1
+    _count(sketch_prefilter, 1)
     return ids, scores
 
 
@@ -291,7 +292,7 @@ def fused_verify_grouped(
         s_steps, block_q, kp, scratch.data_ptr(), ids.data_ptr(),
         scores.data_ptr(), device=device,
     )
-    fused_verify_grouped.launches += 2  # the score kernel, then the select kernel
+    _count(fused_verify_grouped, 2)  # the score kernel, then the select kernel
     return ids, scores
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .launch import I, LL, P, bind, check, launch, on_cuda, tma_rows
+from .launch import I, LL, P, bind, check, count, launch, on_cuda, tma_rows
 
 LAUNCHES_PER_CALL = 2  # the centroid-norm kernel, then the assignment kernel
 
@@ -51,7 +51,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> tuple[torch.Tenso
         "kmeans_assign", fn, x.data_ptr(), n, d, ld, centroids.data_ptr(), c,
         scratch.data_ptr(), assign.data_ptr(), min_d.data_ptr(), device=device,
     )
-    kmeans_assign.launches += LAUNCHES_PER_CALL
+    count(kmeans_assign, LAUNCHES_PER_CALL)
     return assign, min_d
 
 

@@ -1,10 +1,15 @@
 """What every kernel wrapper shares: binding a symbol of a built library
 with ``ctypes``, checking a tensor argument, refusing CPU tensors, laying
-out rows for a TMA tensor map, and launching on the current stream with the
-launch's error raised."""
+out rows for a TMA tensor map, launching on the current stream with the
+launch's error raised, and counting launches.
+
+A router launches from several threads at once, so binding and counting
+take a lock: a counter's ``+=`` is a read and a write, and two threads
+could lose a count between them."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -16,6 +21,7 @@ LL = ctypes.c_longlong
 
 
 _bound: dict = {}
+_lock = threading.Lock()
 
 
 def bind(library: str, symbol: str, argtypes, restype=ctypes.c_int):
@@ -23,11 +29,20 @@ def bind(library: str, symbol: str, argtypes, restype=ctypes.c_int):
     types declared once (a short launch's time is mostly the host's)."""
     fn = _bound.get((library, symbol))
     if fn is None:
-        fn = getattr(build.load_library(library), symbol)
-        fn.argtypes = argtypes
-        fn.restype = restype
-        _bound[(library, symbol)] = fn
+        with _lock:
+            fn = _bound.get((library, symbol))
+            if fn is None:
+                fn = getattr(build.load_library(library), symbol)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                _bound[(library, symbol)] = fn
     return fn
+
+
+def count(wrapper, n: int) -> None:
+    """Add ``n`` launches to ``wrapper.launches``, under the lock."""
+    with _lock:
+        wrapper.launches += n
 
 
 def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .launch import I, LL, P, bind, check, launch, on_cuda, tma_rows
+from .launch import I, LL, P, bind, check, count, launch, on_cuda, tma_rows
 
 MAX_KEY_LEN = 31  # keys stay non-negative in the kernel's int32 output
 LAUNCHES_PER_CALL = 1
@@ -49,7 +49,7 @@ def lsh_hash(x: torch.Tensor, proj: torch.Tensor, *, n_arrays: int, key_len: int
         "lsh_hash", fn, x.data_ptr(), int(x.dtype == torch.bfloat16), n, d, ld,
         proj.data_ptr(), ld_p, n_arrays, key_len, keys.data_ptr(), device=device,
     )
-    lsh_hash.launches += LAUNCHES_PER_CALL
+    count(lsh_hash, LAUNCHES_PER_CALL)
     return keys.to(torch.int64)
 
 

@@ -28,13 +28,23 @@ stream; the compute stream waits on that copy's event before the rescore,
 and a staging buffer is written again only after its copy's event has
 fired. On the CPU the same steps run synchronously on plain tensors.
 
-The ``lider`` and ``flat`` backends are ported; ``pq``, ``ivfpq``,
-``sklsh`` and ``mplsh`` wait for their baselines (ROADMAP queue 1, module
-1.6) and raise ``NotImplementedError``.
+Every backend of the JAX engine is here: ``lider``, ``flat``, ``pq``,
+``ivfpq``, ``sklsh`` and ``mplsh``. The JAX engine's ``use_fused`` and
+``block_c`` knobs are not: ``kernels.ops`` dispatches by device.
+
+On the card each engine owns a CUDA stream, made when the engine is, and
+runs every batch, warm-up and update on it, in whichever thread calls it
+(:meth:`RetrievalEngine._on_stream`). PyTorch's current stream belongs to a
+thread, so a router's pool threads would otherwise all launch on the
+device's default stream, and one replica's wait would also wait for the
+other's batch. The engine's stream first waits for the caller's stream
+(the params were built there), and the caller's stream waits for the
+engine's on the way out; the answers are the same on any stream.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import random
@@ -47,7 +57,7 @@ import torch
 
 from .. import faults
 from ..core import lider as lider_lib
-from ..core.baselines import flat_search
+from ..core.baselines import flat_search, ivfpq_search, mplsh_search, pq_search, sklsh_search
 from ..core.core_model import TopK
 from ..core.types import tensor_leaves
 from ..device import resolve_device
@@ -410,7 +420,6 @@ _BACKEND_KWARGS: dict[str, frozenset[str]] = {
     "sklsh": frozenset(),
     "mplsh": frozenset({"n_probe"}),
 }
-_NOT_PORTED = ("pq", "ivfpq", "sklsh", "mplsh")
 
 
 def make_backend(
@@ -419,8 +428,9 @@ def make_backend(
     """Uniform search closure over an index.
 
     ``device`` places the flat backend's table (``embs``): None means the
-    card, and raises when there is none (``device.resolve_device``); a
-    LIDER backend searches where its index lives.
+    card, and raises when there is none (``device.resolve_device``); every
+    other backend searches where its index lives (SK-LSH and MP-LSH score
+    their candidates against ``embs``, copied there).
 
     ``updatable=True`` (LIDER only) returns ``search(params, q, k)`` instead
     of closing over the index: pass the params to ``RetrievalEngine`` so
@@ -440,12 +450,6 @@ def make_backend(
         )
     if updatable and kind != "lider":
         raise ValueError(f"updatable backends require kind='lider', got {kind!r}")
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {kind!r} baseline is not ported yet (ROADMAP queue 1, module 1.6: "
-            "the remaining baselines)"
-        )
-
     if kind == "flat":
         table = torch.as_tensor(embs, dtype=torch.float32, device=resolve_device(device))
 
@@ -453,6 +457,20 @@ def make_backend(
             return flat_search(table, q, k=k)
 
         search.device = table.device
+        return search
+    if kind != "lider":
+        n_probe = kw.get("n_probe", 8)
+        if kind == "pq":
+            search = lambda q, k: pq_search(index, q, k=k)
+        elif kind == "ivfpq":
+            search = lambda q, k: ivfpq_search(index, q, k=k, n_probe=n_probe)
+        else:  # SK-LSH and MP-LSH score candidates against the corpus, kept with the index
+            table = torch.as_tensor(embs, dtype=torch.float32, device=index.device)
+            if kind == "sklsh":
+                search = lambda q, k: sklsh_search(index, table, q, k=k)
+            else:
+                search = lambda q, k: mplsh_search(index, table, q, k=k, n_probes=n_probe)
+        search.device = index.device
         return search
 
     def _effective(point):
@@ -608,7 +626,10 @@ class RetrievalEngine:
             max_queue=self.policy.max_queue,
         )
         self._pipeline_depth = PIPELINE_DEPTH
-        copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        cuda = self.device.type == "cuda"
+        # The engine's compute stream, used from any thread (_on_stream).
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
         self._slots = [_Slot(self.device, copy_stream) for _ in range(PIPELINE_DEPTH)]
         self._free_slots = list(self._slots)
         # Online block_q tuning (staged host-tier serving only): each
@@ -681,6 +702,23 @@ class RetrievalEngine:
             return out[0], out[1]
         return out, None
 
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Run the body on the engine's stream, whatever the calling
+        thread's current stream: it first waits for the caller's stream
+        (which made the params and the tables), and the caller's stream
+        waits for it afterwards. No-op on the CPU."""
+        if self.stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self.stream):
+                yield
+        finally:
+            caller.wait_stream(self.stream)
+
     def _wait(self) -> None:
         """Wait until the device has finished the work given so far (no
         copy to the host)."""
@@ -697,19 +735,23 @@ class RetrievalEngine:
         saved = self.rung
         staged = self._staged_host_serving()
         try:
-            for bs in self.scheduler.ladder:
-                q = torch.zeros((bs, self.dim), dtype=torch.float32, device=self.device)
-                rungs = [0]
-                if warm_ladder and self.policy.ladder and self._accepts_point:
-                    rungs += list(range(1, len(self.policy.ladder) + 1))
-                for r in rungs:
-                    self.rung = r
-                    self._search(q)
-                    self._wait()
-                    if staged:
-                        self._warm_staged(q)
+            with self._on_stream():
+                self._warm_all(staged, warm_ladder)
         finally:
             self.rung = saved
+
+    def _warm_all(self, staged: bool, warm_ladder: bool) -> None:
+        for bs in self.scheduler.ladder:
+            q = torch.zeros((bs, self.dim), dtype=torch.float32, device=self.device)
+            rungs = [0]
+            if warm_ladder and self.policy.ladder and self._accepts_point:
+                rungs += list(range(1, len(self.policy.ladder) + 1))
+            for r in rungs:
+                self.rung = r
+                self._search(q)
+                self._wait()
+                if staged:
+                    self._warm_staged(q)
 
     def _warm_staged(self, q: torch.Tensor) -> None:
         """The staged spelling of one batch through each slot, at each
@@ -791,7 +833,7 @@ class RetrievalEngine:
         if txn_store is not None:
             txn_store.begin_txn()
         try:
-            with faults.activate(self.fault_plan):
+            with faults.activate(self.fault_plan), self._on_stream():
                 out = update_fn(self.params)
         except Exception:
             if txn_store is not None:
@@ -998,7 +1040,7 @@ class RetrievalEngine:
         by this call (the open-loop driver's hook). The engine's fault plan
         is active for the duration.
         """
-        with faults.activate(self.fault_plan):
+        with faults.activate(self.fault_plan), self._on_stream():
             if self._staged_host_serving():
                 return self._drain_pipelined(max_dispatches)
             n_disp = 0
@@ -1017,7 +1059,7 @@ class RetrievalEngine:
         answers in request order (popped from the results map): the
         dispatch primitive of a replica router, which owns admission and
         batching itself. The engine's fault plan is active meanwhile."""
-        with faults.activate(self.fault_plan):
+        with faults.activate(self.fault_plan), self._on_stream():
             if self._staged_host_serving():
                 t0 = time.perf_counter()
                 e = self._dispatch_stage1(chunk)

@@ -134,14 +134,14 @@ def test_no_card_and_no_device_raises(monkeypatch):
 
 def test_later_slices_raise_not_implemented(port_index, jax_index, tmp_path):
     """What the port still refuses, or treats as the JAX package does: the
-    baselines of a later slice raise ``NotImplementedError`` as serving
-    backends; the host rescore tier on a float bank raises ``ValueError``
-    (build and load), as in JAX; ``block_q`` on a float bank raises
-    ``ValueError``, as in JAX; ``sketch_factor`` on a float bank (no
-    sketches) is a no-op."""
+    JAX package's ``use_fused`` knob, which the port has no counterpart for
+    (the baselines, once refused with ``NotImplementedError``, are ported);
+    the host rescore tier on a float bank raises ``ValueError`` (build and
+    load), as in JAX; ``block_q`` on a float bank raises ``ValueError``, as
+    in JAX; ``sketch_factor`` on a float bank (no sketches) is a no-op."""
     _, q, _, _ = jax_index
-    with pytest.raises(NotImplementedError, match="remaining baselines"):
-        make_backend("pq", None)
+    with pytest.raises(TypeError, match="use_fused"):
+        make_backend("lider", port_index, use_fused=True)
     with pytest.raises(ValueError, match="int8"):
         lider.build_lider(0, np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32),
                           lider.LiderConfig(n_clusters=4, rescore_tier="host"), device="cpu")
