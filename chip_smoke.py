@@ -142,8 +142,33 @@ Phases, each printing its lines; any failure exits non-zero:
                survivors, deleted ids never surfacing; ``save_index`` then
                ``load_index``, every leaf and the search ids identical;
                small int8 and int4 indexes through upsert == rebuild.
-11. kernels  — one JSON line with an entry per kernel (the build kernels'
-               calls include the baselines' shapes).
+11. train    — the training path. (a) The loss and every gradient of
+               ``reduced_lm`` of qwen2.5-3b and of llama4-scout-17b-a16e
+               (MoE, local windows firing) on the card == the same step on
+               the CPU (float32, TF32 off; ``testing.card_against_cpu``).
+               (b) qwen2.5-3b at its published widths through
+               ``repro_torch.launch.train.main`` (batch 1 x 512, 4 steps):
+               step ms, tokens/s, model FLOP/s against the bf16 peak, peak
+               device memory beside the reckoning (16 B a parameter); loss
+               and grad norm finite. (c) ``examples/train_encoder_e2e_torch``
+               at its 100m preset: 300 steps at batch 64 x 32 uninterrupted
+               (a checkpoint at step 150), and a run under
+               ``run_with_restarts`` that starts from that checkpoint, is
+               preempted at step 150 and restarts (checkpoints every 50);
+               the final weights and the losses of steps 150-299 equal bit
+               for bit under deterministic algorithms (without their NaN
+               fill of new memory); the loss falls to half;
+               262,144 passages and their queries encoded,
+               LIDER built through ``kmeans_assign`` and ``lsh_hash``
+               (launches as the code predicts), searched at k=10 in batches
+               of 4,096 through ``fused_verify`` (launches per batch),
+               recall@10 against Flat over its floor, MRR of the true
+               passage, the first 8 queries == the all-plain search, and
+               each recorded kernel call held against its plain version and
+               timed.
+12. kernels  — one JSON line with an entry per kernel (the build kernels'
+               calls include the baselines' and the encoder's shapes, and
+               ``fused_verify``'s the encoder's).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -155,6 +180,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pstats
 import re
 import shutil
@@ -167,7 +193,13 @@ from pathlib import Path
 from unittest import mock
 
 import numpy as np
-import torch
+
+# cuBLAS's deterministic setting (the train phase turns on deterministic
+# algorithms, which require it): 8 buffers of 4 MiB, PyTorch's default
+# workspace on sm_90 anyway.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -936,7 +968,7 @@ def phase_main(dev) -> dict:
     }
 
 
-def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, **kw):
+def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, seed=SEED, **kw):
     """``build_lider`` with the launch counts reset just before it and
     checked just after against :func:`per_build`. Returns a namespace: the
     index (``params``, ``stats``), its wall ``secs``, ``stages`` (the
@@ -985,7 +1017,7 @@ def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, **
         t0 = time.perf_counter()
         if prof is not None:
             prof.enable()
-        params, stats = lider.build_lider(SEED, corpus, cfg, return_stats=True, device=dev, **kw)
+        params, stats = lider.build_lider(seed, corpus, cfg, return_stats=True, device=dev, **kw)
         torch.cuda.synchronize()
         if prof is not None:
             prof.disable()
@@ -2649,6 +2681,252 @@ def phase_lifecycle_small(dev) -> list[str]:
     return done
 
 
+# The train phase. Its floors are fixed before the first run on the card:
+# the encoder's recall@10 against Flat catches garbage only (as
+# RECALL_FLOOR), and the contrastive loss must fall to half its first value
+# (the mean of the last 30 steps).
+QWEN_FULL = ["--arch", "qwen2.5-3b", "--preset", "full", "--batch", "1", "--seq", "512",
+             "--steps", "4", "--device", "cuda"]
+ENCODER = types.SimpleNamespace(size="100m", steps=300, batch=64, seq=32, ckpt_every=50,
+                                preempt_at=150, corpus=262_144, k=10, search_batch=4096)
+ENCODER_RECALL_FLOOR = 0.5
+LOSS_FALL = 0.5
+
+
+def lm_param_count(cfg) -> int:
+    """Parameters of the LM, from its config."""
+    from repro_torch.models import transformer as tfm
+
+    return sum(p.numel() for p in tfm.Transformer(cfg, device="meta").parameters())
+
+
+def phase_train_full(smi: str) -> dict:
+    """(b) qwen2.5-3b at its published widths through ``launch.train.main``:
+    each step timed (synchronized on both sides), the peak device memory
+    beside the reckoning made before the run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import train_loop
+
+    cfg = get_arch("qwen2.5-3b").config
+    n = lm_param_count(cfg)
+    reckon = 16 * n  # float32 params, grads, mu and nu
+    steps = []
+    real = train_loop.make_train_step
+
+    def timed_step(*a, **k):
+        step = real(*a, **k)
+
+        def f(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args, **kw)
+            torch.cuda.synchronize()
+            m = out[2]
+            steps.append((time.perf_counter() - t0, float(m["loss"]), float(m["grad_norm"])))
+            return out
+        return f
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_loop, "make_train_step", timed_step):
+        train_cli.main(QWEN_FULL)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    tokens = 1 * 512
+    flops = 6 * cfg.flops_params() * tokens
+    for i, (sec, loss, gnorm) in enumerate(steps):
+        log("train", f"qwen2.5-3b full width, step {i}: {sec * 1e3:.1f} ms, {tokens / sec:.0f} "
+            f"tokens/s, loss {loss:.4f}, grad norm {gnorm:.4g}, model FLOP/s {flops / sec / 1e12:.1f} T "
+            f"= {flops / sec / PEAK_OPS[torch.bfloat16]:.2%} of the bf16 peak ({smi})")
+    if len(steps) != 4 or not all(math.isfinite(v) for _, l, g in steps for v in (l, g)):
+        raise AssertionError(f"qwen2.5-3b: {len(steps)} steps, losses and norms {steps}")
+    log("train", f"qwen2.5-3b: {n / 1e9:.3f} B parameters ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {str(cfg.dtype).removeprefix('torch.')} compute); peak device memory {peak / 2**30:.2f} GiB against the "
+        f"reckoning's {reckon / 2**30:.2f} GiB of float32 params, grads, mu and nu "
+        f"(+{(peak - reckon) / 2**30:.2f} GiB of activations and temporaries), of "
+        f"{total / 2**30:.2f} GiB; whole run {wall:.1f} s with init")
+    if peak >= total:
+        raise AssertionError("qwen2.5-3b: the peak reached the card's memory")
+    med = statistics.median(s for s, _, _ in steps[1:])
+    return {"step_ms": med * 1e3, "peak_gib": peak / 2**30, "reckon_gib": reckon / 2**30,
+            "tokens_per_s": tokens / med, "mfu": flops / med / PEAK_OPS[torch.bfloat16]}
+
+
+def timed_manager(directory: str):
+    """A ``CheckpointManager`` whose ``secs`` and ``saves`` sum its saves."""
+    from repro_torch.training import checkpoint as ckpt_lib
+
+    mgr = ckpt_lib.CheckpointManager(directory)
+    mgr.secs, mgr.saves, save = 0.0, 0, mgr.save
+
+    def timed(step, tree):
+        t0 = time.perf_counter()
+        out = save(step, tree)
+        mgr.secs += time.perf_counter() - t0
+        mgr.saves += 1
+        return out
+
+    mgr.save = timed
+    return mgr
+
+
+def phase_train_encoder(dev, smi: str) -> dict:
+    """(c) The encoder example at its 100m preset, trained twice under
+    deterministic algorithms: an uninterrupted run that checkpoints at step
+    150, and a run that starts from that checkpoint alone, is preempted
+    there, restarts from it and runs to the end, checkpointing every 50
+    steps. Both end with the same weights, and steps 150-299 with the same
+    losses, bit for bit; the loss falls. Then 262,144 passages and their
+    queries are encoded, LIDER built and searched through the kernels
+    (launches counted, the first 8 queries against the all-plain search,
+    each recorded kernel call held against its plain version and timed)."""
+    from repro_torch import testing
+    from repro_torch.core import lider
+    from repro_torch.core.baselines import flat_search
+    from repro_torch.core.utils import recall_at_k
+
+    ex = testing.load_example("train_encoder_e2e_torch")
+    cfg = ex.PRESETS[ENCODER.size]
+    kw = dict(steps=ENCODER.steps, batch=ENCODER.batch, seq=ENCODER.seq, device=dev)
+    at = ENCODER.preempt_at
+    ckdir = ROOT / "build" / "encoder_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    # Deterministic algorithms, without their NaN fill of every new
+    # allocation (it guards reads of uninitialized memory, which no op here
+    # makes; a read would show as a difference between the two runs).
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        whole = timed_manager(str(ckdir / "whole"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, la, ra = ex.train(cfg, manager=whole, checkpoint_every=at, **kw)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0 - whole.secs
+        (ckdir / "restarted").mkdir()
+        os.rename(ckdir / "whole" / f"step_{at:08d}", ckdir / "restarted" / f"step_{at:08d}")
+        restarted = timed_manager(str(ckdir / "restarted"))
+        t0 = time.perf_counter()
+        b, lb, rb = ex.train(cfg, manager=restarted, checkpoint_every=ENCODER.ckpt_every,
+                             preempt_at=at, **kw)
+        torch.cuda.synchronize()
+        t_restart = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+        shutil.rmtree(ckdir, ignore_errors=True)
+    same = all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    if (ra, rb) != (0, 1) or len(la) != ENCODER.steps or lb != la[at:] or not same:
+        raise AssertionError(f"encoder: restarts {ra}, {rb}; {len(la)} and {len(lb)} losses, "
+                             f"steps {at}-{ENCODER.steps - 1} equal {lb == la[at:]}; final "
+                             f"weights equal {same}")
+    del a
+    n_params = sum(p.numel() for p in b.parameters())
+    tokens = 2 * ENCODER.batch * ENCODER.seq
+    step_ms = t_plain / ENCODER.steps * 1e3
+    tail = statistics.mean(la[-30:])
+    log("train", f"encoder {cfg.name} ({n_params / 1e6:.1f} M parameters, "
+        f"{str(cfg.dtype).removeprefix('torch.')} compute): "
+        f"{ENCODER.steps} steps at batch {ENCODER.batch} x seq {ENCODER.seq} in {t_plain:.1f} s "
+        f"({step_ms:.2f} ms a step, {tokens / step_ms * 1e3:.0f} tokens/s; {smi}) and "
+        f"{whole.saves} checkpoints in {whole.secs:.1f} s; restarted from its step-{at} "
+        f"checkpoint, preempted there, restored again and run to step {ENCODER.steps} with "
+        f"checkpoints every {ENCODER.ckpt_every} steps: {t_restart:.1f} s ({restarted.saves} "
+        f"saves {restarted.secs:.1f} s); final weights and the losses of steps {at}-"
+        f"{ENCODER.steps - 1} equal bit for bit; loss {la[0]:.4f} at step 0, mean of the last "
+        f"30 {tail:.4f} (must be at most {LOSS_FALL} x the first)")
+    if not tail <= LOSS_FALL * la[0]:
+        raise AssertionError(f"encoder: the loss did not fall ({la[0]} -> {tail})")
+
+    n = ENCODER.corpus
+    kq, kp = ex.paired_batch(ex.PASSAGE_SEED, 0, batch=n, seq=ENCODER.seq, vocab=cfg.vocab,
+                             device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus, queries = ex.encode_all(b, kp), ex.encode_all(b, kq)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    del b, kq, kp
+    icfg = ex.index_config(n)
+    build_calls = []
+    built = build_counted("train", dev, corpus, icfg, calls=build_calls, seed=2)
+    params = built.params
+    log("train", f"encoded {n} passages and {n} queries in {t_enc:.2f} s "
+        f"({2 * n / t_enc:.0f} sequences/s); LIDER build (c={icfg.n_clusters}, H={icfg.n_arrays}, "
+        f"W_i={icfg.n_leaves}, {icfg.kmeans_iters} Lloyd steps) {built.secs:.2f} s "
+        f"({fmt_stages(built)}); capacity Lp={built.stats.capacity}")
+
+    k = ENCODER.k
+    search = lambda q: lider.search_lider(params, q, k=k, n_probe=10, r0=4)
+    nb = ENCODER.search_batch
+    batches = [queries[i : i + nb] for i in range(0, n, nb)]
+    kernel_calls = []
+    with recording(kernel_calls):
+        search(batches[0])
+    torch.cuda.synchronize()
+    if [c[0] for c in kernel_calls] != ["lsh_hash", "fused_verify"] * 2:
+        raise AssertionError(f"encoder: one search batch made kernel calls {[c[0] for c in kernel_calls]}")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = torch.cat([search(qb).ids for qb in batches])
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    counts = read_counts()
+    want = tuple(len(batches) * v for v in per_batch("F32"))
+    if counts != want:
+        raise AssertionError(f"encoder search: kernel launches {counts}, expected {want}")
+    gt = torch.cat([flat_search(corpus, qb, k=k).ids for qb in batches])
+    rec, mrr = float(recall_at_k(ids, gt)), ex.mrr(ids)
+    log("train", f"{n} queries in {len(batches)} batches of {nb} at k={k}, n_probe 10, r0 4: "
+        f"{t_search:.2f} s ({n / t_search:.0f} queries/s); launches {fmt_counts(counts)} "
+        f"({per_batch('F32')} per batch, as the code predicts); recall@{k} vs Flat {rec:.4f} "
+        f"(floor {ENCODER_RECALL_FLOOR}); MRR@{k} of the true passage {mrr:.4f}")
+    if rec < ENCODER_RECALL_FLOOR:
+        raise AssertionError(f"encoder: recall@{k} {rec} below {ENCODER_RECALL_FLOOR}")
+    log("train", first_eight(params, search, batches[0][:8]))
+
+    calls = []
+    reps = {"k-means step": 5, "bank fit": 20, "centroid fit": 50}
+    for name, args, kw_ in build_calls:
+        role = build_role(name, args, icfg.n_clusters)
+        calls.append(time_build_call("encoder", role, name, args, kw_, reps=reps[role]))
+    for role, (name, args, kw_), (reps_, chunk) in zip(
+        ("query hash (centroids)", "routing", "query hash (bank)", "in-cluster"), kernel_calls,
+        ((50, 0), (20, 256), (50, 0), (5, 8)),
+    ):
+        if name == "lsh_hash":
+            calls.append(time_build_call("encoder", role, name, args, kw_, reps=reps_))
+        else:
+            calls.append(time_call("encoder", role, name, args, kw_, reps=reps_, chunk=chunk))
+    return {"calls": calls, "recall": rec, "mrr": mrr, "step_ms": step_ms, "encode_s": t_enc,
+            "build_s": built.secs, "build_launches": built.counts, "search_launches": counts}
+
+
+def phase_train(dev, smi: str) -> dict:
+    """(a) the card against the CPU, (b) qwen2.5-3b at full width, (c) the
+    100m encoder, its restart, its index and its search."""
+    from repro_torch import testing
+
+    t0 = time.perf_counter()
+    log("train", f"device memory held at the start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    for arch_id, cfg in testing.card_configs().items():
+        out = testing.card_against_cpu(cfg, batch=2, seq=64)
+        log("train", f"card == CPU on reduced {arch_id} (float32, TF32 off, {cfg.n_layers} layers, "
+            f"window {cfg.window}, MoE {cfg.moe is not None}): loss {out['loss']:.6f} within "
+            f"{out['loss_err']:.3f} of its tolerance, {out['n_grads']} gradients, the worst "
+            f"({out['worst']}) at {out['grad_err']:.3f} of its tolerance")
+    full = phase_train_full(smi)
+    enc = phase_train_encoder(dev, smi)
+    log("train", f"train phase {time.perf_counter() - t0:.1f} s")
+    return {"full": full, **enc}
+
+
 def entry(name: str, calls: list[dict], launches: int, main_calls: list[dict]) -> dict:
     """One kernel's JSON entry: ``ms``, ``plain_ms`` and ``bound_ms`` sum
     the kernel's calls in one batch of the path that ``launches`` counts."""
@@ -2722,14 +3000,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lifecycle(dev, main_res)
+    for key in ("corpus", "queries", "gt", "centroids"):
+        main_res.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(dev, device["smi"])
+    enc = lambda name: [c for c in train["calls"] if c["kernel"] == name]
     qcalls = q8["calls"] + q4["calls"]
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]
     cfg = CONFIG.lider
     counts, timed = main_res["build_launches"], main_res["build_timed"]
     kernels = [
         # fused_verify: the float main path (routing + in-cluster per batch).
-        entry("fused_verify", f32_calls + by("fused_verify") + [serve["rescore_call"]],
-              main_res["launches"][0], f32_calls[:2]),
+        entry("fused_verify", f32_calls + by("fused_verify") + [serve["rescore_call"]]
+              + enc("fused_verify"), main_res["launches"][0], f32_calls[:2]),
         # sketch_prefilter: the Q4-sk path (one call per batch).
         entry("sketch_prefilter", by("sketch_prefilter"),
               q4["paths"]["Q4-sk"]["launches"][1], by("sketch_prefilter", "Q4-sk")),
@@ -2739,10 +3023,12 @@ def main() -> int:
         # lsh_hash: the main build (bank-fit chunks + the centroid model).
         # The calls list also holds the baselines' shapes (the cli phase).
         build_entry("lsh_hash", [c for c in build_calls if c["kernel"] == "lsh_hash"] + by("lsh_hash")
-                    + [c for c in cli["shapes"] if c["kernel"] == "lsh_hash"], counts[3], timed),
+                    + [c for c in cli["shapes"] if c["kernel"] == "lsh_hash"] + enc("lsh_hash"),
+                    counts[3], timed),
         # kmeans_assign: the main build's k-means (Lloyd steps + the final assignment).
         build_entry("kmeans_assign", [c for c in build_calls if c["kernel"] == "kmeans_assign"]
-                    + [c for c in cli["shapes"] if c["kernel"] == "kmeans_assign"], counts[4], timed),
+                    + [c for c in cli["shapes"] if c["kernel"] == "kmeans_assign"]
+                    + enc("kmeans_assign"), counts[4], timed),
     ]
     log("kernels", f"whole run {time.perf_counter() - t_start:.1f} s ({cfg.n_clusters} clusters: "
         f"{counts[3]} lsh_hash and {counts[4]} kmeans_assign launches in the main build)")

@@ -1,1 +1,6 @@
-"""Model configurations of the port (its own copies of the values)."""
+"""Configurations of the port (its own copies of the values): the
+architecture registry and ``lider-msmarco``'s serving settings."""
+from .base import ArchSpec, ShapeSpec
+from .registry import ARCHS, UNPORTED, get_arch
+
+__all__ = ["ArchSpec", "ShapeSpec", "ARCHS", "UNPORTED", "get_arch"]

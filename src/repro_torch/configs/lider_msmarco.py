@@ -34,11 +34,16 @@ other 20% in 4 batches by the exact route, layer 1 frozen), then a delete
 of 5% of the ids, drawn from the seed, with eager compaction of every
 touched cluster. (That benchmark deletes the first 1% of the ids; 5% drawn
 at random touches every cluster.)
+
+``ARCH`` is the registry's entry (``configs.registry``): the JAX package's
+``lider-msmarco`` architecture, with its values uncut (8,847,360 passages,
+capacity 12,288) and its three shapes.
 """
 import dataclasses
 
 from ..core.lider import LiderConfig
 from ..serving.scheduler import SchedulerConfig
+from .base import ArchSpec, ShapeSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +148,44 @@ class Lifecycle:
 
 
 LIFECYCLE = Lifecycle()
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalArchConfig:
+    lider: LiderConfig
+    corpus_size: int
+    dim: int
+    capacity: int  # padded cluster capacity Lp
+    k: int = 100
+
+
+ARCH = ArchSpec(
+    arch_id="lider-msmarco",
+    family="retrieval",
+    config=RetrievalArchConfig(
+        lider=LiderConfig(
+            n_clusters=1024,
+            n_probe=20,
+            n_arrays=10,
+            n_arrays_centroid=10,
+            key_len=16,
+            key_len_centroid=10,
+            n_leaves=5,
+            n_leaves_centroid=10,
+            r0=4,
+        ),
+        corpus_size=8_847_360,  # 8.8M padded to cluster grid
+        dim=768,
+        capacity=12_288,  # ~1.4x mean cluster size
+        k=100,
+    ),
+    shapes=(
+        ShapeSpec("serve_online", "retrieval_serve", {"batch": 256}),
+        ShapeSpec("serve_bulk", "retrieval_serve", {"batch": 8192}),
+        ShapeSpec("build_kmeans_step", "build", {}),
+    ),
+    notes="The paper's system itself: LIDER over an MS MARCO-scale corpus.",
+    source="LIDER paper Sec. 7",
+)
 
 # Cuts from the reference configuration, in the order above.
 REDUCED = (

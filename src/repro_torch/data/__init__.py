@@ -1,1 +1,1 @@
-"""Deterministic synthetic data."""
+"""Deterministic synthetic data and the step-indexed pipeline."""

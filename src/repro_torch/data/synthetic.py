@@ -1,5 +1,5 @@
-"""Synthetic retrieval data: a clustered unit-norm corpus and queries that
-are perturbed corpus points.
+"""Synthetic data: a clustered unit-norm retrieval corpus, queries that are
+perturbed corpus points, and language-model token batches.
 
 The same generators as the JAX package's ``repro.data.synthetic``, drawn
 with a seeded ``torch.Generator`` on the target device (so a 1M x 768
@@ -53,3 +53,22 @@ def retrieval_queries(
         (n_queries, corpus.shape[1]), generator=g, device=device
     )
     return l2_normalize(q), ids
+
+
+def lm_batch(
+    seed: int, step: int, *, batch: int, seq: int, vocab: int,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Uniform random tokens (B, S+1) on ``device`` -> ``{"tokens",
+    "targets"}`` shifted by one; a pure function of (seed, step), so a
+    restarted run replays the same stream."""
+    device = resolve_device(device)
+    g = torch.Generator(device=device).manual_seed(step_seed(seed, step))
+    tokens = torch.randint(0, vocab, (batch, seq + 1), generator=g, device=device)
+    return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+
+
+def step_seed(seed: int, step: int) -> int:
+    """One generator seed per (seed, step) pair (numpy's ``SeedSequence``
+    hash of the pair)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)

@@ -15,8 +15,16 @@ That bound refuses a one-pass TF32 product only rarely (about 2e-7 of the
 bits at d = 768; :func:`lsh_bits_outside_bound` counts them), so k-means
 distances are also held to float64 (:func:`min_dist_error`), at most
 ``F32_ERROR_FACTOR`` times the plain float32 version's error.
+
+A model's loss and gradients computed twice (:func:`card_against_cpu`) are
+held within ``LOSS_RTOL`` and ``GRAD_RTOL`` / ``GRAD_ATOL``, each element
+also allowed ``NEAR_ZERO`` of its leaf's largest magnitude.
 """
 from __future__ import annotations
+
+import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -225,3 +233,87 @@ def query_key_flips(params, queries, got, want) -> tuple[torch.Tensor, dict]:
         report = {k: report[k] + r[k] for k in report}
     same = (got.cpu() == want.cpu()).all(dim=1)
     return same, report
+
+
+# Losses and gradients of one model run twice (on the card and on the CPU,
+# or in the two packages): float32 sums in other orders.
+LOSS_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+# Elements near zero are held to this share of the leaf's largest magnitude.
+NEAR_ZERO = 1e-5
+
+
+def scaled_error(got, want, *, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol |want| + NEAR_ZERO max|want|): at
+    most 1 where ``got`` is within tolerance of ``want``."""
+    got, want = _np(got).astype(np.float64), _np(want).astype(np.float64)
+    floor = max(atol, NEAR_ZERO * float(np.abs(want).max(initial=0.0)))
+    return float(np.max(np.abs(got - want) / (floor + rtol * np.abs(want)), initial=0.0))
+
+
+def loss_and_grads(model, loss_fn, batch) -> tuple[float, dict[str, torch.Tensor]]:
+    """One forward and backward -> (loss, {parameter name: gradient on the
+    host})."""
+    for p in model.parameters():
+        p.grad = None
+    loss = loss_fn(model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def card_configs() -> dict:
+    """The configs :func:`card_against_cpu` is run on: ``reduced_lm`` of
+    qwen2.5-3b (dense, qkv bias), and of llama4-scout-17b-a16e (MoE) with
+    its local windows made to fire: four layers, window 16 on layers 0-2
+    (layer 3 global), at sequence 64."""
+    from .configs import get_arch
+    from .launch.train import reduced_lm
+
+    llama = reduced_lm(get_arch("llama4-scout-17b-a16e").config)
+    return {"qwen2.5-3b": reduced_lm(get_arch("qwen2.5-3b").config),
+            "llama4-scout-17b-a16e": dataclasses.replace(llama, n_layers=4, window=16)}
+
+
+def load_example(name: str):
+    """The module of the repo's ``examples/<name>.py`` (the examples are
+    scripts, not a package)."""
+    path = Path(__file__).resolve().parents[2] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def card_against_cpu(cfg, *, batch: int, seq: int, seed: int = 0) -> dict:
+    """The LM's loss and every gradient on the card against the same step
+    on the CPU, float32 with TF32 off: one set of weights (drawn on the
+    CPU, copied to the card) and one batch. Raises unless the loss is
+    within ``LOSS_RTOL`` and every gradient within ``GRAD_RTOL`` /
+    ``GRAD_ATOL`` (plus ``NEAR_ZERO``); returns the errors, each in units
+    of its tolerance."""
+    from .data.synthetic import lm_batch
+    from .models import transformer as tfm
+
+    if cfg.dtype != torch.float32 or cfg.param_dtype != torch.float32:
+        raise ValueError("the card-against-CPU check runs in float32")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 products are on: the card would not compute in float32")
+    cpu = tfm.init(seed, cfg, device="cpu")
+    card = tfm.params_from_numpy(tfm.params_to_numpy(cpu), cfg, device="cuda")
+    b = lm_batch(seed, 0, batch=batch, seq=seq, vocab=cfg.vocab, device="cpu")
+    loss_c, grads_c = loss_and_grads(cpu, tfm.train_loss, b)
+    loss_g, grads_g = loss_and_grads(card, tfm.train_loss, {k: v.cuda() for k, v in b.items()})
+    if set(grads_c) != set(grads_g):
+        raise AssertionError(f"gradients of other parameters: {sorted(set(grads_c) ^ set(grads_g))}")
+    loss_err = abs(loss_g - loss_c) / (LOSS_RTOL * abs(loss_c))
+    grad_err = {n: scaled_error(grads_g[n], grads_c[n], rtol=GRAD_RTOL, atol=GRAD_ATOL)
+                for n in grads_c}
+    worst = max(grad_err, key=grad_err.get)
+    if loss_err > 1 or grad_err[worst] > 1:
+        raise AssertionError(f"{cfg.name}: loss {loss_g} on the card, {loss_c} on the CPU; "
+                             f"gradient {worst} at {grad_err[worst]:.3g} of its tolerance")
+    return {"loss": loss_c, "loss_err": loss_err, "grad_err": grad_err[worst], "worst": worst,
+            "n_grads": len(grad_err)}

@@ -1,1 +1,2 @@
-"""Index checkpoints (read side)."""
+"""Checkpoints (index and training steps), the optimizer, the train loop and
+the restart harness."""

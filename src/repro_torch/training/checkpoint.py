@@ -11,8 +11,7 @@ what the JAX package's ``save_index`` writes for the same index, so the JAX
 package's ``load_index`` reads it: keys and key bounds go back to uint32,
 sign sketches are written as the uint32 views of their int32 bit patterns.
 The write is atomic: a temporary directory, then the old index renamed to
-``index.old``, the new one renamed in, and ``index.old`` removed. Step
-checkpoints (``save`` / ``restore``) are a later slice.
+``index.old``, the new one renamed in, and ``index.old`` removed.
 
 :func:`params_from_numpy` turns a ``{leaf name: array}`` map into
 :class:`~repro_torch.core.lider.LiderParams` on a device: uint32 leaves
@@ -26,6 +25,16 @@ The format does not depend on the rescore tier: a host-tier index saves its
 host table under the same leaf name, ``bank__rescore_embs``, so a save of
 either tier loads as either tier (``load_index(rescore_tier=...)``; the
 default is the tier it was saved from), in both packages.
+
+Step checkpoints (:func:`save`, :func:`restore`, :class:`CheckpointManager`)
+write the JAX package's files too: ``<dir>/step_%08d/`` holding one
+``NNNN__<key path>.npy`` per leaf, in the JAX package's flattening order
+(dict keys sorted), and a ``manifest.json`` with each leaf's shape, dtype
+and CRC32. A step saved by either package restores in the other. A tree is
+nested dicts, lists and tuples of tensors, numpy arrays and scalars;
+:class:`~repro_torch.core.types.Stacked` leaves (the transformer's layers)
+are written as one stacked array. :func:`restore` fills the tensors of its
+``like`` tree in place, after every leaf has passed its CRC.
 """
 from __future__ import annotations
 
@@ -45,6 +54,13 @@ from ..core.lider import LiderParams
 from ..core.lsh import LSHParams
 from ..core.rescale import RescaleParams
 from ..core.rmi import RMIParams
+from ..core.types import (
+    Stacked,
+    numpy_to_tensor,
+    tensor_to_numpy,
+    tree_flatten_with_path,
+    tree_unflatten,
+)
 from ..device import resolve_device
 from ..kernels import quant
 
@@ -260,13 +276,7 @@ def params_from_numpy(
         arr = leaves["__".join(path)]
         if arr.dtype == np.uint32:
             arr = arr.astype(np.int64)
-        if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
-            # ml_dtypes bfloat16 arrays: reinterpret the 16-bit payload.
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-            return t.view(torch.bfloat16).to(device)
-        if not arr.flags.c_contiguous:  # (np.ascontiguousarray would make a 0-d leaf 1-d)
-            arr = np.ascontiguousarray(arr)
-        return torch.from_numpy(arr).to(device)
+        return numpy_to_tensor(arr).to(device)
 
     def rescale_of(prefix) -> RescaleParams:
         return RescaleParams(
@@ -367,3 +377,145 @@ def load_index(
             raise
         leaves, meta = read_index_dir(old)
     return params_from_numpy(leaves, meta, device, rescore_tier)
+
+
+# ---------------------------------------------------------------------------
+# Step checkpoints (training state)
+# ---------------------------------------------------------------------------
+
+
+def _leaf_name(path) -> str:
+    return "__".join(str(p) for p in path) or "leaf"
+
+
+def _step_array(leaf) -> np.ndarray:
+    """A tree leaf as the array that is written (bfloat16 as ``'V2'``)."""
+    if isinstance(leaf, Stacked):
+        return np.stack([tensor_to_numpy(t) for t in leaf.parts])
+    if isinstance(leaf, torch.Tensor):
+        return tensor_to_numpy(leaf)
+    return np.asarray(leaf)
+
+
+def save(directory: str, step: int, tree) -> str:
+    """Atomically write ``tree`` under ``directory/step_<step>``: a
+    temporary directory renamed into place, so a crash never leaves a
+    partial step behind (the ``checkpoint_write`` fault site fires before
+    the rename)."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
+    manifest = {"step": step, "leaves": []}
+    for i, (path, leaf) in enumerate(tree_flatten_with_path(tree)):
+        name = f"{i:04d}__{_leaf_name(path)}"
+        arr = _step_array(leaf)
+        bf16 = arr.dtype.kind == "V"
+        _write_leaf(os.path.join(tmp, name + ".npy"),
+                    arr.view(np.int16) if bf16 else arr, "<V2" if bf16 else None)
+        manifest["leaves"].append({
+            "name": name,
+            "shape": list(arr.shape),
+            "dtype": "bfloat16" if bf16 else str(arr.dtype),
+            "crc32": _crc(arr),
+        })
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    _apply_write_fault(tmp, [m["name"] for m in manifest["leaves"]])
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def _step_dirs(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(
+        int(d.split("_")[1])
+        for d in os.listdir(directory)
+        if d.startswith("step_") and os.path.isdir(os.path.join(directory, d))
+    )
+
+
+def latest_step(directory: str) -> int | None:
+    steps = _step_dirs(directory)
+    return steps[-1] if steps else None
+
+
+@torch.no_grad()
+def restore(directory: str, step: int, like):
+    """Load ``step`` into the structure of ``like``.
+
+    Every leaf is read and CRC32-verified first (checkpoints written before
+    CRCs existed skip the check; a mismatch raises
+    :class:`CheckpointCorruptError` naming the leaf). Then a tensor or
+    ``Stacked`` leaf of ``like`` is filled in place (its shape and dtype
+    must match) and returned; any other leaf comes back as the numpy
+    array."""
+    d = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    leaves_like = [leaf for _, leaf in tree_flatten_with_path(like)]
+    if len(leaves_like) != len(manifest["leaves"]):
+        raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, target structure "
+                         f"has {len(leaves_like)}")
+    arrays = [_checked_load(d, m["name"], m.get("crc32")) for m in manifest["leaves"]]
+    out = []
+    for meta, arr, leaf in zip(manifest["leaves"], arrays, leaves_like):
+        if not isinstance(leaf, (torch.Tensor, Stacked)):
+            out.append(arr)
+            continue
+        t = numpy_to_tensor(arr)
+        if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
+            raise ValueError(f"leaf {meta['name']}: checkpoint holds {tuple(t.shape)} {t.dtype}, "
+                             f"the target {tuple(leaf.shape)} {leaf.dtype}")
+        if isinstance(leaf, Stacked):
+            for i, part in enumerate(leaf.parts):
+                part.copy_(t[i])
+        else:
+            leaf.copy_(t)
+        out.append(leaf)
+    return tree_unflatten(like, out)
+
+
+class CheckpointManager:
+    """Keep-last-N manager with preemption-safe atomic saves.
+
+    Construction sweeps orphaned tmp dirs (a crash between mkdtemp and
+    rename would otherwise leak them); ``restore_latest`` verifies
+    integrity and falls back to the newest step that passes."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        sweep_orphan_tmp(directory)
+
+    def save(self, step: int, tree) -> str:
+        path = save(self.directory, step, tree)
+        self._gc()
+        return path
+
+    def latest_step(self) -> int | None:
+        return latest_step(self.directory)
+
+    def restore_latest(self, like):
+        """Restore the newest *verified* step -> ``(step, tree)``, or
+        ``(None, None)`` when there is none.
+
+        A step whose manifest or leaves fail verification (torn write, CRC
+        mismatch) is skipped and the next-newest is tried; if every step is
+        corrupt the newest step's error propagates."""
+        last_err = None
+        for step in reversed(_step_dirs(self.directory)):
+            try:
+                return step, restore(self.directory, step, like)
+            except (CheckpointCorruptError, OSError, json.JSONDecodeError) as e:
+                if last_err is None:
+                    last_err = e
+        if last_err is not None:
+            raise last_err
+        return None, None
+
+    def _gc(self):
+        for s in _step_dirs(self.directory)[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"))
