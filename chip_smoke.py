@@ -166,9 +166,38 @@ Phases, each printing its lines; any failure exits non-zero:
                passage, the first 8 queries == the all-plain search, and
                each recorded kernel call held against its plain version and
                timed.
-12. kernels  — one JSON line with an entry per kernel (the build kernels'
-               calls include the baselines' and the encoder's shapes, and
-               ``fused_verify``'s the encoder's).
+12. models   — the recsys and GNN families and LM serving. (a) The loss
+               and every gradient of the reduced gatedgcn, sasrec,
+               two-tower-retrieval, din and xdeepfm configs on the card ==
+               the CPU (``testing.card_against_cpu``), and the prefill and
+               decode logits of the reduced qwen2.5-3b and llama4-scout ==
+               the CPU (``testing.serve_card_against_cpu``). (d) qwen2.5-3b
+               at full width (the train phase's model), batch 8: a prompt
+               of 512, 32 decode steps from the KV cache, each step's logits
+               against the teacher-forced forward (argmax at >= 99% of the
+               positions, the largest difference <= 2e-2 of the largest
+               logit); prefill ms, decode ms a step, tokens/s, peak memory.
+               (b) two-tower-retrieval at its published widths: 50 steps of
+               ``launch.train``'s ``build_task`` and ``train_loop`` at batch
+               16,384 (cut from 65,536), all 2,097,152 items encoded, LIDER
+               (``lider-msmarco``'s settings, c = 2,048, float32) built
+               through ``kmeans_assign`` and ``lsh_hash`` (launches as the
+               code predicts; ``LiderConfig.capacity`` set, and reported,
+               only if the bank would pass 40 GB), 4,096 users searched in
+               batches of 512 at k = 100 through ``fused_verify`` (launches
+               per batch), ``two_tower_score_candidates`` == ``flat_search``,
+               recall@100 of LIDER against that exact top-100 over the
+               floor, the first 64 users == the all-plain search, each
+               recorded kernel call held against its plain version and
+               timed. (c) gatedgcn at the ``minibatch_lg`` dims: a random
+               graph of 232,965 nodes and 114,615,892 edges, 10 steps on
+               blocks of 1,024 seeds at fanout (15, 10) (shapes checked,
+               the first block's every edge found in the graph); ms a step,
+               peak memory.
+13. kernels  — one JSON line with an entry per kernel (the build kernels'
+               calls include the baselines', the encoder's and the
+               two-tower's shapes, and ``fused_verify``'s the encoder's and
+               the two-tower's).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -370,22 +399,22 @@ def recording(calls: list, keep=None):
     return stack
 
 
-def first_eight(params, search, q8) -> str:
-    """The first 8 queries through the search and through the same search
-    with every kernel swapped for its plain version. The query keys are
+def against_plain(params, search, qs) -> str:
+    """The queries through the search and through the same search with
+    every kernel swapped for its plain version. The query keys are
     compared first: a key bit may differ only within float32 rounding of
     0, and every query whose keys agree must return the same ids (up to
-    swaps of near-equal scores)."""
+    swaps of near-equal scores) and scores within rtol 1e-5."""
     from repro_torch.testing import assert_topk_match, query_key_flips, query_keys
 
     with all_plain():
-        plain = search(q8)
-        plain_keys = query_keys(params, q8)
-    kern = search(q8)
-    same, rep = query_key_flips(params, q8, query_keys(params, q8), plain_keys)
+        plain = search(qs)
+        plain_keys = query_keys(params, qs)
+    kern = search(qs)
+    same, rep = query_key_flips(params, qs, query_keys(params, qs), plain_keys)
     same = same.to(kern.ids.device)
     swaps = assert_topk_match(kern.ids[same], kern.scores[same], plain.ids[same], plain.scores[same])
-    return (f"first 8 queries: keys equal on {int(same.sum())} of 8 ({rep['flips']} of "
+    return (f"keys equal on {int(same.sum())} of {qs.shape[0]} ({rep['flips']} of "
             f"{rep['bits']} key bits flipped, each within the rounding bound; {rep['near']} "
             f"near-ties); on those, ids == the all-plain search ({swaps} near-tie swaps admitted)")
 
@@ -958,7 +987,7 @@ def phase_main(dev) -> dict:
     if rec < RECALL_FLOOR:
         raise AssertionError(f"recall@{k} {rec} below {RECALL_FLOOR}")
 
-    log("main", first_eight(params, search, batches[0][:8]))
+    log("main", "first 8 queries: " + against_plain(params, search, batches[0][:8]))
     phase_trace("trace F32", search, batches[1], med)
     return {
         "kernel_calls": kernel_calls, "build_calls": build_calls, "launches": counts,
@@ -1599,7 +1628,8 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
             f"{BATCH / med * 1e3:.0f} queries/s")
         if rec < RECALL_FLOOR:
             raise AssertionError(f"{op.name}: recall@{k} {rec} below {RECALL_FLOOR}")
-        log("quantized", f"{op.name}: " + first_eight(params, search, batches[0][:8]))
+        log("quantized", f"{op.name}: first 8 queries: "
+            + against_plain(params, search, batches[0][:8]))
         results[op.name] = (ids, scores)
         out["paths"][op.name] = {"recall": rec, "latency_ms": med, "launches": counts,
                                  "calls": calls, "search": search}
@@ -2711,8 +2741,14 @@ def phase_train_full(smi: str) -> dict:
     cfg = get_arch("qwen2.5-3b").config
     n = lm_param_count(cfg)
     reckon = 16 * n  # float32 params, grads, mu and nu
-    steps = []
+    steps, kept = [], []
     real = train_loop.make_train_step
+    real_task = train_cli.build_task
+
+    def keep_model(*a, **k):
+        out = real_task(*a, **k)
+        kept.append(out[0])
+        return out
 
     def timed_step(*a, **k):
         step = real(*a, **k)
@@ -2731,7 +2767,8 @@ def phase_train_full(smi: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with mock.patch.object(train_loop, "make_train_step", timed_step):
+    with mock.patch.object(train_loop, "make_train_step", timed_step), \
+            mock.patch.object(train_cli, "build_task", keep_model):
         train_cli.main(QWEN_FULL)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2754,7 +2791,8 @@ def phase_train_full(smi: str) -> dict:
         raise AssertionError("qwen2.5-3b: the peak reached the card's memory")
     med = statistics.median(s for s, _, _ in steps[1:])
     return {"step_ms": med * 1e3, "peak_gib": peak / 2**30, "reckon_gib": reckon / 2**30,
-            "tokens_per_s": tokens / med, "mfu": flops / med / PEAK_OPS[torch.bfloat16]}
+            "tokens_per_s": tokens / med, "mfu": flops / med / PEAK_OPS[torch.bfloat16],
+            "model": kept[0]}
 
 
 def timed_manager(directory: str):
@@ -2889,7 +2927,7 @@ def phase_train_encoder(dev, smi: str) -> dict:
         f"(floor {ENCODER_RECALL_FLOOR}); MRR@{k} of the true passage {mrr:.4f}")
     if rec < ENCODER_RECALL_FLOOR:
         raise AssertionError(f"encoder: recall@{k} {rec} below {ENCODER_RECALL_FLOOR}")
-    log("train", first_eight(params, search, batches[0][:8]))
+    log("train", "first 8 queries: " + against_plain(params, search, batches[0][:8]))
 
     calls = []
     reps = {"k-means step": 5, "bank fit": 20, "centroid fit": 50}
@@ -2912,10 +2950,13 @@ def phase_train(dev, smi: str) -> dict:
     """(a) the card against the CPU, (b) qwen2.5-3b at full width, (c) the
     100m encoder, its restart, its index and its search."""
     from repro_torch import testing
+    from repro_torch.configs import get_arch
 
     t0 = time.perf_counter()
     log("train", f"device memory held at the start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     for arch_id, cfg in testing.card_configs().items():
+        if get_arch(arch_id).family != "lm":
+            continue  # the models phase's
         out = testing.card_against_cpu(cfg, batch=2, seq=64)
         log("train", f"card == CPU on reduced {arch_id} (float32, TF32 off, {cfg.n_layers} layers, "
             f"window {cfg.window}, MoE {cfg.moe is not None}): loss {out['loss']:.6f} within "
@@ -2925,6 +2966,498 @@ def phase_train(dev, smi: str) -> dict:
     enc = phase_train_encoder(dev, smi)
     log("train", f"train phase {time.perf_counter() - t0:.1f} s")
     return {"full": full, **enc}
+
+
+# The models phase: the recsys and GNN families and LM serving.
+#
+# LIDER's recall@100 over the two-tower items against their exact top-100
+# must reach RECALL_FLOOR (catches garbage only) at RECALL_PROBES probes.
+# At the main path's 20 probes no index can reach it on these items: two
+# towers trained on the reference's random (user, item) pairs stay at
+# chance (loss ln B), their item embeddings have no cluster structure
+# (the largest of 2,048 clusters holds 1.16 x the mean), and an exact scan
+# of the 20 clusters whose centroids score highest (IVF-Flat) reaches
+# 0.15. There LIDER must keep LIDER_OF_IVF of IVF-Flat's recall; the exact
+# scan of the clusters LIDER routes to is logged beside it.
+#
+# The decode logits must agree with the teacher-forced forward on the
+# argmax at DECODE_ARGMAX of the positions and within DECODE_REL_F32 of
+# the largest logit in float32 compute. In bfloat16 compute they must stay
+# within DECODE_REL, and where the argmax differs the forward's top two
+# logits must lie within NEAR_TIE of the largest logit of each other (a
+# near-tie that one bfloat16 rounding order flips and another does not).
+TWO_TOWER = types.SimpleNamespace(
+    batch=16_384,  # the train_batch shape's 65,536 cut: its in-batch logits are 17.2 GB a copy
+    steps=50, encode_chunk=262_144, n_clusters=2048, users=4096, user_batch=512, k=100,
+    plain_users=64, plain_batch=16,
+)
+GNN_LG = types.SimpleNamespace(shape="minibatch_lg", steps=10)
+LM_SERVE = types.SimpleNamespace(batch=8, prompt=512, steps=32)  # decode_32k's 128 x 32,768 cut
+DECODE_ARGMAX, DECODE_REL = 0.99, 2e-2
+# Set from the readings on an H100 (PERF.md, PR 22): float32 compute's
+# largest difference 5.1e-6 to 5.8e-6; in bfloat16 compute the top-2 gap
+# was at most 0.0074 where the argmax flipped and 0.034 at the median
+# position.
+DECODE_REL_F32 = 1e-4
+NEAR_TIE = 0.015
+RECALL_PROBES = 256  # c / 8
+# LIDER's recall at the main path's n_probe as a share of IVF-Flat's over
+# the same number of clusters: 0.513 on an H100 (PERF.md, PR 22).
+LIDER_OF_IVF = 0.4
+
+
+def phase_models_card(smi: str) -> None:
+    """(a) The reduced config of each recsys and GNN architecture, card ==
+    CPU (float32, TF32 off), and the reduced LMs' prefill and decode
+    logits, card == CPU."""
+    from repro_torch import testing
+    from repro_torch.configs import get_arch
+
+    for arch_id, cfg in testing.card_configs().items():
+        if get_arch(arch_id).family == "lm":
+            out = testing.serve_card_against_cpu(cfg)
+            log("models", f"card == CPU, LM serving on reduced {arch_id} (float32, TF32 off, "
+                f"{cfg.n_layers} layers, window {cfg.window}): prefill of 16 tokens at "
+                f"{out['prefill_err']:.3f} and one decode step at {out['decode_err']:.3f} of the "
+                "tolerance (rtol 1e-5)")
+            continue
+        out = testing.card_against_cpu(cfg)
+        log("models", f"card == CPU on reduced {arch_id} (float32, TF32 off): loss "
+            f"{out['loss']:.6f} within {out['loss_err']:.3f} of its tolerance, {out['n_grads']} "
+            f"gradients, the worst ({out['worst']}) at {out['grad_err']:.3f} of its tolerance")
+
+
+@contextlib.contextmanager
+def compute_dtype(model, dtype):
+    """The transformer computing in ``dtype`` (its float32 master weights
+    cast to it, as they are to the config's dtype)."""
+    cfgs = [model.cfg] + [blk.cfg for blk in model.layers]
+    new = dataclasses.replace(model.cfg, dtype=dtype)
+    model.cfg = new
+    for blk in model.layers:
+        blk.cfg = new
+    try:
+        yield model
+    finally:
+        model.cfg = cfgs[0]
+        for blk, c in zip(model.layers, cfgs[1:]):
+            blk.cfg = c
+
+
+def decode_against_forward(model, tokens, prompt: int) -> dict:
+    """Prefill of ``prompt`` tokens, then one decode step a token to the
+    end of ``tokens``, timed; each step's logits beside the teacher-forced
+    forward's at the same position (the forward's attention takes whole
+    512-token chunks: the tokens padded to the next multiple of 512, which
+    causal attention keeps from every earlier position)."""
+    from repro_torch.models import transformer as tfm
+
+    total = tokens.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tfm.prefill(model, tokens[:, :prompt], max_len=total)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    steps, secs = [logits], []
+    for i in range(prompt, total):
+        t0 = time.perf_counter()
+        out, cache = tfm.decode_step(model, cache, tokens[:, i : i + 1])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        steps.append(out)
+    got = torch.stack(steps, 1)  # positions prompt-1 .. total-1
+    padded = torch.nn.functional.pad(tokens, (0, -total % 512))
+    with torch.no_grad():
+        hidden, _ = model(padded)
+        want = (hidden[:, prompt - 1 : total] @ model.lm_head.to(model.cfg.dtype)).float()
+    del hidden
+    top2 = want.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]) / want.abs().amax(-1)
+    differ = got.argmax(-1) != want.argmax(-1)
+    near = float((gap <= NEAR_TIE).float().mean())
+    return {"prefill_s": t_prefill, "secs": secs, "agree": 1 - float(differ.float().mean()),
+            "rel": float((got - want).abs().max() / want.abs().max()),
+            "differ": int(differ.sum()), "at_prefill": int(differ[:, 0].sum()),
+            "gap_differ": float(gap[differ].max()) if bool(differ.any()) else 0.0,
+            "gap_median": float(gap.median()), "near_tie": near, "cache": cache}
+
+
+def decode_profile(model, cache, token) -> str:
+    """One decode step under ``torch.profiler``: the card's busy time by
+    kernel (the five largest) beside the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+
+    cache = dict(cache, length=cache["length"] - 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tfm.decode_step(model, cache, token)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by: dict = {}
+    for e in ev:
+        by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
+    return (f"one decode step under the profiler: {wall * 1e3:.2f} ms wall, {len(ev)} kernels, "
+            f"{busy / 1e3:.2f} ms of device time ({busy / 1e3 / (wall * 1e3):.1%} busy); largest: "
+            + "; ".join(f"{n[:60]} {us / 1e3:.2f} ms" for n, us in top))
+
+
+def phase_models_serve(dev, smi: str, model) -> dict:
+    """(d) qwen2.5-3b at its published widths (the train phase's model):
+    a prompt of 512 tokens for a batch of 8, then 32 decode steps from the
+    KV cache (length 544), each step's logits held against the
+    teacher-forced forward of the same 544 tokens, in the model's bfloat16
+    compute; then the same in float32 compute on the same weights."""
+    from repro_torch.models import transformer as tfm
+
+    cfg, n = model.cfg, LM_SERVE
+    total = n.prompt + n.steps
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (n.batch, total), generator=g, device=dev)
+    model.requires_grad_(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tfm.prefill(model, tokens[:, : n.prompt])  # warm-up: the timed prefill is the second
+    r = decode_against_forward(model, tokens, n.prompt)
+    peak = torch.cuda.max_memory_allocated()
+    prof = decode_profile(model, r.pop("cache"), tokens[:, -1:])
+    with compute_dtype(model, torch.float32):
+        r32 = decode_against_forward(model, tokens, n.prompt)
+    r32.pop("cache")
+    step_ms = statistics.median(r["secs"]) * 1e3
+    t_prefill = r["prefill_s"]
+    desc = lambda x: (f"argmax equal at {x['agree']:.2%} ({x['differ']} positions differ, "
+                      f"{x['at_prefill']} of them the prefill's; the forward's top-2 gap there at "
+                      f"most {x['gap_differ']:.3g} of the largest logit, median gap over all "
+                      f"{x['gap_median']:.3g}; {x['near_tie']:.2%} of the positions within "
+                      f"{NEAR_TIE}), largest difference {x['rel']:.4g} of the largest logit")
+    log("models", f"qwen2.5-3b serving at full width (bf16 compute; {smi}): prefill of "
+        f"{n.batch} x {n.prompt} tokens {t_prefill * 1e3:.1f} ms ({n.batch * n.prompt / t_prefill:.0f} "
+        f"tokens/s), {n.steps} decode steps from a cache of {total}: median {step_ms:.2f} ms a step "
+        f"({n.batch / step_ms * 1e3:.0f} tokens/s; first {r['secs'][0] * 1e3:.2f} ms); peak device "
+        f"memory {peak / 2**30:.2f} GiB; against the teacher-forced forward of the {total} tokens "
+        f"at the {n.steps + 1} positions: {desc(r)} (gates: difference at most {DECODE_REL}, the "
+        f"top-2 gap where the argmax differs at most {NEAR_TIE}); {prof}")
+    log("models", f"the same in float32 compute: prefill {r32['prefill_s'] * 1e3:.1f} ms, decode "
+        f"median {statistics.median(r32['secs']) * 1e3:.2f} ms a step; {desc(r32)} (gates: "
+        f"argmax {DECODE_ARGMAX:.0%}, difference {DECODE_REL_F32})")
+    if not (r32["agree"] >= DECODE_ARGMAX and r32["rel"] <= DECODE_REL_F32):
+        raise AssertionError(f"qwen2.5-3b decode, float32: argmax agreement {r32['agree']}, "
+                             f"difference {r32['rel']}")
+    if not (r["rel"] <= DECODE_REL and r["gap_differ"] <= NEAR_TIE):
+        raise AssertionError(f"qwen2.5-3b decode, bfloat16: difference {r['rel']}; an argmax "
+                             f"differs where the forward's top-2 gap is {r['gap_differ']}")
+    return {"prefill_ms": t_prefill * 1e3, "decode_ms": step_ms, "peak_gib": peak / 2**30,
+            "argmax_agree": r["agree"], "rel_diff": r["rel"], "f32": r32}
+
+
+def phase_models_two_tower(dev, smi: str) -> dict:
+    """(b) two-tower-retrieval at its published widths: trained through
+    ``launch.train``'s ``build_task`` and ``train_loop``, every item encoded
+    through the item tower, LIDER built over the items and searched with
+    the user tower's outputs through the kernels."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import lider
+    from repro_torch.core.baselines import flat_search
+    from repro_torch.core.utils import l2_normalize, recall_at_k
+    from repro_torch.data import pipeline as pipe_lib
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import recsys
+    from repro_torch.testing import assert_topk_match
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_loop
+
+    tt = TWO_TOWER
+    cfg = get_arch("two-tower-retrieval").config
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model, loss_fn, batch_at = train_cli.build_task("two-tower-retrieval", "full", tt.batch, 0,
+                                                    device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = opt_lib.OptimizerConfig(warmup_steps=max(tt.steps // 10, 1), decay_steps=tt.steps)
+    opt_state = opt_lib.init_state(dict(model.named_parameters()))
+    real = train_loop.make_train_step(loss_fn, opt_cfg)
+    secs, losses = [], []
+
+    def step(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a)
+        losses.append(float(out[2]["loss"]))
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    pipe = pipe_lib.DataPipeline(batch_at, prefetch=2)
+    try:
+        train_loop.run(step, model, opt_state, pipe, n_steps=tt.steps, log_every=0)
+    finally:
+        pipe.close()
+    peak_train = torch.cuda.max_memory_allocated() - held
+    del opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(secs[1:]) * 1e3
+    log("models", f"two-tower-retrieval at its published widths ({n_params / 1e6:.1f} M "
+        f"parameters: embed {cfg.embed_dim}, towers {cfg.tower_dims}, item_vocab {cfg.item_vocab}, "
+        f"field_vocab {cfg.field_vocab} x {cfg.n_user_fields} user fields): {tt.steps} steps at "
+        f"batch {tt.batch} (cut from 65,536), median {step_ms:.2f} ms a step (first "
+        f"{secs[0] * 1e3:.1f} ms; {tt.batch / step_ms * 1e3:.0f} examples/s; {smi}); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak device memory {peak_train / 2**30:.2f} GiB "
+        f"(reckoned ~{16 * n_params / 1e9:.1f} GB of weights, gradients and AdamW moments)")
+    if not all(math.isfinite(v) for v in losses) or len(losses) != tt.steps:
+        raise AssertionError(f"two-tower: {len(losses)} losses, {losses}")
+
+    n = cfg.item_vocab
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        embs = torch.empty((n, cfg.tower_dims[-1]), device=dev)
+        for s in range(0, n, tt.encode_chunk):
+            ids = torch.arange(s, min(s + tt.encode_chunk, n), dtype=torch.int32, device=dev)
+            items = torch.stack([ids, torch.zeros_like(ids)], dim=1)
+            embs[s : s + ids.shape[0]] = l2_normalize(recsys.item_embed(model, items))
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+
+    icfg = dataclasses.replace(CONFIG.lider, n_clusters=tt.n_clusters)
+    build_calls = []
+    built = build_counted("models", dev, embs, icfg, calls=build_calls, seed=SEED)
+    params = built.params
+    sizes = torch.bincount(built.km.assignment.to(torch.int64), minlength=icfg.n_clusters)
+    log("models", f"encoded {n} items in {t_enc:.2f} s ({n / t_enc:.0f} items/s); LIDER build "
+        f"(c={icfg.n_clusters}, {icfg.kmeans_iters} Lloyd steps, float32) {built.secs:.2f} s "
+        f"({fmt_stages(built)}); largest cluster {int(sizes.max())}, Lp {built.stats.capacity}, "
+        f"bank {icfg.n_clusters * built.stats.capacity * embs.shape[1] * 4 / 1e9:.2f} GB, "
+        f"{built.stats.n_dropped} items dropped; " + lloyd_sums(embs, built.km.assignment,
+                                                               icfg.n_clusters)
+        + f"; k-means {built.stages.get('k-means', 0.0) / icfg.kmeans_iters * 1e3:.1f} ms a Lloyd "
+        "step with its assignment")
+
+    users = synthetic.recsys_batch(SEED, 10**6, kind="two_tower", batch=tt.users, cfg=cfg,
+                                   device=dev)["user_fields"]
+    ub = [users[i : i + tt.user_batch] for i in range(0, tt.users, tt.user_batch)]
+    with torch.no_grad():
+        qs = [l2_normalize(recsys.user_embed(model, u)) for u in ub]
+    k = tt.k
+    search = lambda q: lider.search_lider(params, q, k=k, n_probe=icfg.n_probe, r0=icfg.r0,
+                                          r0_centroid=icfg.r0_centroid)
+    kernel_calls = []
+    with recording(kernel_calls):
+        search(qs[0])
+    torch.cuda.synchronize()
+    if [c[0] for c in kernel_calls] != ["lsh_hash", "fused_verify"] * 2:
+        raise AssertionError(f"two-tower: one search batch made kernel calls {[c[0] for c in kernel_calls]}")
+    reset_counts()
+    torch.cuda.synchronize()
+    batch_s = []
+    outs = []
+    for q in qs:
+        t0 = time.perf_counter()
+        outs.append(search(q))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    counts = read_counts()
+    want = tuple(len(qs) * v for v in per_batch("F32"))
+    if counts != want:
+        raise AssertionError(f"two-tower search: kernel launches {counts}, expected {want}")
+    ids = torch.cat([o.ids for o in outs])
+    gts, swaps = [], 0
+    for u, q in zip(ub, qs):
+        sc, cand = recsys.two_tower_score_candidates(model, u, embs, k)
+        flat = flat_search(embs, q, k=k)
+        swaps += assert_topk_match(cand, sc, flat.ids, flat.scores)
+        gts.append(flat.ids)
+        del sc, cand
+    gt = torch.cat(gts)
+    rec = float(recall_at_k(ids, gt))
+    # The gap to IVF-Flat split in two: the exact scan of the clusters
+    # LIDER's centroid layer routes to (what routing keeps) and LIDER's
+    # own search of them (what the in-cluster layer keeps of that).
+    q_all = torch.cat(qs)
+    exact_c = torch.topk(q_all @ params.centroids.T, icfg.n_probe, dim=-1).indices
+    routed_c = torch.cat([lider.route_queries(params, q, n_probe=icfg.n_probe,
+                                              r0=icfg.r0_centroid).ids for q in qs])
+    if bool((routed_c < 0).any()):
+        raise AssertionError("two-tower: routing returned fewer clusters than n_probe")
+    ivf = float(recall_at_k(exact_scan_ids(params, q_all, exact_c, k), gt))
+    routed = float(recall_at_k(exact_scan_ids(params, q_all, routed_c, k), gt))
+    overlap = float((routed_c[:, :, None] == exact_c[:, None, :]).any(-1).float().mean())
+    wider = {}
+    for p in (4 * icfg.n_probe, RECALL_PROBES):
+        got = torch.cat([lider.search_lider(params, q, k=k, n_probe=p, r0=icfg.r0,
+                                            r0_centroid=icfg.r0_centroid).ids for q in qs])
+        wider[p] = float(recall_at_k(got, gt))
+    ms = statistics.median(batch_s) * 1e3
+    log("models", f"{tt.users} users in {len(qs)} batches of {tt.user_batch} at k={k}, n_probe "
+        f"{icfg.n_probe}: median {ms:.2f} ms a batch ({tt.user_batch / ms * 1e3:.0f} queries/s); "
+        f"launches {fmt_counts(counts)} ({per_batch('F32')} per batch, as the code predicts); "
+        f"two_tower_score_candidates == flat_search over the {n} items ({swaps} near-tie swaps); "
+        f"recall@{k} of LIDER against that exact top-{k}: {rec:.4f} at n_probe {icfg.n_probe} "
+        f"(IVF-Flat, an exact scan of the {icfg.n_probe} clusters whose centroids score highest: "
+        f"{ivf:.4f}, so LIDER keeps {rec / ivf:.3f} of it, floor {LIDER_OF_IVF}; an exact scan of "
+        f"the {icfg.n_probe} clusters LIDER routes to: {routed:.4f}, {overlap:.2%} of them among "
+        "the highest-scoring), " + ", ".join(f"{r:.4f} at n_probe {p}" for p, r in wider.items())
+        + f" (floor {RECALL_FLOOR} at n_probe {RECALL_PROBES})")
+    if rec < LIDER_OF_IVF * ivf:
+        raise AssertionError(f"two-tower: recall@{k} {rec} at n_probe {icfg.n_probe} below "
+                             f"{LIDER_OF_IVF} of IVF-Flat's {ivf}")
+    if wider[RECALL_PROBES] < RECALL_FLOOR:
+        raise AssertionError(f"two-tower: recall@{k} {wider[RECALL_PROBES]} at n_probe "
+                             f"{RECALL_PROBES} below {RECALL_FLOOR}")
+    pq = torch.cat(qs)[: tt.plain_users]
+    for i in range(0, tt.plain_users, tt.plain_batch):
+        msg = against_plain(params, search, pq[i : i + tt.plain_batch])
+    log("models", f"the first {tt.plain_users} users in batches of {tt.plain_batch} against the "
+        f"all-plain search: each batch's keys compared, ids equal, scores within rtol 1e-5 (last "
+        f"batch: {msg})")
+
+    calls = []
+    reps = {"k-means step": 5, "bank fit": 20, "centroid fit": 50}
+    for name, args, kw_ in build_calls:
+        role = build_role(name, args, icfg.n_clusters)
+        calls.append(time_build_call("models", role, name, args, kw_, reps=reps[role]))
+    for role, (name, args, kw_), (reps_, chunk) in zip(
+        ("query hash (centroids)", "routing", "query hash (bank)", "in-cluster"), kernel_calls,
+        ((50, 0), (20, 256), (50, 0), (5, 8)),
+    ):
+        if name == "lsh_hash":
+            calls.append(time_build_call("models", role, name, args, kw_, reps=reps_))
+        else:
+            calls.append(time_call("models", role, name, args, kw_, reps=reps_, chunk=chunk))
+    return {"calls": calls, "recall": rec, "recall_wide": wider, "ivf_recall": ivf,
+            "routed_recall": routed, "routed_overlap": overlap,
+            "step_ms": step_ms, "encode_s": t_enc,
+            "build_s": built.secs, "batch_ms": ms, "peak_train_gib": peak_train / 2**30,
+            "build_launches": built.counts, "search_launches": counts}
+
+
+def exact_scan_ids(params, q, cids, k: int, chunk: int = 64) -> torch.Tensor:
+    """The top ``k`` ids of an exact scan of each query's clusters ``cids``
+    (B, P) over the index's own rows, ``chunk`` queries at a time. With the
+    clusters whose centroids score highest, this is IVF-Flat."""
+    bank = params.bank
+    out = []
+    for s in range(0, q.shape[0], chunk):
+        qc, cc = q[s : s + chunk], cids[s : s + chunk]
+        gids = bank.gids[cc].reshape(qc.shape[0], -1)  # (B, P * Lp)
+        sc = torch.einsum("bpld,bd->bpl", bank.embs[cc], qc).reshape(qc.shape[0], -1)
+        sc = torch.where(gids >= 0, sc, float("-inf"))
+        out.append(torch.gather(gids, 1, torch.topk(sc, k, dim=-1).indices))
+    return torch.cat(out)
+
+
+def phase_models_gnn(dev, smi: str) -> dict:
+    """(c) gatedgcn at the ``minibatch_lg`` dims: a random graph of
+    232,965 nodes and 114,615,892 edges on the card, 1,024 seeds sampled
+    with fanout (15, 10), 16 layers of 70, 10 training steps on fresh
+    blocks. Each block's shape is checked, and the first block's every edge
+    against the graph: a sampled neighbour joined to its parent, or a
+    self-loop at a node of degree 0."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_loop
+
+    arch = get_arch("gatedgcn")
+    dims = arch.shape(GNN_LG.shape).dims
+    nn_, ne = dims["n_nodes"], dims["n_edges"]
+    b, fan = dims["batch_nodes"], dims["fanout"]
+    cfg = dataclasses.replace(arch.config, d_feat=dims["d_feat"], n_classes=dims["n_classes"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = synthetic.random_graph(SEED, nn_, ne, cfg.d_feat, cfg.n_classes, device=dev)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    model = gnn.init(SEED, cfg, device=dev)
+    opt_state = opt_lib.init_state(dict(model.named_parameters()))
+    step = train_loop.make_train_step(gnn.train_loss, opt_lib.OptimizerConfig(
+        warmup_steps=1, decay_steps=GNN_LG.steps))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_block = b * (1 + fan[0] + fan[0] * fan[1])
+    n_edges = b * (fan[0] + fan[0] * fan[1])
+    sample_s, step_s, losses = [], [], []
+    for i in range(GNN_LG.steps):
+        t0 = time.perf_counter()
+        seeds = torch.randperm(nn_, generator=gen, device=dev)[:b].to(torch.int32)
+        block = gnn.neighbor_sample(gen, graph["indptr"], graph["indices"], graph["node_feat"],
+                                    graph["labels"], seeds, fan)
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t0)
+        if block["node_feat"].shape[0] != n_block or tuple(block["edge_index"].shape) != (2, n_edges):
+            raise AssertionError(f"gatedgcn block: {block['node_feat'].shape[0]} nodes, edges "
+                                 f"{tuple(block['edge_index'].shape)}; expected {n_block}, {n_edges}")
+        if i == 0:
+            bad = block_edges_outside(graph, block)
+            if bad:
+                raise AssertionError(f"gatedgcn block: {bad} edges join no neighbour to its parent")
+        batch = {k: block[k] for k in ("node_feat", "edge_index", "labels", "label_mask")}
+        t0 = time.perf_counter()
+        model, opt_state, m = step(model, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    log("models", f"gatedgcn at minibatch_lg ({cfg.n_layers} layers x {cfg.d_hidden}, d_feat "
+        f"{cfg.d_feat}, {cfg.n_classes} classes; {smi}): random graph of {nn_} nodes and {ne} edges "
+        f"with its CSR in {t_graph:.2f} s; blocks of {b} seeds at fanout {fan}: {n_block} nodes "
+        f"({b} + {b * fan[0]} + {b * fan[0] * fan[1]}) and {n_edges} edges, every edge of the first a sampled "
+        f"neighbour to its parent or a self-loop at degree 0; sampling median "
+        f"{statistics.median(sample_s) * 1e3:.2f} ms; {GNN_LG.steps} steps: median {step_ms:.2f} ms "
+        f"a step (first {step_s[0] * 1e3:.1f} ms), loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"gatedgcn: losses {losses}")
+    return {"step_ms": step_ms, "peak_gib": peak / 2**30}
+
+
+def block_edges_outside(graph, block) -> int:
+    """Edges of a sampled block that are neither a (parent -> child) edge
+    of the graph, child a neighbour of parent in its CSR row, nor a
+    self-loop at a node of degree 0."""
+    n = graph["indptr"].shape[0] - 1
+    src, dst = graph["edge_index"].to(torch.int64)
+    keys = torch.sort(src * n + dst).values
+    del src, dst
+    nodes = block["block_nodes"].to(torch.int64)
+    child, parent = nodes[block["edge_index"][0].long()], nodes[block["edge_index"][1].long()]
+    want = parent * n + child
+    pos = torch.searchsorted(keys, want).clamp(max=keys.shape[0] - 1)
+    found = keys[pos] == want
+    deg = (graph["indptr"][1:] - graph["indptr"][:-1]).to(torch.int64)
+    loop = (deg[parent] == 0) & (child == parent)
+    return int((~(found | loop)).sum())
+
+
+def phase_models(dev, smi: str, qwen) -> dict:
+    """(a) card against CPU, (d) LM serving at full width, (b) the
+    two-tower + LIDER path at full width, (c) gatedgcn at minibatch_lg."""
+    t0 = time.perf_counter()
+    phase_models_card(smi)
+    serve = phase_models_serve(dev, smi, qwen)
+    del qwen
+    gc.collect()
+    torch.cuda.empty_cache()
+    tt = phase_models_two_tower(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = phase_models_gnn(dev, smi)
+    log("models", f"models phase {time.perf_counter() - t0:.1f} s")
+    return {"serve": serve, "gnn": g, **tt}
 
 
 def entry(name: str, calls: list[dict], launches: int, main_calls: list[dict]) -> dict:
@@ -3005,7 +3538,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(dev, device["smi"])
-    enc = lambda name: [c for c in train["calls"] if c["kernel"] == name]
+    models = phase_models(dev, device["smi"], train["full"].pop("model"))
+    enc = lambda name: [c for c in train["calls"] + models["calls"] if c["kernel"] == name]
     qcalls = q8["calls"] + q4["calls"]
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]
     cfg = CONFIG.lider

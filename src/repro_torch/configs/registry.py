@@ -1,19 +1,23 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The port has the five LM architectures and ``lider-msmarco``. The recsys
-and GNN ids of the JAX package's registry need ``models/recsys.py`` and
-``models/gnn.py``, which are not ported yet: :func:`get_arch` refuses them
-with ``NotImplementedError`` naming the ROADMAP item that ports them.
+The port's copy of the JAX package's registry: the ten assigned
+architectures (five LMs, the GNN and four recsys models) and
+``lider-msmarco``.
 """
 from __future__ import annotations
 
 from . import (
+    din,
+    gatedgcn,
     lider_msmarco,
     llama4_scout_17b_a16e,
     minitron_4b,
     qwen2_5_3b,
     qwen2_72b,
     qwen3_moe_235b_a22b,
+    sasrec,
+    two_tower_retrieval,
+    xdeepfm,
 )
 from .base import ArchSpec
 
@@ -23,25 +27,19 @@ _ALL = (
     qwen2_72b.ARCH,
     qwen3_moe_235b_a22b.ARCH,
     llama4_scout_17b_a16e.ARCH,
+    gatedgcn.ARCH,
+    sasrec.ARCH,
+    two_tower_retrieval.ARCH,
+    din.ARCH,
+    xdeepfm.ARCH,
     lider_msmarco.ARCH,
 )
 
 ARCHS: dict[str, ArchSpec] = {a.arch_id: a for a in _ALL}
-
-_WAITS = "ROADMAP.md queue 1, module 1.2 (models/{recsys,gnn}.py)"
-# Ids of the JAX package's registry that the port does not have yet.
-UNPORTED: dict[str, str] = {
-    "gatedgcn": f"gnn family: {_WAITS}",
-    "sasrec": f"recsys family: {_WAITS}",
-    "two-tower-retrieval": f"recsys family: {_WAITS}",
-    "din": f"recsys family: {_WAITS}",
-    "xdeepfm": f"recsys family: {_WAITS}",
-}
+ASSIGNED = [a.arch_id for a in _ALL if a.arch_id != "lider-msmarco"]
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in UNPORTED:
-        raise NotImplementedError(f"{arch_id} is not ported yet ({UNPORTED[arch_id]})")
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
     return ARCHS[arch_id]

@@ -4,8 +4,11 @@ The port of the JAX package's ``launch/train.py``: config registry ->
 synthetic data pipeline -> train step -> checkpoint manager. It takes the
 reference's flags plus ``--device`` (default: the CUDA device; ``cpu``
 runs on the CPU by name; with no card and no ``--device cpu`` it raises).
-``--preset smoke`` trains :func:`reduced_lm` of the architecture, ``full``
-the published widths.
+``--preset smoke`` trains the architecture's reduced config
+(:func:`reduced_lm`, :func:`reduced_recsys`, :func:`reduced_gnn`), ``full``
+the published widths. Every assigned architecture of the registry trains:
+the LMs on token batches, the recsys models on their step-indexed batches,
+and the GNN full-batch on one random graph of 512 nodes and 4,096 edges.
 
 With ``--ckpt-dir`` a :class:`~repro_torch.training.checkpoint.
 CheckpointManager` saves ``{"params", "opt_state"}`` every
@@ -14,9 +17,7 @@ already holds a step resumes from the newest verified one (the data
 pipeline is step-indexed, so the resumed run sees the batches it would
 have seen).
 
-Only the ``lm`` family is ported: the recsys and GNN architectures raise
-``NotImplementedError`` (``configs.registry.UNPORTED``). :func:`main` takes
-the arguments as a list and returns the logged history.
+:func:`main` takes the arguments as a list and returns the logged history.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from ..configs import get_arch
 from ..data import pipeline as pipe_lib
 from ..data import synthetic
 from ..device import resolve_device
+from ..models import gnn as gnn_lib
+from ..models import recsys as recsys_lib
 from ..models import transformer as tfm
 from ..training import checkpoint as ckpt_lib
 from ..training import optimizer as opt_lib
@@ -55,18 +58,50 @@ def reduced_lm(cfg: tfm.LMConfig) -> tfm.LMConfig:
     )
 
 
+def reduced_recsys(cfg: recsys_lib.RecsysConfig) -> recsys_lib.RecsysConfig:
+    """The smoke preset of a recsys model: small vocabularies and towers."""
+    return dataclasses.replace(
+        cfg,
+        item_vocab=2048,
+        field_vocab=256,
+        seq_len=min(cfg.seq_len, 20),
+        tower_dims=(64, 32),
+        cin_dims=(16, 16),
+        dnn_dims=(32, 32),
+        n_sparse=min(cfg.n_sparse, 13),
+    )
+
+
+def reduced_gnn(cfg: gnn_lib.GNNConfig) -> gnn_lib.GNNConfig:
+    """The smoke preset of the GNN: 3 layers of width 32."""
+    return dataclasses.replace(cfg, n_layers=3, d_hidden=32, d_feat=16, n_classes=5)
+
+
 def build_task(arch_id: str, preset: str, batch: int, seq: int, *, device=None):
     """-> (model, loss_fn, batch_at) on ``device``; the smoke preset
     shrinks the config."""
     arch = get_arch(arch_id)
-    if arch.family != "lm":
-        raise NotImplementedError(f"{arch_id}: family {arch.family} has no training entry point")
     device = resolve_device(device)
-    cfg = reduced_lm(arch.config) if preset == "smoke" else arch.config
-    model = tfm.init(0, cfg, device=device)
-    batch_at = lambda s: synthetic.lm_batch(0, s, batch=batch, seq=seq, vocab=cfg.vocab,
-                                            device=device)
-    return model, tfm.train_loss, batch_at
+    smoke = preset == "smoke"
+    if arch.family == "lm":
+        cfg = reduced_lm(arch.config) if smoke else arch.config
+        model = tfm.init(0, cfg, device=device)
+        batch_at = lambda s: synthetic.lm_batch(0, s, batch=batch, seq=seq, vocab=cfg.vocab,
+                                                device=device)
+        return model, tfm.train_loss, batch_at
+    if arch.family == "recsys":
+        cfg = reduced_recsys(arch.config) if smoke else arch.config
+        model = recsys_lib.init(0, cfg, device=device)
+        batch_at = lambda s: synthetic.recsys_batch(0, s, kind=cfg.kind, batch=batch, cfg=cfg,
+                                                    device=device)
+        return model, recsys_lib.LOSS[cfg.kind], batch_at
+    if arch.family == "gnn":
+        cfg = reduced_gnn(arch.config) if smoke else arch.config
+        model = gnn_lib.init(0, cfg, device=device)
+        graph = synthetic.random_graph(0, 512, 4096, cfg.d_feat, cfg.n_classes, device=device)
+        g = {k: graph[k] for k in ("node_feat", "edge_index", "labels")}
+        return model, gnn_lib.train_loss, lambda s: g  # full-batch
+    raise ValueError(f"{arch_id}: family {arch.family} has no training entry point")
 
 
 def main(argv: Sequence[str] | None = None) -> list[dict]:

@@ -155,6 +155,41 @@ def _weighted_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
 
 
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, Hq, D)
+    cache_k: torch.Tensor,  # (B, S, Hkv, D)
+    cache_v: torch.Tensor,  # (B, S, Hkv, D)
+    *,
+    length: torch.Tensor | int,  # valid cache length (scalar or (B,))
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token attention against a KV cache: positions ``< length``
+    (and ``>= length - window``) are attended to. Scores and the weighted
+    sum run in float32 over the cache (the reference's
+    ``preferred_element_type=float32``), the weights rounded to the cache's
+    type first; masked scores are ``-1e30``."""
+    b, s, hkv, d = cache_k.shape
+    hq = q.shape[2]
+    g = hq // hkv
+    scale = 1.0 / (d**0.5)
+    qr = q.reshape(b, hkv, g, d)
+    s_ = torch.einsum("bhgd,bkhd->bhgk", qr.float(), cache_k.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    length = torch.as_tensor(length, device=q.device)
+    if length.ndim == 0:
+        length = length.expand(b)
+    valid = pos[None, :] < length[:, None]  # (B, S)
+    if window is not None:
+        valid &= pos[None, :] >= (length[:, None] - window)
+    s_ = torch.where(valid[:, None, None, :], s_, _NEG)
+    m = torch.amax(s_, dim=-1, keepdim=True)
+    p = torch.exp(s_ - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    w = (p / torch.clamp(l, min=1e-30)).to(cache_v.dtype).float()
+    out = torch.einsum("bhgk,bkhd->bhgd", w, cache_v.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP / MoE
 # ---------------------------------------------------------------------------

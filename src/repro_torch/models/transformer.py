@@ -13,29 +13,30 @@ layer's activations nor its cast weights outlive its forward.
 logits are live at a time.
 
 The reference keeps its layers stacked on a leading ``(L, ...)`` axis.
-:func:`param_tree` gives any ``{parameter name: tensor}`` mapping (the
-parameters, or optimizer moments keyed by them) in that layout, with each
-layer leaf a :class:`~repro_torch.core.types.Stacked` view of the per-layer
-tensors; :func:`params_to_numpy` and :func:`params_from_numpy` carry
-weights between the module and the reference's numpy tree.
+:func:`~repro_torch.models.tree.param_tree` gives any ``{parameter name:
+tensor}`` mapping (the parameters, or optimizer moments keyed by them) in
+that layout, with each layer leaf a :class:`~repro_torch.core.types.Stacked`
+view of the per-layer tensors; :func:`params_to_numpy` and
+:func:`params_from_numpy` carry weights between the module and the
+reference's numpy tree.
 
-LM serving (``prefill``, ``decode_step``, ``init_cache``) and the sharding
-specs wait for later slices.
+LM serving: :func:`prefill` runs the prompt and returns the last position's
+logits and the KV cache (:func:`init_cache`'s layout, ``(L, B, S, Hkv,
+Dh)``); :func:`decode_step` feeds one token a step. The sharding specs
+wait for the distributed slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..core.types import Stacked, numpy_to_tensor, tensor_to_numpy
 from ..device import resolve_device
-from . import layers
+from . import layers, tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,25 +144,50 @@ class Block(nn.Module):
     def weights(self) -> dict:
         """The layer's parameters as the reference's nested dict, cast to
         the compute dtype (the router stays float32)."""
-        tree: dict = {}
+        nested: dict = {}
         for name, p in self.named_parameters():
             *outer, leaf = name.split(".")
-            node = tree
+            node = nested
             for key in outer:
                 node = node.setdefault(key, {})
             node[leaf] = p
-        return layers.cast_floats(tree, self.cfg.dtype)
+        return layers.cast_floats(nested, self.cfg.dtype)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, window: int | None):
-        """x (B, S, d) -> (x after the layer, MoE aux loss); ``cos``/``sin``
-        are RoPE's tables (``layers.rope_tables``)."""
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, window: int | None,
+                collect: bool = False):
+        """x (B, S, d) -> (x after the layer, MoE aux loss), and with
+        ``collect`` the layer's (k, v), each (B, S, Hkv, Dh) after RoPE;
+        ``cos``/``sin`` are RoPE's tables (``layers.rope_tables``)."""
         lp = self.weights()
-        x = x + _attn_block(lp, self.cfg, x, cos, sin, window)
+        o, kv = _attn_block(lp, self.cfg, x, cos, sin, window)
+        x = x + o
         mlp_out, aux = _mlp_block(lp, self.cfg, x)
-        return x + mlp_out, aux
+        return (x + mlp_out, aux, kv) if collect else (x + mlp_out, aux)
+
+    def decode(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, length: int,
+               cos: torch.Tensor, sin: torch.Tensor, window: int) -> torch.Tensor:
+        """One token, x (B, 1, d), against this layer's cache (B, S, Hkv,
+        Dh): its k and v are written into the cache at ``length``, in
+        place, and it attends to positions ``< length + 1``."""
+        cfg = self.cfg
+        b = x.shape[0]
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        lp = self.weights()
+        h = layers.rms_norm(x, lp["ln_attn"])
+        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = layers.apply_rope(q.reshape(b, 1, hq, dh), cos, sin)
+        cache_k[:, length] = layers.apply_rope(k.reshape(b, 1, hkv, dh), cos, sin)[:, 0]
+        cache_v[:, length] = v.reshape(b, hkv, dh)
+        o = layers.decode_attention(q, cache_k, cache_v, length=length + 1, window=window)
+        x = x + o.reshape(b, 1, hq * dh) @ lp["wo"]
+        mlp_out, _ = _mlp_block(lp, cfg, x)
+        return x + mlp_out
 
 
-def _attn_block(lp: dict, cfg: LMConfig, x: torch.Tensor, cos, sin, window) -> torch.Tensor:
+def _attn_block(lp: dict, cfg: LMConfig, x: torch.Tensor, cos, sin, window):
+    """-> (the attention's output (B, S, d), its (k, v) after RoPE)."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = layers.rms_norm(x, lp["ln_attn"])
@@ -172,7 +198,7 @@ def _attn_block(lp: dict, cfg: LMConfig, x: torch.Tensor, cos, sin, window) -> t
     k = layers.apply_rope(k.reshape(b, s, hkv, dh), cos, sin)
     v = v.reshape(b, s, hkv, dh)
     o = layers.flash_attention(q, k, v, causal=True, window=window)
-    return o.reshape(b, s, hq * dh) @ lp["wo"]
+    return o.reshape(b, s, hq * dh) @ lp["wo"], (k, v)
 
 
 def _mlp_block(lp: dict, cfg: LMConfig, x: torch.Tensor):
@@ -227,24 +253,34 @@ class Transformer(nn.Module):
                 z = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=p.device)
                 p.copy_(z.mul_(scale))
 
-    def forward(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, tokens: torch.Tensor, *, collect_cache: bool = False):
         """tokens (B, S) -> (hidden (B, S, d) after the final norm, the MoE
-        aux loss summed over layers)."""
+        aux loss summed over layers); with ``collect_cache``, (hidden,
+        (ks, vs), aux), the per-layer keys and values stacked (L, B, S,
+        Hkv, Dh)."""
         cfg = self.cfg
         b, s = tokens.shape
         x = F.embedding(tokens, self.embed).to(cfg.dtype)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         cos, sin = layers.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
-        auxes = []
+        auxes, kvs = [], []
         for layer, w in zip(self.layers, layer_windows(cfg, s).tolist()):
             window = w if w < s else None  # a window at least S long masks nothing
             if torch.is_grad_enabled():
-                x, aux = checkpoint(layer, x, cos, sin, window, use_reentrant=False,
-                                    preserve_rng_state=False)
+                out = checkpoint(layer, x, cos, sin, window, collect_cache, use_reentrant=False,
+                                 preserve_rng_state=False)
             else:
-                x, aux = layer(x, cos, sin, window)
+                out = layer(x, cos, sin, window, collect_cache)
+            x, aux = out[0], out[1]
             auxes.append(aux)
-        return layers.rms_norm(x, self.ln_final), torch.stack(auxes).sum()
+            if collect_cache:
+                kvs.append(out[2])
+        hidden, aux = layers.rms_norm(x, self.ln_final), torch.stack(auxes).sum()
+        if collect_cache:
+            ks = torch.stack([k for k, _ in kvs])
+            vs = torch.stack([v for _, v in kvs])
+            return hidden, (ks, vs), aux
+        return hidden, aux
 
 
 def init(seed: int, cfg: LMConfig, *, device: str | torch.device | None = None) -> Transformer:
@@ -288,68 +324,74 @@ def train_loss(model: Transformer, batch: Mapping[str, torch.Tensor]) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# The reference's layout
+# Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
 
-def param_tree(named: Mapping[str, torch.Tensor]) -> dict:
-    """``{parameter name: tensor}`` in the reference's nested layout:
-    ``layers.{i}.moe.w_up`` becomes the ``i``-th part of the
-    :class:`Stacked` leaf ``tree["layers"]["moe"]["w_up"]``; no copy."""
-    tree: dict = {}
-    stacks: dict[tuple, dict[int, torch.Tensor]] = {}
-    for name, t in named.items():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            stacks.setdefault(("layers", *parts[2:]), {})[int(parts[1])] = t
-        else:
-            _set(tree, parts, t)
-    for key, by_layer in stacks.items():
-        _set(tree, key, Stacked([by_layer[i] for i in range(len(by_layer))]))
-    return tree
+def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device=None) -> dict:
+    """An empty KV cache: ``k`` and ``v`` (L, B, max_len, Hkv, Dh) in the
+    compute dtype, ``length`` 0 (a host int)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    device = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device), "length": 0}
 
 
-def _set(tree: dict, path, value) -> None:
-    for key in path[:-1]:
-        tree = tree.setdefault(key, {})
-    tree[path[-1]] = value
+def _logits(model: Transformer, hidden: torch.Tensor) -> torch.Tensor:
+    return (hidden @ model.lm_head.to(model.cfg.dtype)).float()
 
 
-def _lookup(tree, name: str) -> np.ndarray:
-    parts = name.split(".")
-    index = None
-    if parts[0] == "layers":
-        index, parts = int(parts[1]), ["layers", *parts[2:]]
-    node = tree
-    for key in parts:
-        node = node[key]
-    return node if index is None else node[index]
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int | None = None):
+    """Run the prompt (B, S) -> (the last position's logits (B, V) in
+    float32, the cache). The cache holds the prompt's keys and values at
+    positions ``0 .. S-1`` and ``length`` S; ``max_len`` (default S, the
+    reference's) sizes it, so that ``max_len - S`` tokens can follow."""
+    hidden, (ks, vs), _ = model(tokens, collect_cache=True)
+    s = tokens.shape[1]
+    if max_len is not None and max_len > s:
+        cache = init_cache(model.cfg, tokens.shape[0], max_len, device=tokens.device)
+        cache["k"][:, :, :s], cache["v"][:, :, :s] = ks, vs
+    else:
+        cache = {"k": ks, "v": vs}
+    cache["length"] = s
+    return _logits(model, hidden[:, -1]), cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: dict, token: torch.Tensor):
+    """One autoregressive step, token (B, 1) -> (logits (B, V) in float32,
+    the cache). The cache is updated in place: each layer's k and v are
+    written at position ``length`` (where the reference's
+    ``dynamic_update_slice`` writes them), and ``length`` grows by one. A
+    full cache raises (the reference would clamp the write to the last
+    position)."""
+    cfg = model.cfg
+    b = token.shape[0]
+    length, max_len = int(cache["length"]), cache["k"].shape[2]
+    if length >= max_len:
+        raise ValueError(f"the cache is full: length {length} of {max_len}")
+    x = F.embedding(token, model.embed).to(cfg.dtype)  # (B, 1, d)
+    positions = torch.full((b, 1), length, device=token.device)
+    cos, sin = layers.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
+    for i, (layer, w) in enumerate(zip(model.layers, layer_windows(cfg, max_len).tolist())):
+        x = layer.decode(x, cache["k"][i], cache["v"][i], length, cos, sin, w)
+    cache["length"] = length + 1
+    return _logits(model, layers.rms_norm(x, model.ln_final))[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# The reference's layout
+# ---------------------------------------------------------------------------
 
 
 def params_to_numpy(model: Transformer) -> dict:
     """The module's weights as the reference's parameter tree of numpy
     arrays, layers stacked on a leading axis (bfloat16 as ``'V2'``)."""
-
-    def leaf(v):
-        if isinstance(v, Stacked):
-            return np.stack([tensor_to_numpy(t) for t in v.parts])
-        return tensor_to_numpy(v)
-
-    def walk(node):
-        return {k: walk(v) for k, v in node.items()} if isinstance(node, dict) else leaf(node)
-
-    return walk(param_tree(dict(model.named_parameters())))
+    return tree.to_numpy(model)
 
 
-@torch.no_grad()
-def params_from_numpy(tree, cfg: LMConfig, *, device: str | torch.device | None = None) -> Transformer:
+def params_from_numpy(t, cfg: LMConfig, *, device: str | torch.device | None = None) -> Transformer:
     """A :class:`Transformer` on ``device`` holding the weights of the
     reference's parameter tree (numpy or array-likes, layers stacked)."""
-    model = Transformer(cfg, device=device)
-    for name, p in model.named_parameters():
-        t = numpy_to_tensor(np.asarray(_lookup(tree, name)))
-        if t.shape != p.shape or t.dtype != p.dtype:
-            raise ValueError(f"{name}: tree holds {tuple(t.shape)} {t.dtype}, "
-                             f"the model {tuple(p.shape)} {p.dtype}")
-        p.copy_(t)
-    return model
+    return tree.load(Transformer(cfg, device=device), t)

@@ -264,17 +264,25 @@ def loss_and_grads(model, loss_fn, batch) -> tuple[float, dict[str, torch.Tensor
     return float(loss.detach()), grads
 
 
+# The architectures whose reduced configs :func:`card_against_cpu` runs.
+CARD_IDS = ("qwen2.5-3b", "llama4-scout-17b-a16e", "gatedgcn", "sasrec", "two-tower-retrieval",
+            "din", "xdeepfm")
+
+
 def card_configs() -> dict:
     """The configs :func:`card_against_cpu` is run on: ``reduced_lm`` of
     qwen2.5-3b (dense, qkv bias), and of llama4-scout-17b-a16e (MoE) with
     its local windows made to fire: four layers, window 16 on layers 0-2
-    (layer 3 global), at sequence 64."""
+    (layer 3 global), at sequence 64; and the reduced config of the GNN and
+    of each recsys model (``reduced_gnn``, ``reduced_recsys``)."""
     from .configs import get_arch
-    from .launch.train import reduced_lm
+    from .launch.train import reduced_gnn, reduced_lm, reduced_recsys
 
-    llama = reduced_lm(get_arch("llama4-scout-17b-a16e").config)
-    return {"qwen2.5-3b": reduced_lm(get_arch("qwen2.5-3b").config),
-            "llama4-scout-17b-a16e": dataclasses.replace(llama, n_layers=4, window=16)}
+    reduce = {"lm": reduced_lm, "gnn": reduced_gnn, "recsys": reduced_recsys}
+    out = {a: reduce[get_arch(a).family](get_arch(a).config) for a in CARD_IDS}
+    out["llama4-scout-17b-a16e"] = dataclasses.replace(out["llama4-scout-17b-a16e"], n_layers=4,
+                                                        window=16)
+    return out
 
 
 def load_example(name: str):
@@ -287,25 +295,46 @@ def load_example(name: str):
     return mod
 
 
-def card_against_cpu(cfg, *, batch: int, seq: int, seed: int = 0) -> dict:
-    """The LM's loss and every gradient on the card against the same step
-    on the CPU, float32 with TF32 off: one set of weights (drawn on the
-    CPU, copied to the card) and one batch. Raises unless the loss is
-    within ``LOSS_RTOL`` and every gradient within ``GRAD_RTOL`` /
-    ``GRAD_ATOL`` (plus ``NEAR_ZERO``); returns the errors, each in units
-    of its tolerance."""
-    from .data.synthetic import lm_batch
+def _task(cfg, batch: int | None, seq: int, seed: int):
+    """(model library, loss function, batch on the CPU) for a config of any
+    family; ``batch`` None takes the family's default (2 sequences of
+    ``seq`` tokens, 16 recsys rows, a graph of 128 nodes and 512 edges)."""
+    from .data import synthetic
+    from .models import gnn, recsys
     from .models import transformer as tfm
 
-    if cfg.dtype != torch.float32 or cfg.param_dtype != torch.float32:
+    if isinstance(cfg, tfm.LMConfig):
+        b = synthetic.lm_batch(seed, 0, batch=batch or 2, seq=seq, vocab=cfg.vocab, device="cpu")
+        return tfm, tfm.train_loss, b
+    if isinstance(cfg, recsys.RecsysConfig):
+        b = synthetic.recsys_batch(seed, 0, kind=cfg.kind, batch=batch or 16, cfg=cfg, device="cpu")
+        return recsys, recsys.LOSS[cfg.kind], b
+    n = batch or 128
+    g = synthetic.random_graph(seed, n, 4 * n, cfg.d_feat, cfg.n_classes, device="cpu")
+    return gnn, gnn.train_loss, {k: g[k] for k in ("node_feat", "edge_index", "labels")}
+
+
+def _float32_on_card(cfg) -> None:
+    if cfg.dtype != torch.float32 or getattr(cfg, "param_dtype", torch.float32) != torch.float32:
         raise ValueError("the card-against-CPU check runs in float32")
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 products are on: the card would not compute in float32")
-    cpu = tfm.init(seed, cfg, device="cpu")
-    card = tfm.params_from_numpy(tfm.params_to_numpy(cpu), cfg, device="cuda")
-    b = lm_batch(seed, 0, batch=batch, seq=seq, vocab=cfg.vocab, device="cpu")
-    loss_c, grads_c = loss_and_grads(cpu, tfm.train_loss, b)
-    loss_g, grads_g = loss_and_grads(card, tfm.train_loss, {k: v.cuda() for k, v in b.items()})
+
+
+def card_against_cpu(cfg, *, batch: int | None = None, seq: int = 64, seed: int = 0) -> dict:
+    """The model's loss and every gradient on the card against the same
+    step on the CPU, float32 with TF32 off, for a config of any family
+    (LM, recsys, GNN): one set of weights (drawn on the CPU, copied to the
+    card) and one batch. Raises unless the loss is within ``LOSS_RTOL``
+    and every gradient within ``GRAD_RTOL`` / ``GRAD_ATOL`` (plus
+    ``NEAR_ZERO``); returns the errors, each in units of its tolerance."""
+    _float32_on_card(cfg)
+    lib, loss_fn, b = _task(cfg, batch, seq, seed)
+    cpu = lib.init(seed, cfg, device="cpu")
+    card = lib.params_from_numpy(lib.params_to_numpy(cpu), cfg, device="cuda")
+    loss_c, grads_c = loss_and_grads(cpu, loss_fn, b)
+    on_card = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in b.items()}
+    loss_g, grads_g = loss_and_grads(card, loss_fn, on_card)
     if set(grads_c) != set(grads_g):
         raise AssertionError(f"gradients of other parameters: {sorted(set(grads_c) ^ set(grads_g))}")
     loss_err = abs(loss_g - loss_c) / (LOSS_RTOL * abs(loss_c))
@@ -317,3 +346,32 @@ def card_against_cpu(cfg, *, batch: int, seq: int, seed: int = 0) -> dict:
                              f"gradient {worst} at {grad_err[worst]:.3g} of its tolerance")
     return {"loss": loss_c, "loss_err": loss_err, "grad_err": grad_err[worst], "worst": worst,
             "n_grads": len(grad_err)}
+
+
+# LM serving on the card against the CPU: float32 logits, rtol 1e-5.
+LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6
+
+
+def serve_card_against_cpu(cfg, *, batch: int = 2, prompt: int = 16, seed: int = 0) -> dict:
+    """The logits of a prefill of ``prompt`` tokens and of one decode step
+    after it, on the card against the CPU (float32, TF32 off, one set of
+    weights). Raises unless both are within ``LOGIT_RTOL`` / ``LOGIT_ATOL``
+    (plus ``NEAR_ZERO``); returns the errors in units of the tolerance."""
+    from .data.synthetic import lm_batch
+    from .models import transformer as tfm
+
+    _float32_on_card(cfg)
+    cpu = tfm.init(seed, cfg, device="cpu")
+    card = tfm.params_from_numpy(tfm.params_to_numpy(cpu), cfg, device="cuda")
+    tokens = lm_batch(seed, 0, batch=batch, seq=prompt + 1, vocab=cfg.vocab, device="cpu")["tokens"]
+    out = {}
+    for name, model, t in (("cpu", cpu, tokens), ("card", card, tokens.cuda())):
+        logits, cache = tfm.prefill(model, t[:, :prompt], max_len=prompt + 1)
+        step, _ = tfm.decode_step(model, cache, t[:, prompt : prompt + 1])
+        out[name] = (logits.cpu(), step.cpu())
+    errs = {f"{which}_err": scaled_error(out["card"][i], out["cpu"][i], rtol=LOGIT_RTOL,
+                                         atol=LOGIT_ATOL)
+            for i, which in enumerate(("prefill", "decode"))}
+    if max(errs.values()) > 1:
+        raise AssertionError(f"{cfg.name}: serving logits on the card differ from the CPU's: {errs}")
+    return errs

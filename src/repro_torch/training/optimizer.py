@@ -4,7 +4,7 @@ gradient-compression hook (a bfloat16 round trip of the gradients).
 The port of the JAX package's ``training/optimizer.py``. The state mirrors
 the parameters: ``{"mu": {name: tensor}, "nu": {name: tensor}, "step":
 int32 scalar}``, keyed by the module's parameter names
-(:func:`~repro_torch.models.transformer.param_tree` gives it the
+(:func:`~repro_torch.models.tree.param_tree` gives it the
 reference's layout for a checkpoint).
 
 :func:`apply_updates` updates the parameters and the moments in place, where

@@ -17,7 +17,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..models.transformer import param_tree
+from ..models.tree import param_tree
 from . import optimizer as opt_lib
 
 
@@ -69,7 +69,8 @@ def make_train_step(
 
 def state_tree(model: nn.Module, opt_state: dict) -> dict:
     """``{"params", "opt_state"}`` in the reference's checkpoint layout,
-    viewing the live tensors (layers as ``Stacked`` leaves)."""
+    viewing the live tensors, for a model of any family (stacked layers as
+    ``Stacked`` leaves, the reference's lists as lists)."""
     return {
         "params": param_tree(dict(model.named_parameters())),
         "opt_state": {"mu": param_tree(opt_state["mu"]), "nu": param_tree(opt_state["nu"]),

@@ -18,6 +18,11 @@ the elements more than rtol 2e-2 plus that floor apart, the worst by two
 ulps of the largest magnitude. The config is dense because under bfloat16 near-tied router
 choices flip between any two computations (JAX's own bfloat16 MoE forward
 is 13% from its float32 one on these inputs).
+
+LM serving: ``decode_attention`` (windows, per-row lengths), and for the
+reduced config of each of the five LMs (and the MoE-with-windows config)
+the prefill and decode logits and the KV cache against JAX's within rtol
+1e-5, and decode after prefill equal to the model's own full forward.
 """
 import dataclasses
 
@@ -32,6 +37,7 @@ from repro.models import transformer as jtfm
 from repro_torch.core.types import Stacked
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
+from repro_torch.models.tree import param_tree
 
 OUT = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-6)
@@ -258,7 +264,7 @@ def test_params_round_trip(name):
         assert g.dtype == w.dtype and g.shape == w.shape, path
         assert np.array_equal(g, w), path
     # The layout: every layer leaf is a stack of the per-layer tensors.
-    pt = tfm.param_tree(dict(model.named_parameters()))
+    pt = param_tree(dict(model.named_parameters()))
     assert isinstance(pt["layers"]["wq"], Stacked) and pt["layers"]["wq"].shape == tree["layers"]["wq"].shape
     assert pt["layers"]["wq"].parts[1] is model.layers[1].wq
 
@@ -284,7 +290,7 @@ def test_forward_loss_and_grads(name):
     loss.backward()
     grads = {n: p.grad for n, p in model.named_parameters()}
     got = jax.tree.map(lambda s: np.stack([g.numpy() for g in s.parts]) if isinstance(s, Stacked)
-                       else s.numpy(), tfm.param_tree(grads),
+                       else s.numpy(), param_tree(grads),
                        is_leaf=lambda s: isinstance(s, (Stacked, torch.Tensor)))
     _assert_trees(got, jax.tree.map(np.asarray, jgrads), **GRAD)
 
@@ -346,3 +352,91 @@ def test_moe_sequence_chunks(monkeypatch):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     monkeypatch.setattr(tfm, "MOE_SEQ_CHUNK", 8192)  # one dispatch: another loss
     assert float(tfm.train_loss(model, {k: T(v).long() for k, v in batch.items()})) != float(loss)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: prefill, decode and the KV cache
+# ---------------------------------------------------------------------------
+
+
+def _serve_cases():
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro.launch.train import reduced_lm as jreduced_lm
+
+    cases = {a: jreduced_lm(s.config) for a, s in JAX_ARCHS.items() if s.family == "lm"}
+    cases["moe_windows"] = MOE_WINDOWS  # window 8 fires within the 20 positions
+    return cases
+
+
+SERVE = _serve_cases()
+
+
+@pytest.mark.parametrize("length", [5, 12])
+@pytest.mark.parametrize("window", [None, 4])
+def test_decode_attention(length, window):
+    rng = _rng(length)
+    q = _normal(rng, 3, 1, 4, 8)
+    ck, cv = _normal(rng, 3, 16, 2, 8), _normal(rng, 3, 16, 2, 8)
+    lengths = np.array([length, 1, 16], dtype=np.int32)  # per-row lengths too
+    for ln in (length, lengths):
+        got = layers.decode_attention(T(q), T(ck), T(cv), length=T(np.asarray(ln)), window=window)
+        want = jlayers.decode_attention(q, ck, cv, length=ln, window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT)
+
+
+@pytest.mark.parametrize("name", sorted(SERVE))
+def test_prefill_and_decode_match_jax(name):
+    """Prefill of 16 tokens and one decode step: the logits and the cache
+    contents against JAX's (whose cache is padded by 16, as
+    ``tests/test_arch_smoke.py`` pads it)."""
+    jcfg = SERVE[name]
+    tree = jax_tree(jcfg, random_bias=jcfg.qkv_bias)
+    for b in ("bq", "bk", "bv") if jcfg.qkv_bias else ():
+        tree["layers"][b] = tree["layers"][b].astype(np.asarray(tree["layers"]["wq"]).dtype)
+    model = tfm.params_from_numpy(tree, port_cfg(jcfg), device="cpu")
+    tokens = batch_np(21, 2, 32, jcfg.vocab)["tokens"]
+    logits, cache = tfm.prefill(model, T(tokens[:, :16]).long(), max_len=32)
+    jlogits, jcache = jtfm.prefill(tree, jcfg, tokens[:, :16])
+    assert logits.dtype == torch.float32 and cache["length"] == 16
+    assert_close(logits.numpy(), jlogits, **OUT)
+    for kv in ("k", "v"):
+        assert_close(cache[kv][:, :, :16].numpy(), jcache[kv], err_msg=kv, **OUT)
+        assert not cache[kv][:, :, 16:].any()
+    pad = ((0, 0), (0, 0), (0, 16), (0, 0), (0, 0))
+    jcache = {"k": jnp.pad(jcache["k"], pad), "v": jnp.pad(jcache["v"], pad),
+              "length": jcache["length"]}
+    logits2, cache = tfm.decode_step(model, cache, T(tokens[:, 16:17]).long())
+    jlogits2, jcache = jtfm.decode_step(tree, jcfg, jcache, tokens[:, 16:17])
+    assert cache["length"] == int(jcache["length"]) == 17
+    assert_close(logits2.numpy(), jlogits2, **OUT)
+    for kv in ("k", "v"):
+        assert_close(cache[kv].numpy(), jcache[kv], err_msg=kv, **OUT)
+
+
+@pytest.mark.parametrize("name", sorted(SERVE))
+def test_decode_after_prefill_equals_forward(name):
+    """Prefill of 12 tokens then 8 decode steps, teacher-forced: each
+    step's logits equal the full forward's at that position, and the cache
+    holds the forward's keys and values. MoE configs run with capacity for
+    every (token, choice) pair: the reference's expert capacity grows with
+    the sequence, so where pairs are dropped a prefix of 12 tokens and the
+    whole 20 route differently in both packages."""
+    jcfg = SERVE[name]
+    if jcfg.moe:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=1e3))
+    model = tfm.params_from_numpy(jax_tree(jcfg, seed=1), port_cfg(jcfg), device="cpu")
+    tokens = T(batch_np(22, 2, 20, jcfg.vocab)["tokens"]).long()
+    logits, cache = tfm.prefill(model, tokens[:, :12], max_len=20)
+    steps = [logits]
+    for i in range(12, 20):
+        steps.append(tfm.decode_step(model, cache, tokens[:, i : i + 1])[0])
+    with pytest.raises(ValueError, match="full"):
+        tfm.decode_step(model, cache, tokens[:, :1])
+    with torch.no_grad():
+        hidden, _ = model(tokens)
+        want = (hidden[:, 11:] @ model.lm_head.to(model.cfg.dtype)).float()
+    assert_close(torch.stack(steps[:-1], 1).numpy(), want[:, :-1].numpy(), **OUT)
+    with torch.no_grad():
+        _, (ks, vs), _ = model(tokens, collect_cache=True)
+    assert_close(cache["k"][:, :, :19].numpy(), ks[:, :, :19].numpy(), **OUT)
+    assert_close(cache["v"][:, :, :19].numpy(), vs[:, :, :19].numpy(), **OUT)

@@ -4,18 +4,25 @@
   the five LM architectures (finite loss and grad norm: the train half of
   ``tests/test_arch_smoke.py::test_lm_arch_smoke``), and a run resumed from
   ``--ckpt-dir`` that ends where the uninterrupted run ends, bit for bit.
-- The registry: the port's ids plus the ids it refuses are the JAX
-  package's ``ARCHS``; the unported families raise ``NotImplementedError``;
-  without a card and without ``--device cpu`` the launcher raises.
+- The same for each recsys and GNN architecture, started from the JAX
+  package's ``build_task`` weights and batches: the first logged loss is
+  JAX's loss on that batch (rtol 1e-5).
+- The registry: the port's ``ARCHS`` and ``ASSIGNED`` are the JAX
+  package's, configs equal; without a card and without ``--device cpu``
+  the launcher raises.
 - ``examples/train_encoder_e2e_torch.py`` at its ``tiny`` preset end to
   end (the contrastive loss falls, LIDER's recall@10 against Flat), a
   preempted run equal to the uninterrupted one bit for bit, and its
   ``encode`` on JAX-initialised weights equal to the JAX example's
   ``encode`` (rtol 1e-5, and 1e-5 of the largest magnitude near zero).
 - On the card (``gpu``-marked): the loss and every gradient of a reduced
-  dense and a reduced MoE config with local windows equal to the CPU's
-  (``repro_torch.testing.card_against_cpu``), and a preempted run equal to
-  the uninterrupted one bit for bit under deterministic algorithms.
+  dense and a reduced MoE config with local windows, and of the reduced
+  recsys and GNN configs, equal to the CPU's
+  (``repro_torch.testing.card_against_cpu``); the prefill and decode
+  logits of the two LM configs equal to the CPU's
+  (``repro_torch.testing.serve_card_against_cpu``); and a preempted run
+  equal to the uninterrupted one bit for bit under deterministic
+  algorithms.
 
 JAX is imported inside the tests that compare with it, so the file
 collects on the card, where there is no JAX.
@@ -30,12 +37,13 @@ import pytest
 import torch
 
 from repro_torch import testing
-from repro_torch.configs import ARCHS, UNPORTED, get_arch
+from repro_torch.configs import ARCHS, ASSIGNED, get_arch
 from repro_torch.launch import train
 from repro_torch.models import transformer as tfm
 from repro_torch.training import checkpoint as ckpt
 
 LM_ARCHS = sorted(a for a, spec in ARCHS.items() if spec.family == "lm")
+NEW_FAMILIES = sorted(a for a, spec in ARCHS.items() if spec.family in ("recsys", "gnn"))
 SMOKE = ["--device", "cpu", "--batch", "2", "--seq", "32"]
 
 
@@ -79,17 +87,20 @@ def test_resume_from_ckpt_dir(tmp_path):
 
 def test_registry_matches_jax():
     from repro.configs import ARCHS as JAX_ARCHS
+    from repro.configs import ASSIGNED as JAX_ASSIGNED
+    from test_torch_gnn import port_cfg as gnn_cfg
     from test_torch_models import port_cfg
+    from test_torch_recsys import port_cfg as recsys_cfg
 
-    assert set(ARCHS) | set(UNPORTED) == set(JAX_ARCHS)
-    assert not set(ARCHS) & set(UNPORTED)
+    assert list(ARCHS) == list(JAX_ARCHS) and ASSIGNED == JAX_ASSIGNED
+    convert = {"lm": port_cfg, "recsys": recsys_cfg, "gnn": gnn_cfg}
     for a in ARCHS:
         spec, jspec = ARCHS[a], JAX_ARCHS[a]
         shapes = lambda s: [dataclasses.astuple(x) for x in s.shapes]
         assert (spec.family, shapes(spec), spec.skip_shapes, spec.source) == (
             jspec.family, shapes(jspec), jspec.skip_shapes, jspec.source)
-        if spec.family == "lm":
-            assert spec.config == port_cfg(jspec.config)
+        if spec.family in convert:
+            assert spec.config == convert[spec.family](jspec.config)
     jl = JAX_ARCHS["lider-msmarco"].config
     pl = ARCHS["lider-msmarco"].config
     assert (pl.corpus_size, pl.dim, pl.capacity, pl.k) == (jl.corpus_size, jl.dim, jl.capacity, jl.k)
@@ -98,15 +109,30 @@ def test_registry_matches_jax():
             assert getattr(pl.lider, f.name) == getattr(jl.lider, f.name), f.name
 
 
-@pytest.mark.parametrize("arch_id", sorted(UNPORTED))
-def test_unported_families_raise(arch_id):
-    from repro.configs import ARCHS as JAX_ARCHS
+@pytest.mark.parametrize("arch_id", NEW_FAMILIES)
+def test_new_family_trains_from_jax_start(arch_id, monkeypatch):
+    """``main`` on the smoke preset, its model holding the weights of JAX's
+    ``build_task`` and its batches JAX's: the first step's loss is JAX's
+    loss on that batch, and the run's losses and norms are finite."""
+    import jax
 
-    assert JAX_ARCHS[arch_id].family in ("recsys", "gnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch(arch_id)
-    with pytest.raises(NotImplementedError):
-        train.main(["--arch", arch_id] + SMOKE)
+    from repro.launch.train import build_task as jbuild_task
+    from repro_torch.data import synthetic
+
+    jparams, jloss_fn, jbatch_at = jbuild_task(arch_id, "smoke", 8, 32)
+    want = float(jloss_fn(jparams, jbatch_at(0)))
+    tree = jax.tree.map(np.array, jparams)
+    lib = train.recsys_lib if ARCHS[arch_id].family == "recsys" else train.gnn_lib
+    as_torch = lambda b: {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+    monkeypatch.setattr(lib, "init", lambda seed, cfg, device=None:
+                        lib.params_from_numpy(tree, cfg, device=device))
+    monkeypatch.setattr(synthetic, "recsys_batch", lambda seed, step, **kw: as_torch(jbatch_at(step)))
+    monkeypatch.setattr(synthetic, "random_graph", lambda *a, **kw: as_torch(jbatch_at(0)))
+    hist = train.main(["--arch", arch_id, "--steps", "2"] + SMOKE + ["--batch", "8"])
+    assert [h["step"] for h in hist] == [0, 1]
+    np.testing.assert_allclose(hist[0]["loss"], want, rtol=1e-5)
+    for h in hist:
+        assert np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
 
 
 def test_no_card_no_cpu_flag_raises():
@@ -163,12 +189,21 @@ def test_encoder_encode_matches_jax():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch_id", ["qwen2.5-3b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch_id", sorted(testing.CARD_IDS))
 def test_card_matches_cpu(arch_id):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    out = testing.card_against_cpu(testing.card_configs()[arch_id], batch=2, seq=64)
+    out = testing.card_against_cpu(testing.card_configs()[arch_id])
     assert out["loss_err"] <= 1 and out["grad_err"] <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", ["qwen2.5-3b", "llama4-scout-17b-a16e"])
+def test_serving_card_matches_cpu(arch_id):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = testing.serve_card_against_cpu(testing.card_configs()[arch_id])
+    assert out["prefill_err"] <= 1 and out["decode_err"] <= 1
 
 
 @pytest.mark.gpu
