@@ -142,7 +142,31 @@ Phases, each printing its lines; any failure exits non-zero:
                survivors, deleted ids never surfacing; ``save_index`` then
                ``load_index``, every leaf and the search ids identical;
                small int8 and int4 indexes through upsert == rebuild.
-11. train    — the training path. (a) The loss and every gradient of
+11. distributed — the distributed index (``core.distributed``) at full
+               width: float32, int8 and int4 indexes built in this process,
+               four gloo ranks spawned on the card as a (data=2, model=2)
+               grid, each taking its clusters' shard of every index from
+               this process's tensors through CUDA IPC (every leaf
+               ``torch.equal`` to its slice). Over 4 x 256 queries on F32,
+               Q8, Q8-cm, host-tier Q8, Q4-sk and Q4-sk-cm: launches per
+               rank a batch, the drop count == the host's count from the
+               routed ids; F32 ids == ``search_lider``'s; host-tier Q8
+               scores == ``search_lider``'s bit for bit, ids up to swaps of
+               exactly tied scores (stage 1 == ``host_first_pass`` bit for
+               bit); the other quantized points == the single-device
+               per-pair answer (scores rtol 1e-5), cm == per-query bit for
+               bit; each rank's verification calls on one batch against
+               their plain versions, rank 0's timed beside their bounds.
+               F32 at capacity factor 0.5 drops (== the host's count), ids
+               well formed. F32 on a (4, 1) grid == ``search_lider``, with a
+               dead shard (none of its passages served, every live answer
+               kept) and a ``kill_shard`` fault (== the mask bit for bit,
+               3 of 4 shards live); the sharded Lloyd step over 4 data
+               ranks == ``kmeans_step`` (atol 1e-5). Then a one-rank NCCL
+               world: the F32 search and the Lloyd step. Times are the
+               world's, barrier to barrier: four ranks time-share the card,
+               so they are not scaling numbers.
+12. train    — the training path. (a) The loss and every gradient of
                ``reduced_lm`` of qwen2.5-3b and of llama4-scout-17b-a16e
                (MoE, local windows firing) on the card == the same step on
                the CPU (float32, TF32 off; ``testing.card_against_cpu``).
@@ -166,7 +190,7 @@ Phases, each printing its lines; any failure exits non-zero:
                passage, the first 8 queries == the all-plain search, and
                each recorded kernel call held against its plain version and
                timed.
-12. models   — the recsys and GNN families and LM serving. (a) The loss
+13. models   — the recsys and GNN families and LM serving. (a) The loss
                and every gradient of the reduced gatedgcn, sasrec,
                two-tower-retrieval, din and xdeepfm configs on the card ==
                the CPU (``testing.card_against_cpu``), and the prefill and
@@ -194,10 +218,11 @@ Phases, each printing its lines; any failure exits non-zero:
                blocks of 1,024 seeds at fanout (15, 10) (shapes checked,
                the first block's every edge found in the graph); ms a step,
                peak memory.
-13. kernels  — one JSON line with an entry per kernel (the build kernels'
+14. kernels  — one JSON line with an entry per kernel (the build kernels'
                calls include the baselines', the encoder's and the
-               two-tower's shapes, and ``fused_verify``'s the encoder's and
-               the two-tower's).
+               two-tower's shapes, and the verification kernels' the
+               encoder's, the two-tower's and the distributed ranks'
+               per-pair and per-cell shapes).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2271,11 +2296,17 @@ def phase_fabric(dev, main, fabric_input) -> dict:
         f"{r.stats.n_failovers}; every answer bit-equal; r1 dead, never reprobed, served nothing "
         f"after the kill; " + fleet_line("router", res, wall, r.stats))
 
-    # 3. A straggling replica, hedged at the 0.95 quantile of batch times.
+    # 3. A straggling replica, hedged at the 0.95 quantile of batch times,
+    # with the deadline's floor at half the straggle, so that only a
+    # straggled dispatch is hedged. At the default floor the quantile of the
+    # first dozen batches is about their largest, so a batch only a little
+    # slow was hedged too; when that hedge went to r0 inside the straggle
+    # window, r0 straggled as the hedge, lost, and stayed busy while the
+    # rest of the window went to r1: no straggled primary, no hedge won.
     plan = faults.FaultPlan([faults.FaultSpec(
         "replica_dispatch", mode="straggle", times=tuple(range(16, 26)), delay_s=0.3,
         payload={"replica": "r0"})])
-    r = router(config=RouterConfig(hedge_quantile=0.95), fault_plan=plan)
+    r = router(config=RouterConfig(hedge_quantile=0.95, hedge_floor_s=0.15), fault_plan=plan)
     res, wall = serve_closed(r, np.concatenate([pool_np, pool_np]))
     r.close()
     rs = r.stats
@@ -2283,7 +2314,7 @@ def phase_fabric(dev, main, fabric_input) -> dict:
         raise AssertionError(f"fabric: straggle: hedges {rs.n_hedges}, wins {rs.n_hedge_wins}")
     out["hedge"] = {"hedges": rs.n_hedges, "wins": rs.n_hedge_wins, "losses": rs.n_hedge_losses,
                     "p99_ms": rs.latency_quantile(0.99) * 1e3}
-    log("fabric", f"straggle of 0.3 s on r0 at dispatches 16-25, hedge_quantile 0.95: "
+    log("fabric", f"straggle of 0.3 s on r0 at dispatches 16-25, hedge_quantile 0.95, floor 0.15 s: "
         f"{rs.n_hedges} hedges, {rs.n_hedge_wins} won, {rs.n_hedge_losses} lost; every answer "
         "bit-equal; " + fleet_line("router", res, wall, rs))
     del e0, e1, r, clone, ph8, fabric_input["index"]
@@ -2715,6 +2746,513 @@ def phase_lifecycle_small(dev) -> list[str]:
 # the encoder's recall@10 against Flat catches garbage only (as
 # RECALL_FLOOR), and the contrastive loss must fall to half its first value
 # (the mean of the last 30 steps).
+# ---------------------------------------------------------------------------
+# distributed: the cluster-sharded index over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# The (data, model) grid of four gloo ranks, the second grid of the float32
+# search, the capacity factors (the JAX package's default; a tight one that
+# drops pairs), the shard killed in degraded mode, the plain version's chunk
+# of per-pair query rows (a 64 x 4,000 x 768 float32 gather is 0.8 GB a rank) or of
+# grouped schedule steps.
+DIST = types.SimpleNamespace(grid=(2, 2), grid4=(4, 1), capacity_factor=2.0, tight=0.5,
+                             dead=1, plain_chunk={"fused_verify_grouped": 32}, plain_rows=64)
+
+
+def dist_points() -> list:
+    """``(name, storage, search options, tier)`` of the distributed phase's
+    points: the main path's float32 search, and ``QUANTIZED``'s four points
+    with host-tier Q8 (the three-stage search) beside them."""
+    from repro_torch.configs.lider_msmarco import QUANTIZED
+
+    q = {p.name: p for p in QUANTIZED}
+    return ([("F32", "float32", {}, "device")]
+            + [(n, q[n].storage_dtype, q[n].search_kwargs(), "device") for n in ("Q8", "Q8-cm")]
+            + [("Q8-host", "int8", q["Q8"].search_kwargs(), "host")]
+            + [(n, q[n].storage_dtype, q[n].search_kwargs(), "device") for n in ("Q4-sk", "Q4-sk-cm")])
+
+
+def expected_drops(cids: np.ndarray, shape, capacity_factor: float, n_clusters: int) -> int:
+    """The drop count of one routed batch on a grid, from the routed ids on
+    the host with the dispatch's rule: each (cluster shard, query shard)
+    cell keeps ``min(n_pairs, ceil(n_pairs / S * factor))`` of its pairs,
+    its own first."""
+    s, qs = shape
+    b, p = cids.shape
+    b_loc = b // qs
+    n_pairs = b_loc * p
+    cap = min(n_pairs, int(math.ceil(n_pairs / s * capacity_factor)))
+    c_loc = n_clusters // s
+    total = 0
+    for qi in range(qs):
+        flat = cids[qi * b_loc : (qi + 1) * b_loc].reshape(-1)
+        owner = np.where(flat >= 0, flat // c_loc, -1)
+        for my in range(s):
+            total += max(0, int((owner == my).sum()) - cap)
+    return total
+
+
+def pairwise_reference(params, q, cids, opts: dict, k: int, r0: int):
+    """The sharded search's answer computed on one device, with no drops:
+    each (query, probe) pair searched alone (its own first pass and rescore
+    on a quantized bank), then each query's pairs merged. On a quantized
+    bank this is not ``search_lider``'s answer, which keeps one top-k'
+    over all of a query's probes."""
+    from repro_torch.core import lider
+    from repro_torch.core.utils import dedup_topk
+
+    b, p = cids.shape
+    kw = {key: v for key, v in opts.items() if key in ("rescore_factor", "sketch_factor")}
+    pair = lider.incluster_search(params, q.repeat_interleave(p, dim=0), cids.reshape(-1, 1),
+                                  k=k, r0=r0, **kw)
+    return dedup_topk(pair.ids.reshape(b, -1), pair.scores.reshape(b, -1), k)
+
+
+def rank_search(grid, search, shard, batches, *, health=None, plan=None) -> dict:
+    """Four batches through a sharded search, barrier to barrier: each
+    batch's world wall (rank 0's clock), the rank's seconds in collectives
+    and in the host pre-pass, and the gathered answers."""
+    from repro_torch import faults
+    from repro_torch.core import distributed as D
+
+    res = {"wall_ms": [], "gather_ms": [], "prepass_ms": [], "ids": [], "scores": [], "dropped": []}
+    outs = []
+    with faults.activate(plan) if plan is not None else contextlib.nullcontext():
+        for qb in batches:
+            torch.cuda.synchronize()
+            grid.barrier()
+            t0 = time.perf_counter()
+            out, dropped = search(shard, qb, shard_health=health)
+            torch.cuda.synchronize()
+            grid.barrier()
+            res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            res["gather_ms"].append(search.timings["gather_s"] * 1e3)
+            res["prepass_ms"].append(search.timings["prepass_s"] * 1e3)
+            outs.append((out, int(dropped)))
+            res["stats"] = dict(search.shard_stats)
+    for out, dropped in outs:  # outside the timed batches
+        full = D.gather_query_shards(grid, out)
+        res["ids"].append(full.ids.cpu())
+        res["scores"].append(full.scores.cpu())
+        res["dropped"].append(dropped)
+    res["ids"], res["scores"] = torch.cat(res["ids"]).numpy(), torch.cat(res["scores"]).numpy()
+    return res
+
+
+def rank_calls(grid, name: str, search, shard, qb, *, time_them: bool) -> tuple[list, list]:
+    """One batch with every kernel call recorded; each verification call
+    held against its plain version over the whole call on this rank
+    (bit-equal on quantized and sketch tables, float32 ids equal up to
+    near-tie swaps); rank 0 then times each, alone on the card while the
+    others wait. Returns (this rank's check lines, rank 0's timed calls)."""
+    calls = []
+    with recording(calls, keep=lambda n, a, kw: n != "lsh_hash"):
+        search(shard, qb)
+    torch.cuda.synchronize()
+    checks = []
+    first = True
+    for kname, args, kw in calls:
+        role = dist_role(kname, args, kw, first)
+        first = False
+        got = wrappers()[kname](*args, **kw)
+        want = plain_chunked(kname, args, kw, DIST.plain_chunk.get(kname, DIST.plain_rows))
+        if kname != "fused_verify" or kw.get("scales") is not None:
+            if not bit_equal(got, want):
+                raise AssertionError(f"rank {grid.rank} {name} {role}: {kname} differs from its plain version")
+            checks.append(f"{role} bit-equal")
+        else:
+            err, swaps = compare(got, want)
+            checks.append(f"{role} err {err:.2g} ({swaps} swaps)")
+        del got, want
+    torch.cuda.synchronize()
+    grid.barrier()
+    timed = []
+    if time_them:
+        first = True
+        for kname, args, kw in calls:
+            role = dist_role(kname, args, kw, first)
+            first = False
+            res = time_call(f"distributed {name} {DIST.grid[0]}x{DIST.grid[1]} rank 0", role, kname,
+                            args, kw, reps=5,
+                            chunk=DIST.plain_chunk.get(kname, DIST.plain_rows))
+            res["launches_per_batch"] = per_batch(name.removesuffix("-host"))[list(KERNELS).index(kname)]
+            timed.append(res)
+    grid.barrier()
+    return checks, timed
+
+
+def dist_role(name: str, args, kw, first: bool) -> str:
+    """A rank's call: its queries' routing, or one of the per-pair passes."""
+    if name == "sketch_prefilter":
+        return "per-pair sketch pre-filter"
+    if name == "fused_verify_grouped":
+        return "cell's grouped first pass"
+    if kw.get("scales") is not None:
+        return "per-pair first pass"
+    if first:
+        return "routing of the rank's queries"
+    return "per-pair in-cluster" if args[1].shape[1] > 1_000 else "rescore"
+
+
+def dist_rank(world, payload) -> dict:
+    """One of the four gloo ranks sharing the card: each index's shard on
+    the 2 x 2 grid (checked against the parent's slice, leaf by leaf),
+    every point over 4 x 256 queries, then the float32 search on the 4 x 1
+    grid with a dead shard and a killed one, a tight capacity, and the
+    sharded Lloyd step."""
+    from repro_torch import faults
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import distributed as D
+    from repro_torch.core import lider
+    from repro_torch.launch import mesh
+
+    cfg, k = CONFIG.lider, CONFIG.k
+    g22 = mesh.make_grid(DIST.grid, device=world.device)
+    g41 = mesh.make_grid(DIST.grid4, device=world.device)
+    batches = [payload["queries"][i * BATCH : (i + 1) * BATCH] for i in range(N_BATCHES)]
+    kw = dict(k=k, n_probe=cfg.n_probe, r0=cfg.r0, r0_centroid=cfg.r0_centroid)
+    out = {"points": {}, "rank": world.rank}
+    lead = world.rank == 0
+
+    def sharded(grid, storage):
+        params = payload["indexes"][storage]
+        t0 = time.perf_counter()
+        shard = D.shard_lider_params(grid, params, ("data",))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        # The parent's own tensors (CUDA IPC), sliced as the shard must be.
+        specs = D.lider_param_specs(params, ("data",))
+        c_loc = params.bank.n_clusters // grid.shape["data"]
+        my = grid.flat_index(("data",))
+        want = {n: t[my * c_loc : (my + 1) * c_loc] if specs[n] else t
+                for n, t in D.named_leaves(params).items()}
+        got = D.named_leaves(shard)
+        bad = [n for n in want if n not in got or not torch.equal(got[n], want[n])]
+        if bad or set(got) != set(want):
+            raise AssertionError(f"rank {world.rank}: shard of {storage} on {grid.shape} differs "
+                                 f"from the parent's slice in {bad or set(got) ^ set(want)}")
+        return shard, secs
+
+    by_storage: dict[str, list] = {}
+    for point in dist_points():
+        by_storage.setdefault(point[1], []).append(point)
+    for storage, points in by_storage.items():
+        shard, secs = sharded(g22, storage)
+        out.setdefault("shard_s", {})[storage] = secs
+        out.setdefault("shard_gb", {})[storage] = shard.bank.nbytes_by_tier()["device"] / 1e9
+        for name, _, opts, tier in points:
+            s = lider.set_rescore_tier(shard, "host") if tier == "host" else shard
+            search = D.make_sharded_search(g22, s, capacity_factor=DIST.capacity_factor, **kw, **opts)
+            checks, timed = rank_calls(g22, name, search, s, batches[0], time_them=lead)
+            reset_counts()
+            res = rank_search(g22, search, s, batches)
+            res["launches"] = read_counts()
+            res["checks"], res["timed"] = checks, timed
+            if tier == "host":
+                rows, scores = [], []
+                for qb in batches:
+                    r, sc, _ = search.stage1(s, qb)
+                    full = D.gather_query_shards(g22, lider.TopK(ids=r, scores=sc))
+                    rows.append(full.ids.cpu())
+                    scores.append(full.scores.cpu())
+                res["rows"], res["rows_scores"] = torch.cat(rows).numpy(), torch.cat(scores).numpy()
+            out["points"][name] = res
+            del s, search
+        if storage == "float32":
+            tight = D.make_sharded_search(g22, shard, capacity_factor=DIST.tight, **kw)
+            out["tight"] = rank_search(g22, tight, shard, batches)
+        del shard
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The float32 search on four cluster shards: whole, with shard DIST.dead
+    # marked dead, and with it killed by the fault plan (every batch).
+    shard, secs = sharded(g41, "float32")
+    search = D.make_sharded_search(g41, shard, capacity_factor=DIST.capacity_factor, **kw)
+    reset_counts()
+    out["grid4"] = rank_search(g41, search, shard, batches)
+    out["grid4"]["launches"] = read_counts()
+    health = np.ones(DIST.grid4[0], bool)
+    health[DIST.dead] = False
+    out["health"] = rank_search(g41, search, shard, batches, health=health)
+    plan = faults.FaultPlan([faults.FaultSpec("shard_search", mode="kill_shard",
+                                              payload={"shard": DIST.dead},
+                                              times=tuple(range(N_BATCHES)))])
+    out["kill"] = rank_search(g41, search, shard, batches, plan=plan)
+    del shard, search
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The sharded Lloyd step: this rank's quarter of the corpus.
+    step = D.make_sharded_kmeans_step(g41, n_clusters=cfg.n_clusters)
+    x_loc = D.shard_rows(g41, payload["corpus"]).clone()
+    cen = payload["centroids"].clone()
+    new = step(x_loc, cen)  # warm
+    torch.cuda.synchronize()
+    g41.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    new = step(x_loc, cen)
+    torch.cuda.synchronize()
+    g41.barrier()
+    out["lloyd"] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts(),
+                    "centroids": new.cpu().numpy() if lead else None}
+    payload.clear()  # drop this rank's handles on the parent's tensors
+    gc.collect()
+    return out
+
+
+def nccl_rank(world, payload) -> dict:
+    """The one-rank NCCL world: the float32 search and the Lloyd step, so
+    the collectives run on CUDA tensors through NCCL."""
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh
+
+    cfg, k = CONFIG.lider, CONFIG.k
+    grid = mesh.make_grid((1, 1), device=world.device)
+    batches = [payload["queries"][i * BATCH : (i + 1) * BATCH] for i in range(N_BATCHES)]
+    shard = D.shard_lider_params(grid, payload["params"], ("data",))
+    search = D.make_sharded_search(grid, shard, k=k, n_probe=cfg.n_probe, r0=cfg.r0,
+                                   r0_centroid=cfg.r0_centroid, capacity_factor=DIST.capacity_factor)
+    search(shard, batches[0])
+    reset_counts()
+    res = rank_search(grid, search, shard, batches)
+    res["launches"] = read_counts()
+    del shard, search
+    step = D.make_sharded_kmeans_step(grid, n_clusters=cfg.n_clusters)
+    res["lloyd"] = step(payload["corpus"], payload["centroids"]).cpu().numpy()
+    res["backend"] = grid.backend
+    payload.clear()
+    gc.collect()
+    return res
+
+
+def phase_distributed(dev, main, smi: str) -> dict:
+    """The distributed index at full ``lider-msmarco`` width (ROADMAP 1.3):
+    four gloo ranks on the card as a (data=2, model=2) grid run every
+    point, each against the single-device search; the float32 search again
+    on a (4, 1) grid, whole, degraded and with a killed shard; the sharded
+    Lloyd step; then a one-rank NCCL world."""
+    from repro_torch.configs.lider_msmarco import CONFIG, QUANTIZED
+    from repro_torch.core import clustering, lider
+    from repro_torch.launch import mesh
+    from repro_torch.testing import assert_topk_match
+
+    cfg, k = CONFIG.lider, CONFIG.k
+    t_phase = time.perf_counter()
+    corpus, queries, cen = main["corpus"], main["queries"], main["centroids"]
+    batches = [queries[i * BATCH : (i + 1) * BATCH] for i in range(N_BATCHES)]
+    q = {p.name: p for p in QUANTIZED}
+    configs = {"float32": cfg, "int8": q["Q8"].lider_config(cfg), "int4": q["Q4-sk"].lider_config(cfg)}
+    indexes = {}
+    for storage, c in configs.items():
+        indexes[storage] = lider.build_lider(SEED, corpus, c, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t_phase
+    n_clusters = cfg.n_clusters
+    search_kw = dict(k=k, n_probe=cfg.n_probe, r0=cfg.r0, r0_centroid=cfg.r0_centroid)
+
+    # Single-device answers, per point, on the parent's indexes.
+    cids = {st: [lider._route_pruned(p, qb, n_probe=cfg.n_probe, r0_centroid=cfg.r0_centroid)[0]
+                 for qb in batches] for st, p in indexes.items()}
+    single, pairwise, prov = {}, {}, None
+    for name, storage, opts, tier in dist_points():
+        p = indexes[storage]
+        outs = [lider.search_lider(p, qb, **search_kw, **opts) for qb in batches]
+        single[name] = (torch.cat([o.ids for o in outs]).cpu().numpy(),
+                        torch.cat([o.scores for o in outs]).cpu().numpy())
+        if storage != "float32" and tier == "device":
+            ref = [pairwise_reference(p, qb, c, opts, k, cfg.r0)
+                   for qb, c in zip(batches, cids[storage])]
+            pairwise[name] = (torch.cat([r[0] for r in ref]).cpu().numpy(),
+                              torch.cat([r[1] for r in ref]).cpu().numpy())
+        if tier == "host":
+            firsts = [lider.host_first_pass(p, qb, **search_kw, rescore_factor=opts["rescore_factor"])[0]
+                      for qb in batches]
+            prov = (torch.cat([f.ids for f in firsts]).cpu().numpy(),
+                    torch.cat([f.scores for f in firsts]).cpu().numpy())
+    cids_np = {st: [c.cpu().numpy() for c in cs] for st, cs in cids.items()}
+    sums_lloyd, counts_lloyd, _ = clustering.kmeans_step(corpus, cen, n_clusters=n_clusters)
+    lloyd_want = clustering.update_centroids(cen, sums_lloyd, counts_lloyd).cpu().numpy()
+    del sums_lloyd, counts_lloyd
+    torch.cuda.synchronize()
+    log("distributed", f"parent: float32, int8 and int4 indexes at {CONFIG.corpus_size} x "
+        f"{CONFIG.dim}, c={n_clusters}, built in {t_build:.2f} s; single-device answers, the "
+        f"per-pair answers ready at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    payload = {"indexes": indexes, "queries": queries, "corpus": corpus, "centroids": cen}
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(4, dist_rank, payload, device=dev, backend="gloo")
+    t_world = time.perf_counter() - t0
+    r0 = ranks[0]
+    log("distributed", f"4 gloo ranks on one card ({smi}): the world ran {t_world:.1f} s (spawn "
+        f"included); every rank's shard of every index equals the parent's slice, leaf by leaf "
+        f"(torch.equal on the card); shard times "
+        + ", ".join(f"{st} {v:.2f} s ({r0['shard_gb'][st]:.2f} GB a rank)"
+                    for st, v in r0["shard_s"].items())
+        + ". Four ranks share one card and gloo stages every collective through the host: these "
+          "times are not scaling numbers")
+    timed_calls = []
+    for name, storage, opts, tier in dist_points():
+        pts = [r["points"][name] for r in ranks]
+        res = pts[0]
+        want_launch = tuple(N_BATCHES * v for v in per_batch(name.removesuffix("-host")))
+        for r, pr in zip(ranks, pts):
+            if tuple(pr["launches"]) != want_launch:
+                raise AssertionError(f"{name}: rank {r['rank']} launched {pr['launches']}, "
+                                     f"expected {want_launch}")
+        drops = [expected_drops(c, DIST.grid, DIST.capacity_factor, n_clusters)
+                 for c in cids_np[storage]]
+        if res["dropped"] != drops:
+            raise AssertionError(f"{name}: dropped {res['dropped']}, the host's count {drops}")
+        ids, scores = res["ids"], res["scores"]
+        s_ids, s_sc = single[name]
+        agree = float((ids == s_ids).all(axis=1).mean())
+        lines = []
+        if name == "F32":
+            if not np.array_equal(ids, s_ids):
+                raise AssertionError(f"{name}: sharded ids differ from search_lider in "
+                                     f"{int((ids != s_ids).any(axis=1).sum())} rows")
+            np.testing.assert_allclose(scores, s_sc, rtol=1e-5, atol=1e-6)
+            lines.append(f"ids == search_lider's row for row, scores within rtol 1e-5 (bit-equal: "
+                         f"{np.array_equal(scores.view(np.int32), s_sc.view(np.int32))})")
+        elif tier == "host":
+            # The merged top-k' is search_lider's and each row is rescored
+            # alone, so the scores are bit-equal; the rescore breaks exact
+            # score ties by passage id (JAX's distributed front end), the
+            # single-device search by bank row, so only exactly tied ids
+            # may swap.
+            if not np.array_equal(scores.view(np.int32), s_sc.view(np.int32)):
+                raise AssertionError(f"{name}: scores are not search_lider's bit for bit")
+            swaps = assert_topk_match(ids, scores, s_ids, s_sc, rtol=0.0, atol=0.0)
+            lines.append(f"scores == search_lider's bit for bit, ids equal up to {swaps} swaps of "
+                         f"exactly tied scores ({int((ids != s_ids).any(axis=1).sum())} rows differ)")
+        else:
+            p_ids, p_sc = pairwise[name]
+            if not np.array_equal(ids, p_ids):
+                raise AssertionError(f"{name}: sharded ids differ from the per-pair answer in "
+                                     f"{int((ids != p_ids).any(axis=1).sum())} rows")
+            np.testing.assert_allclose(scores, p_sc, rtol=1e-5, atol=1e-6)
+            lines.append(f"ids == the single-device per-pair answer row for row, scores within rtol "
+                         f"1e-5 (bit-equal: {np.array_equal(scores.view(np.int32), p_sc.view(np.int32))}); "
+                         f"rows equal to search_lider's (which keeps one top-k' a query, not one a "
+                         f"pair): {agree:.4f}")
+        if tier == "host":
+            if not (np.array_equal(res["rows"], prov[0])
+                    and np.array_equal(res["rows_scores"].view(np.int32), prov[1].view(np.int32))):
+                raise AssertionError(f"{name}: the merged provisional rows differ from host_first_pass")
+            lines.append("stage 1 (merged provisional rows, int8 scores) == host_first_pass bit for bit")
+            dev_ids = ranks[0]["points"]["Q8"]["ids"]
+            lines.append(f"rows equal to the sharded device-tier Q8 (a rescore a pair): "
+                         f"{float((ids == dev_ids).all(axis=1).mean()):.4f}")
+        if name.endswith("-cm"):
+            base = ranks[0]["points"][name.removesuffix("-cm")]
+            if not (np.array_equal(ids, base["ids"])
+                    and np.array_equal(scores.view(np.int32), base["scores"].view(np.int32))):
+                raise AssertionError(f"{name} differs from the per-query sharded search")
+            lines.append(f"== {name.removesuffix('-cm')} sharded bit for bit; host pre-pass "
+                         f"median {statistics.median(res['prepass_ms']):.3f} ms")
+        rec = float(recall_of(ids, main["gt"]))
+        log("distributed", f"{name} ({storage}, {tier} tier, {opts}) on the 2x2 grid: world wall "
+            f"per batch median {statistics.median(res['wall_ms']):.3f} ms (all "
+            f"{', '.join(f'{v:.3f}' for v in res['wall_ms'])}; four ranks time-share one card, not "
+            f"a scaling number), all-gather + drop sum per batch median "
+            f"{statistics.median(res['gather_ms']):.3f} ms (rank 0, from the end of its own "
+            f"kernels: the host staging, the exchange and the wait for the slowest rank); launches per rank {fmt_counts(c // N_BATCHES for c in res['launches'])} "
+            f"a batch (as the code predicts, on each of the 4 ranks); dropped {res['dropped']} "
+            f"(== the host's count); recall@{k} {rec:.4f}; " + "; ".join(lines))
+        log("distributed", f"{name}: each rank's calls against the plain version: "
+            + " | ".join(f"rank {r['rank']}: " + ", ".join(r["points"][name]["checks"]) for r in ranks))
+        for c in res["timed"]:
+            timed_calls.append(c)
+
+    tight = r0["tight"]
+    drops = [expected_drops(c, DIST.grid, DIST.tight, n_clusters) for c in cids_np["float32"]]
+    ids = tight["ids"]
+    if tight["dropped"] != drops or min(drops) <= 0:
+        raise AssertionError(f"capacity {DIST.tight}: dropped {tight['dropped']}, host count {drops}")
+    if not (((ids >= -1) & (ids < CONFIG.corpus_size)).all() and (ids >= 0).any()):
+        raise AssertionError(f"capacity {DIST.tight}: ids out of range")
+    log("distributed", f"F32 at capacity factor {DIST.tight} on the 2x2 grid: dropped "
+        f"{tight['dropped']} pairs a batch (== the host's count from the routed ids), ids well "
+        f"formed ({int((tight['ids'] < 0).all(axis=1).sum())} queries lost every pair: a cell "
+        f"keeps its first pairs in query order); recall@{k} {float(recall_of(ids, main['gt'])):.4f} against "
+        f"{float(recall_of(single['F32'][0], main['gt'])):.4f} without drops")
+
+    g4, hl, kl = r0["grid4"], r0["health"], r0["kill"]
+    s_ids, s_sc = single["F32"]
+    if not np.array_equal(g4["ids"], s_ids):
+        raise AssertionError("F32 on the 4x1 grid differs from search_lider")
+    np.testing.assert_allclose(g4["scores"], s_sc, rtol=1e-5, atol=1e-6)
+    for r in ranks:
+        if tuple(r["grid4"]["launches"]) != tuple(N_BATCHES * v for v in per_batch("F32")):
+            raise AssertionError(f"4x1 grid: rank {r['rank']} launched {r['grid4']['launches']}")
+    c_loc = n_clusters // DIST.grid4[0]
+    dead = set(indexes["float32"].bank.gids[DIST.dead * c_loc : (DIST.dead + 1) * c_loc]
+               .reshape(-1).cpu().tolist()) - {-1}
+    served = set(hl["ids"].reshape(-1).tolist())
+    if served & dead or not set(g4["ids"].reshape(-1).tolist()) & dead:
+        raise AssertionError("degraded: a dead shard's passage was served (or none was in the full answer)")
+    for f, p in zip(g4["ids"], hl["ids"]):
+        if not set(f[f >= 0].tolist()) - dead <= set(p[p >= 0].tolist()):
+            raise AssertionError("degraded: a live shard's answer of the full search was lost")
+    if not (np.array_equal(kl["ids"], hl["ids"])
+            and np.array_equal(kl["scores"].view(np.int32), hl["scores"].view(np.int32))):
+        raise AssertionError("kill_shard differs from the health mask")
+    want_stats = {"shards_live": DIST.grid4[0] - 1, "shards_total": DIST.grid4[0]}
+    if hl["stats"] != want_stats or kl["stats"] != want_stats:
+        raise AssertionError(f"shard_stats {hl['stats']} / {kl['stats']}")
+    log("distributed", f"F32 on the 4x1 grid: ids == search_lider's, scores within rtol 1e-5; "
+        f"world wall per batch median {statistics.median(g4['wall_ms']):.3f} ms, all-gather "
+        f"median {statistics.median(g4['gather_ms']):.3f} ms; shard {DIST.dead} dead: none of its "
+        f"{len(dead)} passages served, every live-shard answer of the full search kept, recall@{k} "
+        f"{float(recall_of(hl['ids'], main['gt'])):.4f}; kill_shard == the mask bit for bit; "
+        f"shard_stats {hl['stats']}")
+
+    got = r0["lloyd"]["centroids"]
+    err = float(np.abs(got - lloyd_want).max())
+    if err > 1e-5:
+        raise AssertionError(f"sharded Lloyd step differs from kmeans_step by {err}")
+    log("distributed", f"sharded Lloyd step over 4 data ranks (N {CONFIG.corpus_size}, c "
+        f"{n_clusters}, d {CONFIG.dim}): max |difference| {err:.3g} from the single-device "
+        f"kmeans_step + update_centroids (atol 1e-5); {r0['lloyd']['ms']:.3f} ms (world wall); "
+        f"launches per rank {fmt_counts(r0['lloyd']['launches'])}")
+    del ranks, payload
+    torch.cuda.ipc_collect()
+
+    t0 = time.perf_counter()
+    (nc,) = mesh.spawn(1, nccl_rank, {"params": indexes["float32"], "queries": queries,
+                                      "corpus": corpus, "centroids": cen},
+                       device=dev, backend="nccl")
+    t_nccl = time.perf_counter() - t0
+    if nc["backend"] != "nccl" or not np.array_equal(nc["ids"], s_ids):
+        raise AssertionError("the one-rank NCCL world differs from search_lider")
+    np.testing.assert_allclose(nc["scores"], s_sc, rtol=1e-5, atol=1e-6)
+    if tuple(nc["launches"]) != tuple(N_BATCHES * v for v in per_batch("F32")):
+        raise AssertionError(f"NCCL world launched {nc['launches']}")
+    err_n = float(np.abs(nc["lloyd"] - lloyd_want).max())
+    if err_n > 1e-5:
+        raise AssertionError(f"NCCL Lloyd step differs by {err_n}")
+    log("distributed", f"one-rank NCCL world ({t_nccl:.1f} s, spawn included): F32 ids == "
+        f"search_lider's, world wall per batch median {statistics.median(nc['wall_ms']):.3f} ms, "
+        f"collectives median {statistics.median(nc['gather_ms']):.3f} ms; Lloyd step max "
+        f"|difference| {err_n:.3g}")
+    del indexes
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    log("distributed", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"calls": timed_calls}
+
+
+def recall_of(ids: np.ndarray, gt) -> float:
+    from repro_torch.core.utils import recall_at_k
+
+    return float(recall_at_k(torch.from_numpy(ids), gt.cpu()))
+
+
 QWEN_FULL = ["--arch", "qwen2.5-3b", "--preset", "full", "--batch", "1", "--seq", "512",
              "--steps", "4", "--device", "cuda"]
 ENCODER = types.SimpleNamespace(size="100m", steps=300, batch=64, seq=32, ckpt_every=50,
@@ -3533,6 +4071,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lifecycle(dev, main_res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = phase_distributed(dev, main_res, device["smi"])
     for key in ("corpus", "queries", "gt", "centroids"):
         main_res.pop(key, None)
     gc.collect()
@@ -3540,7 +4081,7 @@ def main() -> int:
     train = phase_train(dev, device["smi"])
     models = phase_models(dev, device["smi"], train["full"].pop("model"))
     enc = lambda name: [c for c in train["calls"] + models["calls"] if c["kernel"] == name]
-    qcalls = q8["calls"] + q4["calls"]
+    qcalls = q8["calls"] + q4["calls"] + dist["calls"]
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]
     cfg = CONFIG.lider
     counts, timed = main_res["build_launches"], main_res["build_timed"]

@@ -44,6 +44,9 @@ from .types import tensor_leaves
 STORAGE_DTYPES = ("float32", "bfloat16", "int8", "int4")
 QUANTIZED_DTYPES = ("int8", "int4")
 RESCORE_TIERS = ("device", "host")
+# dataclasses.field metadata key of ClusterBank: the leading cluster axis
+# (0) or None for fields every rank holds whole (core.distributed).
+CLUSTER_AXIS = "cluster_axis"
 _FLOAT_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -231,23 +234,42 @@ class EmbStore:
         self.version += 1
 
 
+def _f(cluster_axis: int | None, default=dataclasses.MISSING):
+    """A bank field with its ``cluster_axis`` metadata (:data:`CLUSTER_AXIS`)."""
+    return dataclasses.field(metadata={CLUSTER_AXIS: cluster_axis}, default=default)
+
+
 @dataclasses.dataclass(frozen=True)
 class ClusterBank:
-    lsh: lsh_lib.LSHParams
-    rescale: rescale_lib.RescaleParams  # leaves (c, H)
-    rmi: rmi_lib.RMIParams  # leaves (c, H) / (c, H, W)
-    sorted_keys: torch.Tensor  # (c, H, Lp) int64
-    sorted_pos: torch.Tensor  # (c, H, Lp) int32
-    embs: torch.Tensor  # (c, Lp, d) storage dtype (d//2 for int4)
-    gids: torch.Tensor  # (c, Lp) int32
-    sizes: torch.Tensor  # (c,) int32
-    tombstones: torch.Tensor  # (c,) int32
-    next_gid: torch.Tensor  # () int32
-    emb_scales: torch.Tensor | None = None
-    rescore_embs: torch.Tensor | None = None
-    sketches: torch.Tensor | None = None
-    store: EmbStore | None = None  # the host tier; None on the device tier
-    code_dtype: str = "int8"
+    """The bank's fields carry ``cluster_axis`` metadata, which
+    ``core.distributed`` reads to shard an index over ranks: 0 for every
+    tensor (or container of tensors) whose leading axis is the cluster
+    axis, ``None`` for what every rank holds whole. Where the port's fields
+    differ from the JAX package's:
+
+    - ``store`` (the host tier) is a field here and static data there. It
+      is ``None``: it is no device tensor, and ``shard_lider_params`` slices
+      its host table by cluster itself, in host memory.
+    - ``code_dtype`` is a plain string in both: ``None``, nothing to shard.
+    - ``lsh`` (one projection for every cluster) and ``next_gid`` (a
+      scalar) are ``None``, as in the JAX package.
+    """
+
+    lsh: lsh_lib.LSHParams = _f(None)  # shared by every cluster
+    rescale: rescale_lib.RescaleParams = _f(0)  # leaves (c, H)
+    rmi: rmi_lib.RMIParams = _f(0)  # leaves (c, H) / (c, H, W)
+    sorted_keys: torch.Tensor = _f(0)  # (c, H, Lp) int64
+    sorted_pos: torch.Tensor = _f(0)  # (c, H, Lp) int32
+    embs: torch.Tensor = _f(0)  # (c, Lp, d) storage dtype (d//2 for int4)
+    gids: torch.Tensor = _f(0)  # (c, Lp) int32
+    sizes: torch.Tensor = _f(0)  # (c,) int32
+    tombstones: torch.Tensor = _f(0)  # (c,) int32
+    next_gid: torch.Tensor = _f(None)  # () int32, replicated
+    emb_scales: torch.Tensor | None = _f(0, None)
+    rescore_embs: torch.Tensor | None = _f(0, None)
+    sketches: torch.Tensor | None = _f(0, None)
+    store: EmbStore | None = _f(None, None)  # the host tier; None on the device tier
+    code_dtype: str = _f(None, "int8")
 
     @property
     def n_clusters(self) -> int:
@@ -292,6 +314,13 @@ class ClusterBank:
         if self.quantized:
             return quant.dequantize_codes(self.embs, self.emb_scales, self.code_dtype)
         return self.embs
+
+
+def replicated_field_names() -> tuple[str, ...]:
+    """Bank fields whose leaves are replicated (no cluster axis)."""
+    return tuple(
+        f.name for f in dataclasses.fields(ClusterBank) if f.metadata.get(CLUSTER_AXIS) is None
+    )
 
 
 def fit_sorted_array(

@@ -4,9 +4,9 @@ The port's own copy of the JAX package's ``repro/faults.py`` (pure
 Python), so that the port imports nothing of that package. In the port
 ``host_fetch`` and ``host_write`` fire in ``core.bank.EmbStore``, ``d2h`` in
 the serving engine, ``checkpoint_write`` in
-``training.checkpoint.save_index`` and the three replica sites in
-``serving.replica`` and ``serving.router``; the shard site waits for the
-distributed path.
+``training.checkpoint.save_index``, the three replica sites in
+``serving.replica`` and ``serving.router``, and ``shard_search`` in
+``core.distributed``'s search on every rank.
 
 A :class:`FaultPlan` is a schedule of :class:`FaultSpec` entries, each bound
 to a named injection *site*.  Production code calls :func:`fire` at each
