@@ -166,6 +166,29 @@ Phases, each printing its lines; any failure exits non-zero:
                world: the F32 search and the Lloyd step. Times are the
                world's, barrier to barrier: four ranks time-share the card,
                so they are not scaling numbers.
+11b. models_sharded — the models' half of the distributed path: four
+               gloo ranks on the card as a (data=2, model=2) grid, each
+               item against this process's single-rank run from the same
+               weights (TF32 off). (a) qwen2.5-3b's widths at 4 of its 36
+               layers, float32, seq 1,024, global batch 8, 3 AdamW steps
+               with FSDP over data and TP over model: step 1's loss and
+               grad norm rtol 1e-5, then 1e-3; every rank's blocks under
+               the AdamW rule; its parameter and moment bytes its spec's
+               share. (b) Its decode on pure-TP weights: prefill 512 at
+               batch 4, 32 steps (batch over data, sequence over model),
+               then batch 1 for 8 steps (sequence over all four ranks):
+               logits within 1e-4 of the largest, argmax equal. (c)
+               two-tower at its published widths, tables over model, batch
+               16,384 over data, 10 steps: the sharded lookup == F.embedding
+               bit for bit and its table gradient atol 1e-5; losses rtol
+               1e-5 then 1e-3; every item encoded by the sharded model,
+               LIDER built alike on each rank, 512 users searched by the
+               sharded search (launches per rank, == ``search_lider``,
+               recall >= 0.4 of IVF-Flat's). (d) One LM step in a one-rank
+               NCCL world. Step walls barrier to barrier, collective
+               seconds device sync to device sync, peak memory per rank
+               and model FLOP/s (``launch.flops``): four ranks share one
+               card, so these are not scaling numbers.
 12. train    — the training path. (a) The loss and every gradient of
                ``reduced_lm`` of qwen2.5-3b and of llama4-scout-17b-a16e
                (MoE, local windows firing) on the card == the same step on
@@ -221,8 +244,9 @@ Phases, each printing its lines; any failure exits non-zero:
 14. kernels  — one JSON line with an entry per kernel (the build kernels'
                calls include the baselines', the encoder's and the
                two-tower's shapes, and the verification kernels' the
-               encoder's, the two-tower's and the distributed ranks'
-               per-pair and per-cell shapes).
+               encoder's, the two-tower's, the distributed ranks'
+               per-pair and per-cell shapes, and the sharded two-tower
+               search's).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2839,7 +2863,8 @@ def rank_search(grid, search, shard, batches, *, health=None, plan=None) -> dict
     return res
 
 
-def rank_calls(grid, name: str, search, shard, qb, *, time_them: bool) -> tuple[list, list]:
+def rank_calls(grid, name: str, search, shard, qb, *, time_them: bool,
+               path: str | None = None) -> tuple[list, list]:
     """One batch with every kernel call recorded; each verification call
     held against its plain version over the whole call on this rank
     (bit-equal on quantized and sketch tables, float32 ids equal up to
@@ -2872,7 +2897,7 @@ def rank_calls(grid, name: str, search, shard, qb, *, time_them: bool) -> tuple[
         for kname, args, kw in calls:
             role = dist_role(kname, args, kw, first)
             first = False
-            res = time_call(f"distributed {name} {DIST.grid[0]}x{DIST.grid[1]} rank 0", role, kname,
+            res = time_call(path or f"distributed {name} {DIST.grid[0]}x{DIST.grid[1]} rank 0", role, kname,
                             args, kw, reps=5,
                             chunk=DIST.plain_chunk.get(kname, DIST.plain_rows))
             res["launches_per_batch"] = per_batch(name.removesuffix("-host"))[list(KERNELS).index(kname)]
@@ -3245,6 +3270,629 @@ def phase_distributed(dev, main, smi: str) -> dict:
     torch.cuda.empty_cache()
     log("distributed", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"calls": timed_calls}
+
+
+# ---------------------------------------------------------------------------
+# models_sharded: the models' half of the distributed path (ROADMAP 1.3b)
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at its published widths cut to 4 of its 36 layers (every FSDP
+# gather and gradient sum goes through the host under gloo: four ranks share
+# the card), float32 compute, seq 1,024, global batch 8, 3 AdamW steps with
+# OptimizerConfig()'s defaults; decode: prefill 512 at batch 4, 32 steps,
+# then batch 1 for 8 steps on the sequence over all four ranks.
+# two-tower-retrieval at its published widths: batch 16,384 (train_batch's
+# 65,536 cut, as in the models phase), 10 steps, 512 users searched.
+SHARDED = types.SimpleNamespace(
+    grid=(2, 2), lm_arch="qwen2.5-3b", layers=4, seq=1024, batch=8, steps=3,
+    prompt=512, decode_batch=4, decode_steps=32, long_steps=8,
+    tt_arch="two-tower-retrieval", tt_batch=16_384, tt_steps=10, encode_chunk=262_144,
+    n_clusters=2048, users=512, k=100,
+)
+
+
+def sharded_configs():
+    """(the LM config, the two-tower config) of the phase."""
+    from repro_torch.configs import get_arch
+
+    lm = dataclasses.replace(get_arch(SHARDED.lm_arch).config, n_layers=SHARDED.layers,
+                             dtype=torch.float32)
+    return lm, get_arch(SHARDED.tt_arch).config
+
+
+# The trained blocks after 3 steps are held to the AdamW rule of
+# tests/test_torch_training.py (at most 0.1% of a leaf's elements beyond
+# 1e-5 of it, those within 1% of the summed lr) with departures read off
+# this phase's control, the single rank with its batch in 2 micro-batches
+# (the same float32 sums in another order) against 1, which breaks the 1%
+# clause too. Past 1% of the summed lr:
+# - an element whose gradient vanishes (the reference's clipped gradient,
+#   its rms over the steps from AdamW's nu, below AdamW's eps) takes the
+#   step g / (|g| + eps), which scales g's float32 rounding by up to
+#   1 / eps: two runs that round g apart can move it by its whole
+#   normalised step. Any number may, none past ADAMW_WORST summed lrs;
+# - of the others, ADAMW_FLIPS a leaf, twice the control's most.
+# The control is held to the same limits; the readings per leaf are in
+# PERF.md.
+ADAMW_FLIPS = 4
+ADAMW_WORST = 0.3
+ADAMW_KEEP = 4096  # flagged elements a block reports at most (more fail the count anyway)
+
+
+def adamw_reading(got: torch.Tensor, want: torch.Tensor, lr_sum: float, offset=None) -> dict:
+    """One leaf (or a rank's block of it, whose first element sits at
+    ``offset`` in the full leaf) after AdamW steps against the reference:
+    the share of its elements beyond 1e-5 of the leaf, and the elements
+    also beyond 1% of the summed lr ("flagged": their indexes in the full
+    leaf and differences in summed lrs). A leaf that started at zero (the
+    qkv biases) is nothing but its few normalised updates, so the relative
+    floor is below its gradients' rounding (the key bias's exact gradient
+    is even zero: softmax ignores a shift shared by every key); its share
+    is None and every element past 1% of the summed lr is flagged."""
+    diff = (got.float() - want.float()).abs()
+    zero_start = float(want.abs().max()) <= 10 * lr_sum
+    share = None
+    flag = diff > 1e-2 * lr_sum
+    if not zero_start:
+        bad = diff > 1e-5 * want.abs() + 1e-5 * want.abs().max()
+        share = float(bad.float().mean())
+        flag &= bad
+    idx = torch.nonzero(flag)[:ADAMW_KEEP]
+    return {"share": share, "zero_start": zero_start, "count": int(flag.sum()),
+            "idx": idx.cpu().numpy() + (0 if offset is None else np.asarray(offset)),
+            "diff": (diff[tuple(idx.T)] / lr_sum).cpu().numpy()}
+
+
+def adamw_verdict(readings: list, grad_rms, eps: float) -> tuple[dict, list]:
+    """``readings``: (leaf name, :func:`adamw_reading`) of every block ->
+    ({leaf: {flat index tuple: (difference in summed lrs, the gradient
+    vanishes)}}, problems). ``grad_rms(leaf, indexes)`` gives the
+    reference's gradient rms at the flagged elements. A leaf whole on
+    several ranks is read on each; its flagged elements count once."""
+    flags, zero, problems = {}, {}, []
+    for name, r in readings:
+        if r["share"] is not None and r["share"] > 1e-3:
+            problems.append(f"{name}: {r['share']:.2e} of a block beyond 1e-5")
+        if r["count"] > len(r["idx"]):
+            problems.append(f"{name}: {r['count']} elements of a block past 1% of the summed lr")
+        flags.setdefault(name, {}).update(zip(map(tuple, r["idx"].tolist()), r["diff"].tolist()))
+        zero[name] = r["zero_start"]
+    for name, f in flags.items():
+        if not f:
+            continue
+        vanish = (grad_rms(name, list(f)) < eps).tolist()
+        f = flags[name] = {i: (d, v) for (i, d), v in zip(f.items(), vanish)}
+        counted = sum(not v for _, v in f.values())
+        worst = max(d for d, _ in f.values())
+        limit = 0 if zero[name] else ADAMW_FLIPS
+        if (len(f) if zero[name] else counted) > limit or worst > ADAMW_WORST:
+            problems.append(f"{name}: {len(f)} elements past 1% of the summed lr, {counted} of them "
+                            f"with a gradient (limit {limit}), the largest {worst:.3f} summed lr "
+                            f"(limit {ADAMW_WORST})")
+    return flags, problems
+
+
+def _tokens(seed: int, batch: int, seq: int, vocab: int, dev) -> dict:
+    from repro_torch.data import synthetic
+
+    return synthetic.lm_batch(seed, 0, batch=batch, seq=seq, vocab=vocab, device=dev)
+
+
+def _decode_run(model, prompt, feed, steps: int, max_len: int, seq_sharded=None):
+    """Prefill then ``steps`` decode steps fed ``feed``'s tokens (the same
+    on both sides): (logits of every step stacked, ms a step). Under a grid
+    ``seq_sharded`` picks the cache layout."""
+    from repro_torch.models import transformer as tfm
+
+    kw = {} if seq_sharded is None else {"seq_sharded": seq_sharded}
+    with torch.no_grad():
+        lg, cache = tfm.prefill(model, prompt, max_len=max_len, **kw)
+        out = [lg]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, cache = tfm.decode_step(model, cache, feed[:, i : i + 1])
+            out.append(lg)
+        torch.cuda.synchronize()
+    return torch.stack(out), (time.perf_counter() - t0) / steps * 1e3
+
+
+def _timed_steps(step, model, state, batches, grid=None) -> list[dict]:
+    """Each step barrier to barrier (rank 0's clock), run under ``grid``,
+    with its loss, grad norm and the rank's collective seconds (device sync
+    to device sync, ``Grid.comm_s``)."""
+    from repro_torch.launch import mesh
+
+    out = []
+    for b in batches:
+        torch.cuda.synchronize()
+        if grid is not None:
+            grid.barrier()
+            s0 = grid.comm_s
+            b0 = grid.comm_bytes
+        t0 = time.perf_counter()
+        with mesh.use_grid(grid):
+            _, _, m = step(model, state, b)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        if grid is not None:
+            grid.barrier()
+        out.append({"s": time.perf_counter() - t0, "loss": loss, "grad_norm": gnorm,
+                    "comm_s": grid.comm_s - s0 if grid is not None else 0.0,
+                    "comm_gb": (grid.comm_bytes - b0) / 1e9 if grid is not None else 0.0})
+    return out
+
+
+def sharded_rank(world, payload) -> dict:
+    """One of the four gloo ranks sharing the card, a (data=2, model=2)
+    grid: the LM's decode (pure-TP layout) and training (FSDP + TP), each
+    against the parent's single-rank run; then two-tower at its published
+    widths, its items encoded, indexed with LIDER and searched sharded."""
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import distributed as D
+    from repro_torch.core import lider
+    from repro_torch.core.baselines import flat_search
+    from repro_torch.core.utils import l2_normalize, recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh
+    from repro_torch.models import recsys, sharding
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = world.device
+    lm_cfg, tt_cfg = sharded_configs()
+    grid = mesh.make_grid(SHARDED.grid, device=dev)
+    sharding.warm_groups(grid)
+    names = grid.axis_names
+    d_idx = grid.flat_index(("data",))
+    n_data = grid.axis_size(("data",))
+    res = {"rank": world.rank, "coords": grid.coords()}
+    lead = world.rank == 0
+
+    def sharded_lm(fsdp: bool):
+        return sharding.shard_module(tfm.Transformer(lm_cfg, device="meta"),
+                                     tfm.param_specs(lm_cfg, names, fsdp=fsdp), grid,
+                                     source=payload["lm_init"], device=dev)
+
+    # (b) Decode, on the pure-TP layout: an FSDP layout would all-gather
+    # every layer's weights through the host at every token.
+    model = sharded_lm(fsdp=False)
+    rows = lambda t: t[d_idx * (t.shape[0] // n_data) : (d_idx + 1) * (t.shape[0] // n_data)]
+    dec = payload["decode"]
+    with mesh.use_grid(grid):
+        grid.barrier()
+        got, ms = _decode_run(model, rows(dec["prompt"]), rows(dec["feed"]), SHARDED.decode_steps,
+                              SHARDED.prompt + SHARDED.decode_steps, seq_sharded=False)
+        want = rows(dec["want"].transpose(0, 1)).transpose(0, 1)
+        long_got, long_ms = _decode_run(model, dec["long_prompt"], dec["long_feed"],
+                                        SHARDED.long_steps, SHARDED.prompt + SHARDED.long_steps,
+                                        seq_sharded=True)
+    res["decode"] = {}
+    for name, g, w, step_ms in (("batched", got, want, ms), ("long", long_got, dec["long_want"], long_ms)):
+        res["decode"][name] = {
+            "rel": float((g - w).abs().max() / w.abs().max()),
+            "argmax_equal": bool(torch.equal(g.argmax(-1), w.argmax(-1))),
+            "ms": step_ms,
+        }
+    del model, got, long_got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) Training: FSDP over data, TP over model, 3 AdamW steps.
+    torch.cuda.reset_peak_memory_stats()
+    model = sharded_lm(fsdp=True)
+    state = opt_lib.init_state(dict(model.named_parameters()))
+    step = train_loop.make_train_step(tfm.train_loss, opt_lib.OptimizerConfig())
+    batches = [sharding.shard_batch(b, grid) for b in payload["lm_batches"]]
+    res["train"] = _timed_steps(step, model, state, batches, grid)
+    res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    lr_sum = sum(float(opt_lib.schedule(opt_lib.OptimizerConfig(), torch.tensor(s)))
+                 for s in range(1, SHARDED.steps + 1))
+    leaves, owned, want_bytes = [], 0, 0
+    for n, p in model.named_parameters():
+        full = payload["lm_final"][n]
+        ref = sharding.shard(full, sharding.spec_of(p), grid)
+        lo = [sl.start or 0 for sl in sharding.block_slices(full.shape, sharding.spec_of(p), grid)]
+        leaves.append((n, adamw_reading(p.detach(), ref, lr_sum, lo)))
+        owned += p.numel() * p.element_size() + sum(
+            state[k][n].numel() * state[k][n].element_size() for k in ("mu", "nu"))
+        want_bytes += 3 * ref.numel() * 4  # the param and two float32 moments
+    res["adamw"] = leaves
+    res["state_bytes"] = (owned, want_bytes)
+    del model, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) two-tower at its published widths: tables over model, batch over data.
+    torch.cuda.reset_peak_memory_stats()
+    tt_init = payload["tt_init"]
+    tt = recsys.TwoTower(tt_cfg, torch.device("meta"))
+    sharding.shard_module(tt, recsys.param_specs(tt), grid, source=tt_init, device=dev)
+    look = payload["lookup"]
+    ids = rows(look["ids"])
+    table = tt.item_emb
+    with mesh.use_grid(grid):
+        out_rows = recsys.embedding_lookup(table, ids)
+        torch.sum(out_rows**2).backward()
+    spec = sharding.spec_of(table)
+    res["lookup"] = {
+        "bit_equal": bool(torch.equal(out_rows.detach(), rows(look["rows"]))),
+        "grad_err": float((table.grad - sharding.shard(look["grad"], spec, grid)).abs().max()),
+    }
+    table.grad = None
+    del out_rows
+    state = opt_lib.init_state(dict(tt.named_parameters()))
+    opt_cfg = opt_lib.OptimizerConfig(warmup_steps=1, decay_steps=SHARDED.tt_steps)
+    step = train_loop.make_train_step(recsys.two_tower_loss, opt_cfg)
+    batches = [sharding.shard_batch(
+        synthetic.recsys_batch(SEED, i, kind="two_tower", batch=SHARDED.tt_batch, cfg=tt_cfg,
+                               device=dev), grid) for i in range(SHARDED.tt_steps)]
+    res["tt_train"] = _timed_steps(step, tt, state, batches, grid)
+    res["tt_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Every item encoded by the sharded model (each data rank half the
+    # items, the lookups summed over model), gathered over data.
+    n = tt_cfg.item_vocab
+    per = n // n_data
+    torch.cuda.synchronize()
+    grid.barrier()
+    t0 = time.perf_counter()
+    mine = []
+    with torch.no_grad(), mesh.use_grid(grid):
+        for s in range(d_idx * per, (d_idx + 1) * per, SHARDED.encode_chunk):
+            i = torch.arange(s, min(s + SHARDED.encode_chunk, (d_idx + 1) * per), dtype=torch.int32,
+                             device=dev)
+            mine.append(l2_normalize(recsys.item_embed(tt, torch.stack([i, torch.zeros_like(i)], 1))))
+        embs = sharding.unshard(torch.cat(mine), (("data",), None), grid)
+        users = synthetic.recsys_batch(SEED, 10**6, kind="two_tower", batch=SHARDED.users,
+                                       cfg=tt_cfg, device=dev)["user_fields"]
+        q = l2_normalize(recsys.user_embed(tt, users))
+    del mine
+    torch.cuda.synchronize()
+    grid.barrier()
+    res["encode_s"] = time.perf_counter() - t0
+    del tt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # LIDER over the items, built alike on every rank (the build is
+    # deterministic: each rank's index must equal rank 0's), then the
+    # sharded search of the users on the same grid.
+    icfg = dataclasses.replace(CONFIG.lider, n_clusters=SHARDED.n_clusters)
+    t0 = time.perf_counter()
+    params = lider.build_lider(SEED, embs, icfg, device=dev)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    digest = torch.stack([params.centroids.double().sum(), params.bank.gids.double().sum(),
+                          (params.bank.gids.double() * torch.arange(
+                              params.bank.gids.numel(), device=dev).reshape(
+                              params.bank.gids.shape).double()).sum()])
+    res["same_index"] = bool(torch.equal(grid.all_gather(digest, names),
+                                         digest.expand(grid.size, 3)))
+    shard = D.shard_lider_params(grid, params, ("data",))
+    search = D.make_sharded_search(grid, shard, k=SHARDED.k, n_probe=icfg.n_probe, r0=icfg.r0,
+                                   r0_centroid=icfg.r0_centroid, capacity_factor=2.0)
+    search(shard, q)  # warm
+    torch.cuda.synchronize()
+    grid.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    out, dropped = search(shard, q)
+    torch.cuda.synchronize()
+    grid.barrier()
+    res["search_ms"] = (time.perf_counter() - t0) * 1e3
+    res["search_launches"] = read_counts()
+    res["dropped"] = int(dropped)
+    full = D.gather_query_shards(grid, out)
+    res["checks"], res["calls"] = rank_calls(grid, "F32", search, shard, q, time_them=lead,
+                                             path="models_sharded two-tower 2x2 rank 0")
+    # The search's two query hashes (the centroids' keys, the bank's),
+    # recorded on every rank and timed on rank 0 alone.
+    hashes = []
+    with recording(hashes, keep=lambda n, a, kw: n == "lsh_hash"):
+        search(shard, q)
+    torch.cuda.synchronize()
+    grid.barrier()
+    res["hash_calls"] = [time_build_call("models_sharded two-tower 2x2 rank 0", role, n, a, kw,
+                                         reps=50)
+                         for role, (n, a, kw) in zip(("query hash (centroids)", "query hash (bank)"),
+                                                     hashes)] if lead else []
+    grid.barrier()
+    if lead:
+        gt = flat_search(embs, q, k=SHARDED.k).ids
+        exact_c = torch.topk(q @ params.centroids.T, icfg.n_probe, dim=-1).indices
+        single = lider.search_lider(params, q, k=SHARDED.k, n_probe=icfg.n_probe, r0=icfg.r0,
+                                    r0_centroid=icfg.r0_centroid)
+        res["recall"] = float(recall_at_k(full.ids, gt))
+        res["ivf_recall"] = float(recall_at_k(exact_scan_ids(params, q, exact_c, SHARDED.k), gt))
+        res["equals_single"] = bool(torch.equal(full.ids, single.ids))
+        res["n_probe"] = icfg.n_probe
+        res["bank_gb"] = params.bank.nbytes_by_tier()["device"] / 1e9
+    payload.clear()  # drop this rank's handles on the parent's tensors
+    gc.collect()
+    return res
+
+
+def nccl_lm_rank(world, payload) -> dict:
+    """The one-rank NCCL world: one LM train step through the same code, so
+    the sharded layers' collectives run on CUDA tensors through NCCL."""
+    from repro_torch.launch import mesh
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm_cfg, _ = sharded_configs()
+    grid = mesh.make_grid((1, 1), device=world.device)
+    model = sharding.shard_module(tfm.Transformer(lm_cfg, device="meta"),
+                                  tfm.param_specs(lm_cfg, grid.axis_names), grid,
+                                  source=payload["lm_init"], device=world.device)
+    state = opt_lib.init_state(dict(model.named_parameters()))
+    step = train_loop.make_train_step(tfm.train_loss, opt_lib.OptimizerConfig())
+    (m,) = _timed_steps(step, model, state, payload["lm_batches"][:1], grid)
+    # On one rank the sharded layers skip their collectives (every axis has
+    # one rank); the grid's own ops run here on CUDA tensors through NCCL.
+    x = torch.arange(6, dtype=torch.float32, device=world.device).reshape(2, 3)
+    ops = (torch.equal(grid.all_reduce(x, ("data",)), x)
+           and torch.equal(grid.all_reduce(x, ("model",), op="max"), x)
+           and torch.equal(grid.all_gather(x.to(torch.bfloat16), ("data", "model"))[0],
+                           x.to(torch.bfloat16)))
+    payload.clear()
+    return {"backend": grid.backend, "ops": bool(ops), **m}
+
+
+def phase_models_sharded(dev, smi: str) -> dict:
+    """The models' half of the distributed path on four gloo ranks sharing
+    the card as a (data=2, model=2) grid, each item against the parent's
+    single-rank run from the same weights: (a) qwen2.5-3b's widths at 4
+    layers trained with FSDP + TP, (b) its decode on both cache layouts,
+    (c) two-tower at its published widths trained with vocabulary-split
+    tables, its items indexed with LIDER and searched by the sharded
+    search; (d) one LM step in a one-rank NCCL world."""
+    from repro_torch.launch import flops as flops_lib
+    from repro_torch.launch import mesh
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as tfm
+    from repro_torch.data import synthetic
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_loop
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # both sides in float32 products
+    lm_cfg, tt_cfg = sharded_configs()
+    sh = SHARDED
+    note = (f"four gloo ranks share one card ({smi}) and every collective goes through the "
+            "host: not scaling numbers")
+
+    # The LM: one init, carried as the reference's numpy tree.
+    tree_np = tfm.params_to_numpy(tfm.init(SEED, lm_cfg, device=dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = tfm.params_from_numpy(tree_np, lm_cfg, device=dev)
+    del tree_np
+    lm_init = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    n_lm = sum(p.numel() for p in lm_init.values())
+    v = lm_cfg.vocab
+    prompt = _tokens(SEED + 1, sh.decode_batch, sh.prompt, v, dev)["tokens"]
+    feed = _tokens(SEED + 2, sh.decode_batch, sh.decode_steps, v, dev)["tokens"]
+    want, ref_ms = _decode_run(ref, prompt, feed, sh.decode_steps, sh.prompt + sh.decode_steps)
+    long_prompt, long_feed = prompt[:1], feed[:1, : sh.long_steps]
+    long_want, long_ref_ms = _decode_run(ref, long_prompt, long_feed, sh.long_steps,
+                                         sh.prompt + sh.long_steps)
+    lm_batches = [_tokens(SEED + 10 + i, sh.batch, sh.seq, v, dev) for i in range(sh.steps)]
+    state = opt_lib.init_state(dict(ref.named_parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    ref_steps = _timed_steps(train_loop.make_train_step(tfm.train_loss, opt_lib.OptimizerConfig()),
+                             ref, state, lm_batches)
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    lm_final = {n: p.detach() for n, p in ref.named_parameters()}
+    ref_nu = state["nu"]  # the second moments, to read the flagged elements' gradients by
+    del state
+    for p in ref.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The control: the single rank again with its batch in 2 micro-batches,
+    # which adds the same float32 sums in another order.
+    twin = tfm.Transformer(lm_cfg, device=dev)
+    with torch.no_grad():
+        for n, p in twin.named_parameters():
+            p.copy_(lm_init[n])
+    state = opt_lib.init_state(dict(twin.named_parameters()))
+    _timed_steps(train_loop.make_train_step(tfm.train_loss, opt_lib.OptimizerConfig(),
+                                            grad_accum=2), twin, state, lm_batches)
+    lr_sum = sum(float(opt_lib.schedule(opt_lib.OptimizerConfig(), torch.tensor(s)))
+                 for s in range(1, sh.steps + 1))
+    control = [(n, adamw_reading(p.detach(), lm_final[n], lr_sum))
+               for n, p in twin.named_parameters()]
+    del twin, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two-tower: one init, the single-rank run, and the lookup's reference.
+    tt_ref = recsys.init(SEED, tt_cfg, device=dev)
+    tt_init = {n: p.detach().clone() for n, p in tt_ref.named_parameters()}
+    ids = synthetic.recsys_batch(SEED, 0, kind="two_tower", batch=sh.tt_batch, cfg=tt_cfg,
+                                 device=dev)["item_fields"][:, 0]
+    table = tt_init["item_emb"].clone().requires_grad_(True)
+    rows = torch.nn.functional.embedding(ids, table)
+    torch.sum(rows**2).backward()
+    lookup = {"ids": ids, "rows": rows.detach(), "grad": table.grad}
+    del table, rows
+    state = opt_lib.init_state(dict(tt_ref.named_parameters()))
+    opt_cfg = opt_lib.OptimizerConfig(warmup_steps=1, decay_steps=sh.tt_steps)
+    tt_batches = [synthetic.recsys_batch(SEED, i, kind="two_tower", batch=sh.tt_batch, cfg=tt_cfg,
+                                         device=dev) for i in range(sh.tt_steps)]
+    tt_steps = _timed_steps(train_loop.make_train_step(recsys.two_tower_loss, opt_cfg), tt_ref,
+                            state, tt_batches)
+    n_tt = sum(p.numel() for p in tt_ref.parameters())
+    del tt_ref, state, tt_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    log("models_sharded", f"parent (single rank): {SHARDED.lm_arch} at {sh.layers} of 36 layers "
+        f"({n_lm / 1e6:.1f} M parameters, float32 compute, TF32 off), decode {ref_ms:.2f} ms a step "
+        f"at batch {sh.decode_batch}, training steps "
+        + ", ".join(f"{s['s'] * 1e3:.1f}" for s in ref_steps)
+        + f" ms (peak {ref_peak:.2f} GiB); two-tower ({n_tt / 1e6:.1f} M parameters) steps median "
+        f"{statistics.median(s['s'] for s in tt_steps) * 1e3:.2f} ms; {t_ref:.1f} s with init; {smi}")
+
+    payload = {
+        "lm_init": lm_init, "lm_final": lm_final, "lm_batches": lm_batches,
+        "decode": {"prompt": prompt, "feed": feed, "want": want, "long_prompt": long_prompt,
+                   "long_feed": long_feed, "long_want": long_want},
+        "tt_init": tt_init, "lookup": lookup,
+    }
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(4, sharded_rank, payload, device=dev, backend="gloo")
+    t_world = time.perf_counter() - t0
+    r0 = ranks[0]
+
+    # (b) decode
+    for name, steps, b, lay, rms in (
+        ("batched", sh.decode_steps, sh.decode_batch, "batch over data, sequence over model "
+         "(cache_specs seq_sharded=False)", ref_ms),
+        ("long", sh.long_steps, 1, "the sequence over all four ranks (seq_sharded=True)", long_ref_ms),
+    ):
+        worst = max(r["decode"][name]["rel"] for r in ranks)
+        argmax = all(r["decode"][name]["argmax_equal"] for r in ranks)
+        log("models_sharded", f"(b) decode {name}: prefill {sh.prompt} then {steps} steps at batch "
+            f"{b}, cache {lay}, pure-TP weights: largest |difference| {worst:.3g} of the largest "
+            f"logit against the single rank (bound {DECODE_REL_F32}), argmax equal at every step: "
+            f"{argmax}; {r0['decode'][name]['ms']:.2f} ms a step on rank 0 (single rank "
+            f"{rms:.2f} ms); {note}")
+        if worst > DECODE_REL_F32 or not argmax:
+            raise AssertionError(f"sharded decode ({name}): rel {worst}, argmax equal {argmax}")
+
+    # (a) training
+    tokens = sh.batch * sh.seq
+    fl = flops_lib.lm_flops(lm_cfg, tokens, train=True, seq_len=sh.seq)
+    for i, s in enumerate(r0["train"]):
+        peaks = ", ".join(f"{r['train_peak_gib']:.2f}" for r in ranks)
+        comm = ", ".join(f"{r['train'][i]['comm_s']:.2f}" for r in ranks)
+        log("models_sharded", f"(a) {SHARDED.lm_arch} widths, {sh.layers} layers, FSDP over data + "
+            f"TP over model, step {i + 1}: wall {s['s']:.2f} s barrier to barrier (single rank "
+            f"{ref_steps[i]['s']:.2f} s), collectives {comm} s a rank (device sync to device "
+            f"sync; {r0['train'][i]['comm_gb']:.2f} GB sent in by rank 0), loss {s['loss']:.6f} "
+            f"(single {ref_steps[i]['loss']:.6f}), grad norm {s['grad_norm']:.6g} (single "
+            f"{ref_steps[i]['grad_norm']:.6g}); model FLOP/s {fl / s['s'] / 1e12:.2f} T (launch."
+            f"flops.lm_flops, {tokens} tokens); peak memory a rank {peaks} GiB; {note}")
+    for r in ranks:
+        got = r["train"]
+        np.testing.assert_allclose([got[0]["loss"], got[0]["grad_norm"]],
+                                   [ref_steps[0]["loss"], ref_steps[0]["grad_norm"]], rtol=1e-5)
+        np.testing.assert_allclose([s["loss"] for s in got], [s["loss"] for s in ref_steps], atol=1e-3,
+                                   rtol=0)
+        owned, want_b = r["state_bytes"]
+        if owned != want_b:
+            raise AssertionError(f"rank {r['rank']}: holds {owned} bytes of parameters and moments, "
+                                 f"its spec's share is {want_b}")
+    # The reference's clipped gradient's rms over the steps, as AdamW saw
+    # it: the square root of its bias-corrected second moment.
+    ocfg = opt_lib.OptimizerConfig()
+    grad_rms = lambda n, idx: torch.sqrt(ref_nu[n][tuple(torch.tensor(idx).T)]
+                                         / (1 - ocfg.b2**sh.steps))
+    flags, problems = adamw_verdict([leaf for r in ranks for leaf in r["adamw"]], grad_rms, ocfg.eps)
+    c_flags, c_problems = adamw_verdict(control, grad_rms, ocfg.eps)
+    tell = lambda f: (f"{len(f)} ({sum(v for _, v in f.values())} vanishing, largest "
+                      f"{max((d for d, _ in f.values()), default=0.0):.3f})")
+    per_leaf = [f"{n} {tell(flags.get(n, {}))} against {tell(c_flags.get(n, {}))}"
+                for n in lm_final if flags.get(n) or c_flags.get(n)]
+    worst_share = max(leaf[1]["share"] or 0.0 for r in ranks for leaf in r["adamw"])
+    log("models_sharded", f"(a) step 1's loss and grad norm within rtol 1e-5 of the single rank, "
+        f"steps 2-3 within 1e-3; after {sh.steps} steps the AdamW rule on every rank's blocks "
+        f"(largest share beyond 1e-5 of a block {worst_share:.2e}, limit 1e-3), at most "
+        f"{ADAMW_FLIPS} elements with a gradient a leaf past 1% of the summed lr, none past "
+        f"{ADAMW_WORST} summed lr (the zero-start qkv biases none), the control (the single rank with 2 "
+        f"micro-batches against 1) held alike: {sum(map(len, flags.values()))} elements past 1% of "
+        f"the summed lr against the control's {sum(map(len, c_flags.values()))}; per leaf, sharded "
+        f"against control, with those whose gradient vanishes (rms below AdamW's eps): "
+        + "; ".join(per_leaf) + f"; each rank holds "
+        f"{r0['state_bytes'][0] / 1e9:.3f} GB of parameters and moments, its spec's share of "
+        f"{3 * 4 * n_lm / 1e9:.3f} GB; {smi}")
+    if problems or c_problems:
+        raise AssertionError(f"parameters after {sh.steps} steps beyond the AdamW rule: sharded "
+                             f"{problems[:4]}, control {c_problems[:4]}")
+    del ref_nu
+
+    # (c) two-tower
+    for r in ranks:
+        if not r["lookup"]["bit_equal"] or r["lookup"]["grad_err"] > 1e-5:
+            raise AssertionError(f"rank {r['rank']}: sharded lookup {r['lookup']}")
+        got = [s["loss"] for s in r["tt_train"]]
+        np.testing.assert_allclose(got[0], tt_steps[0]["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got, [s["loss"] for s in tt_steps], atol=1e-3, rtol=0)
+    tt_fl = flops_lib.recsys_flops(tt_cfg, flops_lib.recsys_param_shapes(tt_cfg), sh.tt_batch,
+                                   kind_shape="train")
+    walls = [s["s"] for s in r0["tt_train"]]
+    med = statistics.median(walls[1:])
+    log("models_sharded", f"(c) {SHARDED.tt_arch} at its published widths, tables over model, "
+        f"batch {sh.tt_batch} over data: the sharded lookup == F.embedding bit for bit on every "
+        f"rank, table gradient within {max(r['lookup']['grad_err'] for r in ranks):.3g} (atol "
+        f"1e-5); {sh.tt_steps} steps, losses {r0['tt_train'][0]['loss']:.6f} -> "
+        f"{r0['tt_train'][-1]['loss']:.6f} (single rank {tt_steps[0]['loss']:.6f} -> "
+        f"{tt_steps[-1]['loss']:.6f}; step 1 rtol 1e-5, then 1e-3); wall median {med * 1e3:.1f} ms "
+        f"a step (single rank {statistics.median(s['s'] for s in tt_steps[1:]) * 1e3:.2f} ms), "
+        f"collectives median {statistics.median(s['comm_s'] for s in r0['tt_train'][1:]):.3f} s a "
+        f"step on rank 0 ({r0['tt_train'][1]['comm_gb']:.2f} GB sent in), model FLOP/s "
+        f"{tt_fl / med / 1e12:.2f} T; peak memory a rank "
+        + ", ".join(f"{r['tt_peak_gib']:.2f}" for r in ranks) + f" GiB; {note}")
+    want_launch = per_batch("F32")
+    for r in ranks:
+        if tuple(r["search_launches"]) != want_launch:
+            raise AssertionError(f"rank {r['rank']}: the sharded search launched "
+                                 f"{r['search_launches']}, expected {want_launch}")
+        if not r["same_index"]:
+            raise AssertionError(f"rank {r['rank']}: its LIDER index differs from the others'")
+    rec, ivf = r0["recall"], r0["ivf_recall"]
+    log("models_sharded", f"(c) the {tt_cfg.item_vocab} items encoded by the sharded model in "
+        f"{r0['encode_s']:.2f} s and indexed with LIDER on each rank alike (c = {sh.n_clusters}, "
+        f"{r0['build_s']:.2f} s on rank 0 with four builds sharing the card; bank "
+        f"{r0['bank_gb']:.2f} GB); {sh.users} users through make_sharded_search on the same grid "
+        f"in {r0['search_ms']:.2f} ms, dropped {r0['dropped']}, launches per rank "
+        f"{fmt_counts(r0['search_launches'])} (as the code predicts, on each of the 4 ranks); ids "
+        f"== search_lider's on rank 0's index: {r0['equals_single']}; recall@{sh.k} {rec:.4f} at "
+        f"n_probe {r0['n_probe']} against IVF-Flat's {ivf:.4f} ({rec / ivf:.3f} of it, floor "
+        f"{LIDER_OF_IVF}); {note}; each rank's verification calls against the plain version: "
+        + " | ".join(f"rank {r['rank']}: " + ", ".join(r["checks"]) for r in ranks))
+    if rec < LIDER_OF_IVF * ivf or not r0["equals_single"]:
+        raise AssertionError(f"two-tower sharded: recall {rec} against IVF-Flat {ivf}, ids == "
+                             f"single {r0['equals_single']}")
+    del ranks, payload, lookup
+    torch.cuda.ipc_collect()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a one-rank NCCL world.
+    t0 = time.perf_counter()
+    (nc,) = mesh.spawn(1, nccl_lm_rank, {"lm_init": lm_init, "lm_batches": lm_batches},
+                       device=dev, backend="nccl")
+    t_nccl = time.perf_counter() - t0
+    if nc["backend"] != "nccl" or not nc["ops"]:
+        raise AssertionError(f"the one-rank world ran {nc['backend']}, its sum, max and gather "
+                             f"ops returned their input: {nc['ops']}")
+    np.testing.assert_allclose([nc["loss"], nc["grad_norm"]],
+                               [ref_steps[0]["loss"], ref_steps[0]["grad_norm"]], rtol=1e-5)
+    log("models_sharded", f"(d) one-rank NCCL world ({t_nccl:.1f} s, spawn included): one LM step "
+        f"through the sharded layers, loss {nc['loss']:.6f} and grad norm {nc['grad_norm']:.6g} "
+        f"within rtol 1e-5 of the single rank; {nc['s']:.2f} s (the process's first step), "
+        f"collectives {nc['comm_s']:.3f} s; {smi}")
+    del lm_init, lm_final, ref, lm_batches, want, long_want
+    torch.cuda.ipc_collect()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log("models_sharded", f"phase {time.perf_counter() - t_phase:.1f} s (the 4-rank world "
+        f"{t_world:.1f} s, spawn included); {smi}")
+    return {"train": r0["train"], "tt_train": r0["tt_train"], "recall": rec, "ivf_recall": ivf,
+            "calls": r0["calls"], "hash_calls": r0["hash_calls"]}
 
 
 def recall_of(ids: np.ndarray, gt) -> float:
@@ -4078,10 +4726,13 @@ def main() -> int:
         main_res.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
+    sharded = phase_models_sharded(dev, device["smi"])
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train(dev, device["smi"])
     models = phase_models(dev, device["smi"], train["full"].pop("model"))
     enc = lambda name: [c for c in train["calls"] + models["calls"] if c["kernel"] == name]
-    qcalls = q8["calls"] + q4["calls"] + dist["calls"]
+    qcalls = q8["calls"] + q4["calls"] + dist["calls"] + sharded["calls"]
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]
     cfg = CONFIG.lider
     counts, timed = main_res["build_launches"], main_res["build_timed"]
@@ -4098,7 +4749,8 @@ def main() -> int:
         # lsh_hash: the main build (bank-fit chunks + the centroid model).
         # The calls list also holds the baselines' shapes (the cli phase).
         build_entry("lsh_hash", [c for c in build_calls if c["kernel"] == "lsh_hash"] + by("lsh_hash")
-                    + [c for c in cli["shapes"] if c["kernel"] == "lsh_hash"] + enc("lsh_hash"),
+                    + [c for c in cli["shapes"] if c["kernel"] == "lsh_hash"] + enc("lsh_hash")
+                    + sharded["hash_calls"],
                     counts[3], timed),
         # kmeans_assign: the main build's k-means (Lloyd steps + the final assignment).
         build_entry("kmeans_assign", [c for c in build_calls if c["kernel"] == "kmeans_assign"]

@@ -11,8 +11,9 @@ distributed phase alone: four gloo ranks on the card, every point on the
 world, with every gate of the phase. The turns go on, off, off, on. "on"
 is the search as it ships: ``search.timings["gather_s"]`` runs from a sync
 of the rank's device to a sync after each collective. "off" makes those
-syncs no-ops in every rank (the switch travels in the environment, so the
-spawned ranks, which import this module again, take it too); its
+syncs (``launch/mesh.py``'s, around every collective) no-ops in every
+rank (the switch travels in the environment, so the spawned ranks, which
+import this module again, take it too); its
 ``gather_s`` then also holds the rank's own kernels still queued when the
 collective starts. Prints the card's name and power limit and each turn's
 phase lines (world wall a batch, rank 0's collectives). Needs a CUDA card.
@@ -33,9 +34,9 @@ SWITCH = "LIDER_AB_COLLECTIVE_SYNC"
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 
 if os.environ.get(SWITCH) == "off":
-    import repro_torch.core.distributed as _distributed
+    import repro_torch.launch.mesh as _mesh
 
-    _distributed._sync = lambda device: None
+    _mesh._sync = lambda device: None
 
 
 def turn() -> None:

@@ -229,11 +229,6 @@ def _scatter_pairs(vals, fill, pr: _Pairs):
     return buf[:-1].reshape(pr.b_loc, -1)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def make_sharded_search(
     grid: Grid,
     params_like: LiderParams,
@@ -284,9 +279,10 @@ def make_sharded_search(
     (default all live). A dead shard's answers are masked to (-1, -inf)
     before the all-gather and its drops do not count. ``search.shard_stats``
     holds the last call's ``{"shards_live", "shards_total"}``, and
-    ``search.timings`` its seconds in collectives (``gather_s``: timed
-    after the rank's own device work has finished, so it holds the
-    staging, the exchange and the wait for the other ranks) and, for
+    ``search.timings`` its seconds in collectives (``gather_s``, read off
+    the grid's ``comm_s``: each collective is timed after the rank's own
+    device work has finished, so it holds the staging, the exchange and the
+    wait for the other ranks) and, for
     ``block_q``, in the host pre-pass (``prepass_s``).
     """
     caxes, qaxes = tuple(cluster_axes), tuple(query_axes)
@@ -411,21 +407,17 @@ def make_sharded_search(
         return health
 
     timings = {"gather_s": 0.0, "prepass_s": 0.0}
+    comm_from = [0.0]  # the grid's collective seconds when the call began
 
-    def collective(fn, *args):
-        """``fn(*args)`` timed into ``gather_s``, from the end of this
-        rank's queued device work to the end of the collective."""
-        _sync(grid.device)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        _sync(grid.device)
-        timings["gather_s"] += time.perf_counter() - t0
+    def timed(out):
+        """``out``, with the call's collective seconds read off the grid."""
+        timings["gather_s"] = grid.comm_s - comm_from[0]
         return out
 
     def merge(ids, scores):
         """The all-gather of (B_loc, kk) over the cluster shards + the merge."""
         b_loc, kk = ids.shape
-        g = collective(grid.all_gather, _pack(ids, scores), caxes)  # (S, B_loc, 2kk)
+        g = grid.all_gather(_pack(ids, scores), caxes)  # (S, B_loc, 2kk)
         g = g.transpose(0, 1)  # (B_loc, S, 2kk): shard order kept per query
         return dedup_topk(g[..., :kk].reshape(b_loc, -1),
                           g[..., kk:].contiguous().view(torch.float32).reshape(b_loc, -1), kk)
@@ -439,13 +431,13 @@ def make_sharded_search(
         return l_ids, l_sc
 
     def sum_drops(dropped, alive):
-        return collective(grid.all_reduce, dropped.reshape(()).to(torch.int64) * int(alive),
-                          reduce_axes)
+        return grid.all_reduce(dropped.reshape(()).to(torch.int64) * int(alive), reduce_axes)
 
     def start(fn, params, queries, shard_health):
         health = resolve_health(shard_health)
         fn.shard_stats = {"shards_live": int(health.sum()), "shards_total": n_cluster_shards}
         timings.update(gather_s=0.0, prepass_s=0.0)
+        comm_from[0] = grid.comm_s
         q_loc = local_queries(params, queries)
         return bool(health[my]), make_pairs(params, q_loc)
 
@@ -461,7 +453,7 @@ def make_sharded_search(
             c_local, lp = params.bank.gids.shape
             g_rows = torch.where(prov.ids >= 0, prov.ids + my * c_local * lp, -1)
             rows, sc = merge(*local_topk(g_rows, prov.scores, pr, alive))
-            return rows, sc, sum_drops(pr.dropped, alive)
+            return timed((rows, sc, sum_drops(pr.dropped, alive)))
 
         def search(params, queries, shard_health=None):
             rows, _, dropped = stage1(params, queries, shard_health)
@@ -474,7 +466,7 @@ def make_sharded_search(
             out = _rescore_fetched(params.bank, torch.where(owned, rows - lo, -1),
                                    local_queries(params, queries), k=k)
             ids, sc = merge(out.ids, out.scores)
-            return TopK(ids=ids, scores=sc), dropped
+            return timed((TopK(ids=ids, scores=sc), dropped))
 
         search.stage1 = stage1
     else:
@@ -483,7 +475,7 @@ def make_sharded_search(
             alive, pr = start(search, params, queries, shard_health)
             pair = pair_topk(params, pr)  # (cap, k)
             ids, sc = merge(*local_topk(pair.ids, pair.scores, pr, alive))
-            return TopK(ids=ids, scores=sc), sum_drops(pr.dropped, alive)
+            return timed((TopK(ids=ids, scores=sc), sum_drops(pr.dropped, alive)))
 
     search.timings = timings
     return search

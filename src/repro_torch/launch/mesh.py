@@ -11,15 +11,24 @@ flat index along a tuple of axes is row-major over that tuple, as
 
 :meth:`Grid.group` holds one process group per tuple of axes that a
 collective runs over: the ranks that differ only along those axes. The
-distributed search gathers over its cluster axes and sums its drop count
-over the cluster and query axes together.
+distributed search (``core/distributed.py``) gathers over its cluster axes
+and sums its drop count over the cluster and query axes together; the
+sharded models (``models/sharding.py``) all-gather FSDP weights over the
+data axes, sum tensor-parallel partials over ``model`` and take the
+vocabulary-parallel softmax's maximum. The model code reads the grid from
+:func:`use_grid` (:func:`current_grid`), the ambient grid that training,
+decode and the step checkpoints run under.
 
 Collectives (:meth:`Grid.all_gather`, :meth:`Grid.all_reduce`) take
 tensors on the rank's device. Over NCCL a CUDA tensor goes to the
 collective as it is. Over gloo a CUDA tensor is copied to the host, the
 collective runs on the host copy and the result is copied back: gloo's
-collectives are promised for CPU tensors only, and these are a few KB a
-batch.
+collectives are promised for CPU tensors only. That is a few KB a batch
+for the search, and a layer's weights (MBs to GBs) for an FSDP gather.
+Each collective is timed from a sync of the rank's device before it to a
+sync after it, so a rank's own queued kernels are not counted:
+``Grid.comm_s`` and ``Grid.comm_bytes`` add up the seconds and the bytes
+the rank sent in, and callers read their differences.
 
 :func:`spawn` starts a world of ``n`` ranks on this machine, runs a
 function on each and returns their results. The production meshes of the
@@ -27,6 +36,7 @@ dry run (256 and 512 TPU chips) have no counterpart yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -34,6 +44,7 @@ import os
 import pickle
 import shutil
 import tempfile
+import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -86,6 +97,9 @@ class Grid:
         self._dims = tuple(self.shape.values())
         self._groups: dict[tuple[str, ...], tuple[Any, list[int]]] = {}
         self._by_members: dict[tuple[int, ...], Any] = {}
+        # Accounting of the collectives (module docstring).
+        self.comm_s = 0.0
+        self.comm_bytes = 0
 
     def __repr__(self):
         return f"Grid({self.shape}, rank {self.rank}, {self.device}, {self.backend})"
@@ -147,26 +161,71 @@ class Grid:
         list form of ``dist.all_gather``; over gloo a CUDA tensor goes
         through the host (module docstring)."""
         group, members = self.group(axes)
+        t0 = self._start(t)
         src = t.cpu() if self._staged(t) else t.contiguous()
+        if self.backend == "gloo" and src.dtype == torch.bfloat16:
+            src = src.view(torch.float16)  # gloo moves the 16-bit payload as float16 bits
         parts = [torch.empty_like(src) for _ in members]
         dist.all_gather(parts, src, group=group)
         by_rank = dict(zip(sorted(members), parts))  # group ranks go by global rank
-        out = torch.stack([by_rank[r] for r in members])
-        return out.to(t.device) if self._staged(t) else out
+        out = torch.stack([by_rank[r] for r in members]).view(t.dtype)
+        out = out.to(t.device) if self._staged(t) else out
+        self._finish(t, t0)
+        return out
 
-    def all_reduce(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-        """The sum of ``t`` over the ranks along ``axes`` (a new tensor on
-        ``t``'s device; over gloo a CUDA tensor goes through the host)."""
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
+        """The sum (``op="sum"``) or the maximum (``op="max"``) of ``t``
+        over the ranks along ``axes`` (a new tensor on ``t``'s device; over
+        gloo a CUDA tensor goes through the host)."""
         group, _ = self.group(axes)
+        t0 = self._start(t)
         out = t.cpu() if self._staged(t) else t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out.to(t.device) if self._staged(t) else out
+        if self.backend == "gloo" and out.dtype == torch.bfloat16:
+            out = out.float()  # gloo sums bfloat16 in float32 here, rounded once after
+        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+                        group=group)
+        out = out.to(device=t.device, dtype=t.dtype)
+        self._finish(t, t0)
+        return out
+
+    def _start(self, t: torch.Tensor) -> float:
+        _sync(t.device)
+        return time.perf_counter()
+
+    def _finish(self, t: torch.Tensor, t0: float) -> None:
+        _sync(t.device)
+        self.comm_s += time.perf_counter() - t0
+        self.comm_bytes += t.numel() * t.element_size()
 
     def barrier(self) -> None:
         if self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+_AMBIENT: list[Grid] = []
+
+
+@contextlib.contextmanager
+def use_grid(grid: Grid | None):
+    """Make ``grid`` ambient for the model code inside the block (``None``:
+    no grid, every model on one device); blocks nest."""
+    _AMBIENT.append(grid)
+    try:
+        yield grid
+    finally:
+        _AMBIENT.pop()
+
+
+def current_grid() -> Grid | None:
+    """The innermost :func:`use_grid`'s grid, or None."""
+    return _AMBIENT[-1] if _AMBIENT else None
 
 
 def make_grid(shape: Sequence[int] = (2, 2), axes: Sequence[str] = DEFAULT_AXES, *, device=None) -> Grid:

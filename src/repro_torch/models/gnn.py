@@ -13,6 +13,18 @@ Norm note: as in the reference, batch statistics computed on the fly (no
 running statistics), with the population variance (``correction=0``, as
 ``jnp.var``).
 
+Edge parallelism: under an ambient grid (``launch.mesh.use_grid``) the
+graph's edges split over every axis (:func:`shard_edges`) and its nodes
+are whole on every rank (the reference pins node states to ``model``; here
+every rank holds them all, which costs one node-sized buffer a layer and
+keeps the node work collective-free). Each rank scatters its edges'
+messages and gates into node buffers, and one sum over every axis gives
+``num`` and ``den``. The edges' batch statistics are taken over every
+rank's edges (two sums over the grid), the nodes' over the nodes as on one
+device; the loss is the same value on every rank. The parameters are whole
+on every rank; those the edge work reads (``A``, ``B``, ``C``, ``V``,
+``bn_e``, ``w_edge``) have their gradients summed over the grid.
+
 :func:`neighbor_sample` is the 2-hop fanout sampler for the
 ``minibatch_lg`` shape. Its random draws (:func:`sample_draws`) are apart
 from the gather (:func:`neighbor_block`), so a caller can feed the
@@ -29,7 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import tree
+from ..launch.mesh import current_grid
+from . import sharding, tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +61,23 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-def _batch_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    mu = torch.mean(x, dim=0, keepdim=True)
-    var = torch.var(x, dim=0, keepdim=True, correction=0)
+def _batch_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, grid=None,
+                axes: tuple[str, ...] = ()) -> torch.Tensor:
+    """Batch statistics over dimension 0; with ``grid``, over every rank's
+    rows along ``axes`` (a sum for the mean, then one for the variance)."""
+    if grid is None:
+        mu = torch.mean(x, dim=0, keepdim=True)
+        var = torch.var(x, dim=0, keepdim=True, correction=0)
+    else:
+        n = x.shape[0] * sharding.size_of(grid, axes)
+        mu = sharding.psum(torch.sum(x, dim=0, keepdim=True), grid, axes) / n
+        var = sharding.psum(torch.sum(torch.square(x - mu), dim=0, keepdim=True), grid, axes) / n
     return (x - mu) * torch.rsqrt(var + eps) * scale
+
+
+def _edge_axes(grid) -> tuple[str, ...]:
+    """The axes the edges split over: every axis of the grid (none without one)."""
+    return () if grid is None else sharding.physical_axes(sharding.ALL, grid.axis_names)
 
 
 def _segment_sum(x: torch.Tensor, segments: torch.Tensor, n: int) -> torch.Tensor:
@@ -70,15 +96,23 @@ class GatedGCNLayer(nn.Module):
         self.bn_h = _param((h,), cfg.dtype, device)
         self.bn_e = _param((h,), cfg.dtype, device)
 
-    def forward(self, h, e, src, dst, edge_mask):
-        h_src, h_dst = h[src], h[dst]
-        e_new = e + F.relu(_batch_norm(h_src @ self.A + h_dst @ self.B + e @ self.C, self.bn_e))
+    def forward(self, h, e, src, dst, edge_mask, grid=None):
+        """``grid`` (passed in, so that the checkpointed recompute sees it):
+        ``e``, ``src``, ``dst`` and ``edge_mask`` are the rank's edges."""
+        axes = _edge_axes(grid)
+        he = sharding.copy_to(h, grid, axes)  # node states read by the rank's edges
+        w = {n: sharding.materialize(getattr(self, n), grid, axes) for n in ("A", "B", "C", "V", "bn_e")}
+        h_src, h_dst = he[src], he[dst]
+        e_new = e + F.relu(_batch_norm(h_src @ w["A"] + h_dst @ w["B"] + e @ w["C"], w["bn_e"],
+                                       grid=grid, axes=axes))
         eta = torch.sigmoid(e_new)
         if edge_mask is not None:
             eta = eta * edge_mask[:, None]
-        msg = eta * (h_src @ self.V)
+        msg = eta * (h_src @ w["V"])
         n = h.shape[0]
-        agg = _segment_sum(msg, dst, n) / (_segment_sum(eta, dst, n) + 1e-6)
+        num = sharding.reduce_from(_segment_sum(msg, dst, n), grid, axes)
+        den = sharding.reduce_from(_segment_sum(eta, dst, n), grid, axes)
+        agg = num / (den + 1e-6)
         return h + F.relu(_batch_norm(h @ self.U + agg, self.bn_h)), e_new
 
 
@@ -102,20 +136,22 @@ class GatedGCN(nn.Module):
         (E, Fe), edge_mask (E,), and graph_ids (N,) with n_graphs for
         batched small graphs -> node logits (N, C) or graph outputs (G, C)."""
         cfg = self.cfg
+        grid = current_grid()
         n = graph["node_feat"].shape[0]
         src, dst = graph["edge_index"][0], graph["edge_index"][1]
         h = graph["node_feat"].to(cfg.dtype) @ self.w_in
+        w_edge = sharding.materialize(self.w_edge, grid, _edge_axes(grid))
         if cfg.d_edge and "edge_feat" in graph:
-            e = graph["edge_feat"].to(cfg.dtype) @ self.w_edge
+            e = graph["edge_feat"].to(cfg.dtype) @ w_edge
         else:
-            e = h.new_zeros((src.shape[0], cfg.d_hidden)) + self.w_edge[0]
+            e = h.new_zeros((src.shape[0], cfg.d_hidden)) + w_edge[0]
         edge_mask = graph.get("edge_mask")
         for layer in self.layers:
             if torch.is_grad_enabled():
-                h, e = checkpoint(layer, h, e, src, dst, edge_mask, use_reentrant=False,
+                h, e = checkpoint(layer, h, e, src, dst, edge_mask, grid, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                h, e = layer(h, e, src, dst, edge_mask)
+                h, e = layer(h, e, src, dst, edge_mask, grid)
         out = h @ self.w_out
         if cfg.readout == "graph":
             gids, g = graph["graph_ids"], int(graph["n_graphs"])
@@ -123,6 +159,21 @@ class GatedGCN(nn.Module):
             counts = _segment_sum(out.new_ones((n, 1)), gids, g)
             return pooled / torch.clamp(counts, min=1.0)
         return out
+
+
+def shard_edges(graph: Mapping, grid) -> dict:
+    """The rank's share of a graph for edge parallelism: ``edge_index``,
+    ``edge_feat`` and ``edge_mask`` split over every axis of ``grid``
+    (contiguous blocks of edges, in rank order), the rest as given. The
+    edge count must split evenly: pad with masked edges first, as the
+    reference pads its inputs."""
+    axes = _edge_axes(grid)
+    out = dict(graph)
+    out["edge_index"] = sharding.shard(graph["edge_index"], (None, axes), grid)
+    for k in ("edge_feat", "edge_mask"):
+        if k in graph:
+            out[k] = sharding.shard(graph[k], (axes,), grid)
+    return out
 
 
 def init(seed: int, cfg: GNNConfig, *, device: str | torch.device | None = None) -> GatedGCN:

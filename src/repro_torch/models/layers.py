@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.utils import stable_topk
+from . import sharding
 
 Params = Mapping[str, torch.Tensor]
 
@@ -190,6 +191,45 @@ def decode_attention(
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
+def decode_attention_split(
+    q: torch.Tensor,  # (B, 1, Hq, D), every head
+    cache_k: torch.Tensor,  # (B, S_loc, Hkv, D): the rank's positions
+    cache_v: torch.Tensor,
+    *,
+    length: int,
+    window: int | None,
+    offset: int,
+    grid,
+    axes: tuple[str, ...],
+) -> torch.Tensor:
+    """:func:`decode_attention` over a cache whose positions are split over
+    ``axes`` (split-KV, flash-decoding style): the rank holds positions
+    ``offset .. offset + S_loc - 1``; it takes the partial maximum, sum of
+    exponentials and weighted values over them, and the partials are
+    combined over ``axes`` (a maximum, then two sums). The weights multiply
+    the values unrounded and the sum is divided once at the end (the
+    single-device version rounds each weight to the cache's type first:
+    the same in float32 up to the order of the sums)."""
+    b, s, hkv, d = cache_k.shape
+    hq = q.shape[2]
+    g = hq // hkv
+    scale = 1.0 / (d**0.5)
+    qr = q.reshape(b, hkv, g, d)
+    s_ = torch.einsum("bhgd,bkhd->bhgk", qr.float(), cache_k.float()) * scale
+    pos = offset + torch.arange(s, device=q.device)
+    valid = pos < length
+    if window is not None:
+        valid &= pos >= length - window
+    s_ = torch.where(valid[None, None, None, :], s_, _NEG)
+    m = torch.amax(s_, dim=-1)  # (B, Hkv, G)
+    m_all = sharding.all_max(m, grid, axes)
+    p = torch.where(valid[None, None, None, :], torch.exp(s_ - m_all[..., None]), 0.0)
+    l = sharding.all_reduce_nograd(p.sum(dim=-1), grid, axes)
+    acc = sharding.all_reduce_nograd(torch.einsum("bhgk,bkhd->bhgd", p, cache_v.float()), grid, axes)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP / MoE
 # ---------------------------------------------------------------------------
@@ -223,6 +263,9 @@ def moe_mlp(
     *,
     top_k: int,
     capacity_factor: float = 1.25,
+    grid=None,
+    tp: tuple[str, ...] = (),
+    dp: tuple[str, ...] = (),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort-based token-choice MoE with per-batch-row dispatch -> (output,
     aux load-balance loss).
@@ -234,9 +277,18 @@ def moe_mlp(
     stable_topk`). Each token's pairs are combined in one fixed order, the
     order of their slots in the sorted pairs, which is the order JAX's
     ``segment_sum`` adds them in.
+
+    Expert parallelism (``grid`` given): ``p``'s expert weights are the
+    rank's ``E / |tp|`` experts (the router whole), and ``x`` is whole on
+    every ``tp`` rank. Every rank routes every row; it fills and runs only
+    its experts' slots, and returns its share of the combine, which the
+    caller sums over ``tp``. The aux loss's batch means are taken over the
+    rows of every ``dp`` rank.
     """
     b, s, d = x.shape
-    e = p["w_gate"].shape[0]
+    e = p["router"].shape[1]
+    e_loc = p["w_gate"].shape[0]
+    e_lo = sharding.my_index(grid, tp) * e_loc
     cap = int(max(top_k, round(s * top_k / e * capacity_factor)))
     cap = min(cap, s * top_k)
 
@@ -246,8 +298,18 @@ def moe_mlp(
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
     # Aux loss (Switch-style): mean fraction routed vs mean router prob.
-    density = torch.mean(F.one_hot(experts[..., 0], e).float(), dim=(0, 1))
-    density_prob = torch.mean(probs, dim=(0, 1))
+    if grid is None:
+        density = torch.mean(F.one_hot(experts[..., 0], e).float(), dim=(0, 1))
+        density_prob = torch.mean(probs, dim=(0, 1))
+    else:
+        rows = b * s * sharding.size_of(grid, dp)
+        routed = F.one_hot(experts[..., 0], e).float().sum(dim=(0, 1))
+        density = sharding.all_reduce_nograd(routed, grid, dp) / rows
+        density_prob = sharding.reduce_from(probs.sum(dim=(0, 1)), grid, dp) / rows
+        # Each tp rank combines its experts' pairs from the rows and gates
+        # that every tp rank holds alike: their gradients are partial.
+        x = sharding.copy_to(x, grid, tp)
+        gate_vals = sharding.copy_to(gate_vals, grid, tp)
     aux = torch.sum(density * density_prob) * e
 
     # Dispatch, one batch row per leading index.
@@ -258,12 +320,15 @@ def moe_mlp(
     counts = F.one_hot(flat_e, e).sum(dim=1)  # (B, E)
     starts = torch.cumsum(counts, dim=-1) - counts
     pos = torch.arange(n, device=x.device) - torch.gather(starts, 1, sorted_e)
-    slot = torch.where(pos < cap, sorted_e * cap + pos, e * cap)  # (B, n)
+    # The slot of each sorted pair among this rank's experts' slots, or the
+    # spill row (dropped past capacity, or another rank's expert).
+    mine = (pos < cap) & (sorted_e >= e_lo) & (sorted_e < e_lo + e_loc)
+    slot = torch.where(mine, (sorted_e - e_lo) * cap + pos, e_loc * cap)  # (B, n)
     tok = torch.div(order, top_k, rounding_mode="floor")
     rows = torch.arange(b, device=x.device)[:, None]
-    buf = x.new_zeros((b, e * cap + 1, d))
+    buf = x.new_zeros((b, e_loc * cap + 1, d))
     buf[rows, slot] = x[rows, tok]
-    expert_in = buf[:, :-1].reshape(b, e, cap, d)
+    expert_in = buf[:, :-1].reshape(b, e_loc, cap, d)
 
     h = _einsum("becd,edf->becf", expert_in, p["w_gate"])
     u = _einsum("becd,edf->becf", expert_in, p["w_up"])
@@ -271,9 +336,9 @@ def moe_mlp(
 
     # Combine: the gated output of each sorted pair (zero where dropped),
     # then each token's top_k pairs summed in the order of their slots.
-    flat = expert_out.reshape(b, e * cap, d)
-    safe = torch.clamp(slot, max=e * cap - 1)
-    y = torch.where((slot < e * cap)[..., None], flat[rows, safe], 0.0)
+    flat = expert_out.reshape(b, e_loc * cap, d)
+    safe = torch.clamp(slot, max=e_loc * cap - 1)
+    y = torch.where((slot < e_loc * cap)[..., None], flat[rows, safe], 0.0)
     gsel = torch.gather(gate_vals.reshape(b, n), 1, order)
     y = y * gsel[..., None]
     where = torch.sort(torch.argsort(order, dim=-1).reshape(b, s, top_k), dim=-1).values

@@ -11,9 +11,19 @@ The shared substrate is the embedding lookup. On one device the
 reference's lookup is a plain ``take``, whose gradient is a dense
 scatter-add; here it is ``F.embedding`` with its dense gradient, so AdamW
 updates the same rows as the reference's (a sparse gradient would leave the
-untouched rows' moments and weight decay alone). The reference's sharded
-lookup (a ``shard_map`` over the vocabulary rows) and the models'
-``param_specs`` belong to the distributed path, not to this module.
+untouched rows' moments and weight decay alone).
+
+On a grid (``launch.mesh.use_grid``, parameters laid out by
+:func:`param_specs` through ``sharding.shard_module``) the tables split
+their vocabulary rows over ``model`` and :func:`embedding_lookup` is the
+reference's ``shard_map``: a masked local take, summed over ``model``
+(forward bit-equal to the plain take; the backward of the sum is the
+identity, so each rank's rows get the gradient once). The batch splits
+over the data axes (``sharding.shard_batch``), xDeepFM's rows after the
+lookup over every axis, and each loss is the mean over the global batch,
+the same value on every rank. Two-tower's in-batch softmax scores each
+user against every item of the **global** batch: the item vectors (and
+``sampling_logq``) are all-gathered over the data axes.
 
 The two-tower ``retrieval_cand`` path is the paper's own workload: score
 users against ~1e6 precomputed item embeddings, brute force here
@@ -31,7 +41,9 @@ from torch import nn
 
 from ..core.utils import stable_topk
 from ..device import resolve_device
-from . import layers, tree
+from ..launch.mesh import current_grid
+from . import layers, sharding, tree
+from .sharding import ALL, DP, TP
 
 
 # ---------------------------------------------------------------------------
@@ -40,8 +52,38 @@ from . import layers, tree
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``, differentiable with a dense gradient."""
-    return F.embedding(ids, table)
+    """``table[ids]``, differentiable with a dense gradient. Under an
+    ambient grid ``table`` is the rank's rows (split over ``model``) and
+    ``ids`` the rank's rows of the batch: a masked local take summed over
+    ``model``; the table's gradient is summed over the data axes."""
+    grid = current_grid()
+    names = () if grid is None else grid.axis_names
+    table = sharding.materialize(table, grid, sharding.physical_axes(DP, names))
+    tp = sharding.physical_axes(TP, names)
+    return sharding.reduce_from(sharding.vocab_take(table, ids, grid, tp), grid, tp)
+
+
+class _Split:
+    """The axes of one call on a grid: its rows split over the logical axes
+    ``rows``, its parameters read through ``sharding.materialize`` over
+    them (so their gradients sum over those axes)."""
+
+    def __init__(self, grid, rows: str = DP):
+        self.grid = grid
+        names = () if grid is None else grid.axis_names
+        self.tp = sharding.physical_axes(TP, names)
+        self.rows = sharding.physical_axes(rows, names)
+
+    def w(self, p: torch.Tensor) -> torch.Tensor:
+        return sharding.materialize(p, self.grid, self.rows)
+
+    def mlp(self, p: Mapping[str, torch.Tensor]) -> dict:
+        return {k: self.w(v) for k, v in p.items()}
+
+    def mean(self, local_sum: torch.Tensor, local_count: int) -> torch.Tensor:
+        """The global mean from the rank's sum over its ``local_count`` rows."""
+        n = sharding.size_of(self.grid, self.rows)
+        return sharding.reduce_from(local_sum / (local_count * n), self.grid, self.rows)
 
 
 def embedding_bag(
@@ -80,6 +122,17 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 def _bce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y = y.float()
     return -torch.mean(y * F.logsigmoid(logits) + (1 - y) * F.logsigmoid(-logits))
+
+
+def _bce_global(logits: torch.Tensor, y: torch.Tensor, rows: str) -> torch.Tensor:
+    """:func:`_bce`, under an ambient grid the mean over every rank's rows
+    (split over the logical axes ``rows``)."""
+    grid = current_grid()
+    if grid is None:
+        return _bce(logits, y)
+    y = y.float()
+    nll = -torch.sum(y * F.logsigmoid(logits) + (1 - y) * F.logsigmoid(-logits))
+    return _Split(grid, rows).mean(nll, logits.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +203,10 @@ def sasrec_forward(model: SASRec, seq: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     b, s = seq.shape
     d, nh = cfg.embed_dim, cfg.n_heads
-    h = embedding_lookup(model.item_emb, seq) + model.pos_emb[None, :s]
+    sp = _Split(current_grid())
+    h = embedding_lookup(model.item_emb, seq) + sp.w(model.pos_emb)[None, :s]
     for blk in model.blocks:
+        blk = sp.mlp(blk)
         x = layers.rms_norm(h, blk["ln1"])
         q = (x @ blk["wq"]).reshape(b, s, nh, d // nh)
         k = (x @ blk["wk"]).reshape(b, s, nh, d // nh)
@@ -160,7 +215,7 @@ def sasrec_forward(model: SASRec, seq: torch.Tensor) -> torch.Tensor:
         h = h + o.reshape(b, s, d) @ blk["wo"]
         x = layers.rms_norm(h, blk["ln2"])
         h = h + F.relu(x @ blk["w1"]) @ blk["w2"]
-    return layers.rms_norm(h, model.ln_f)
+    return layers.rms_norm(h, sp.w(model.ln_f))
 
 
 def sasrec_loss(model: SASRec, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -172,7 +227,12 @@ def sasrec_loss(model: SASRec, batch: Mapping[str, torch.Tensor]) -> torch.Tenso
     neg_s = torch.sum(h * neg, -1)
     mask = (batch["pos"] > 0).float()
     loss = -F.logsigmoid(pos_s) - F.logsigmoid(-neg_s)
-    return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    grid = current_grid()
+    if grid is None:
+        return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    sp = _Split(grid)
+    count = sharding.all_reduce_nograd(torch.sum(mask), grid, sp.rows)
+    return sharding.reduce_from(torch.sum(loss * mask) / torch.clamp(count, min=1.0), grid, sp.rows)
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +258,8 @@ def user_embed(model: TwoTower, user_fields: torch.Tensor) -> torch.Tensor:
     b, f = user_fields.shape
     offset = torch.arange(f, dtype=user_fields.dtype, device=user_fields.device) * cfg.field_vocab
     x = embedding_lookup(model.user_emb, user_fields + offset).reshape(b, -1)
-    return _normalize(_mlp_apply(model.user_tower, x, len(cfg.tower_dims)))
+    tower = _Split(current_grid()).mlp(model.user_tower)
+    return _normalize(_mlp_apply(tower, x, len(cfg.tower_dims)))
 
 
 def item_embed(model: TwoTower, item_fields: torch.Tensor) -> torch.Tensor:
@@ -211,7 +272,8 @@ def item_embed(model: TwoTower, item_fields: torch.Tensor) -> torch.Tensor:
     offset = torch.arange(1, f, dtype=item_fields.dtype, device=item_fields.device) * cfg.field_vocab
     rest = embedding_lookup(model.user_emb, item_fields[:, 1:] + offset).reshape(b, -1)
     x = torch.cat([rows0, rest], dim=-1)
-    return _normalize(_mlp_apply(model.item_tower, x, len(cfg.tower_dims)))
+    tower = _Split(current_grid()).mlp(model.item_tower)
+    return _normalize(_mlp_apply(tower, x, len(cfg.tower_dims)))
 
 
 def two_tower_loss(model: TwoTower, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -219,12 +281,24 @@ def two_tower_loss(model: TwoTower, batch: Mapping[str, torch.Tensor]) -> torch.
     correction (``sampling_logq``, when the batch has it)."""
     u = user_embed(model, batch["user_fields"])
     i = item_embed(model, batch["item_fields"])
-    logits = (u @ i.T) / 0.05
     logq = batch.get("sampling_logq")
+    grid = current_grid()
+    if grid is None:
+        logits = (u @ i.T) / 0.05
+        if logq is not None:
+            logits = logits - logq[None, :]
+        return -torch.mean(torch.diagonal(F.log_softmax(logits.float(), dim=-1)))
+    # Every user of the rank against every item of the global batch: the
+    # items' gradients from every rank's users are summed back to their rank.
+    sp = _Split(grid)
+    items = sharding.gather(i, grid, sp.rows, 0)
+    logits = (u @ items.T) / 0.05
     if logq is not None:
-        logits = logits - logq[None, :]
+        logits = logits - sharding.gather(logq.detach(), grid, sp.rows, 0)[None, :]
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -torch.mean(torch.diagonal(logp))
+    b = u.shape[0]
+    labels = sharding.my_index(grid, sp.rows) * b + torch.arange(b, device=u.device)
+    return sp.mean(-torch.sum(logp[torch.arange(b, device=u.device), labels]), b)
 
 
 @torch.no_grad()
@@ -259,21 +333,22 @@ def din_forward(model: DIN, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     weights take no softmax (DIN keeps their intensity); the pooled history
     is divided by the count of its non-padding items."""
     cfg = model.cfg
+    sp = _Split(current_grid())
     hist = embedding_lookup(model.item_emb, batch["history"])  # (B, S, d)
     tgt = embedding_lookup(model.item_emb, batch["target"])  # (B, d)
     t = tgt[:, None, :].expand_as(hist)
     a_in = torch.cat([hist, t, hist - t, hist * t], dim=-1)
-    w = _mlp_apply(model.attn, a_in, len(cfg.attn_dims) + 1)[..., 0]  # (B, S)
+    w = _mlp_apply(sp.mlp(model.attn), a_in, len(cfg.attn_dims) + 1)[..., 0]  # (B, S)
     mask = (batch["history"] > 0).to(w.dtype)
     w = w * mask
     pooled = torch.einsum("bs,bsd->bd", w, hist) / torch.clamp(
         torch.sum(mask, -1, keepdim=True), min=1.0)
     x = torch.cat([pooled, tgt, pooled * tgt], dim=-1)
-    return _mlp_apply(model.mlp, x, len(cfg.mlp_dims) + 1)[..., 0]
+    return _mlp_apply(sp.mlp(model.mlp), x, len(cfg.mlp_dims) + 1)[..., 0]
 
 
 def din_loss(model: DIN, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    return _bce(din_forward(model, batch), batch["label"])
+    return _bce_global(din_forward(model, batch), batch["label"], DP)
 
 
 # ---------------------------------------------------------------------------
@@ -305,19 +380,42 @@ def xdeepfm_forward(model: XDeepFM, batch: Mapping[str, torch.Tensor]) -> torch.
     flat_ids = fields + offset
     x0 = embedding_lookup(model.emb, flat_ids)  # (B, m, d)
     linear = torch.sum(embedding_lookup(model.linear, flat_ids), dim=(1, 2))
+    grid = current_grid()
+    sp = _Split(grid, ALL)
+    if grid is not None:
+        # The rows after the (model-split) lookup split over every axis:
+        # the rank keeps its tp-th share of its data rank's rows, and the
+        # others' shares of the gradient come back through the sum.
+        x0, linear = (_tp_rows(t, grid, sp.tp) for t in (x0, linear))
+        b = x0.shape[0]
     # CIN: x^{k+1}_h = sum_{i,j} W^k_{h,ij} (x^k_i * x^0_j)
     xk, pools = x0, []
     for w in model.cin:
         z = torch.einsum("bhd,bmd->bhmd", xk, x0).reshape(b, -1, cfg.embed_dim)  # (B, Hk*m, d)
-        xk = torch.einsum("bzd,zh->bhd", z, w)  # (B, Hk+1, d)
+        xk = torch.einsum("bzd,zh->bhd", z, sp.w(w))  # (B, Hk+1, d)
         pools.append(torch.sum(xk, dim=-1))
-    cin_logit = (torch.cat(pools, dim=-1) @ model.cin_out)[:, 0]
-    dnn_logit = _mlp_apply(model.dnn, x0.reshape(b, -1), len(cfg.dnn_dims) + 1)[:, 0]
+    cin_logit = (torch.cat(pools, dim=-1) @ sp.w(model.cin_out))[:, 0]
+    dnn_logit = _mlp_apply(sp.mlp(model.dnn), x0.reshape(b, -1), len(cfg.dnn_dims) + 1)[:, 0]
     return linear + cin_logit + dnn_logit
 
 
+def _tp_rows(t: torch.Tensor, grid, tp: tuple[str, ...]) -> torch.Tensor:
+    n = sharding.size_of(grid, tp)
+    if t.shape[0] % n:
+        raise ValueError(f"{t.shape[0]} rows do not split over {tp}")
+    rows = t.shape[0] // n
+    return sharding.copy_to(t, grid, tp).narrow(0, sharding.my_index(grid, tp) * rows, rows)
+
+
 def xdeepfm_loss(model: XDeepFM, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    return _bce(xdeepfm_forward(model, batch), batch["label"])
+    """BCE; under an ambient grid ``batch`` holds the rank's rows over the
+    data axes, and each model rank scores its share of them."""
+    logits = xdeepfm_forward(model, batch)
+    y = batch["label"]
+    grid = current_grid()
+    if grid is not None:
+        y = _tp_rows(y, grid, _Split(grid).tp)
+    return _bce_global(logits, y, ALL)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +430,17 @@ LOSS = {
     "din": din_loss,
     "xdeepfm": xdeepfm_loss,
 }
+
+
+def param_specs(model: _Recsys) -> dict:
+    """Vocabulary-split tables over ``model``, everything else whole: the
+    reference's tree of specs (the same names, lists as lists)."""
+    def spec_for(name: str, p) -> tuple:
+        if any(n in ("item_emb", "user_emb", "emb", "linear") for n in name.split(".")):
+            return ("model",) + (None,) * (p.dim() - 1)
+        return (None,) * p.dim()
+
+    return tree.param_tree({n: spec_for(n, p) for n, p in model.named_parameters()})
 
 
 def init(seed: int, cfg: RecsysConfig, *, device: str | torch.device | None = None) -> _Recsys:

@@ -22,8 +22,38 @@ reference's numpy tree.
 
 LM serving: :func:`prefill` runs the prompt and returns the last position's
 logits and the KV cache (:func:`init_cache`'s layout, ``(L, B, S, Hkv,
-Dh)``); :func:`decode_step` feeds one token a step. The sharding specs
-wait for the distributed slice.
+Dh)``); :func:`decode_step` feeds one token a step.
+
+On a grid (``launch.mesh.use_grid``, parameters laid out by
+:func:`param_specs` through ``sharding.shard_module``) the same entry points
+run Megatron tensor parallelism over ``model`` and FSDP over the data axes:
+
+- ``wq``/``wk``/``wv`` (and their biases) are split by column over whole
+  heads, rank ``r`` holding query heads ``r * Hq/tp ...`` and the kv heads
+  they read (``n_kv_heads % tp == 0``); ``wo`` by row, then a sum over
+  ``model``. The MLP's ``w_gate``/``w_up`` by column, ``w_down`` by row.
+  MoE experts split over ``model`` (``layers.moe_mlp``).
+- Each layer's data-split weights are all-gathered inside the layer, so
+  the checkpointed recompute gathers them again and no gathered weight
+  outlives the step; the gather's backward sums the gradient over the data
+  axes and keeps the rank's block.
+- ``embed`` is vocabulary-parallel (a masked local take, summed over
+  ``model``) and so is ``lm_head``, with a vocabulary-parallel
+  cross-entropy (the maximum and the sum of exponentials over ``model``,
+  the gold logit from the rank that holds it), chunked as on one device.
+- ``seq_shard_activations`` splits the residual stream's sequence over
+  ``model`` between the layers' attention and MLP (all-gathered before
+  each, reduce-scattered after).
+- The loss is the mean over the global batch (every data rank's rows).
+- Decode splits the cache by :func:`cache_specs`: the sequence over
+  ``model`` (batch over data), or over every axis (``seq_sharded``). Each
+  rank attends over its positions and the partials are combined
+  (``layers.decode_attention_split``); q, k and v are all-gathered over the
+  heads first, and the rank holding position ``length`` writes k and v.
+
+The reference stacks its layers (a leading ``L`` axis, spec entry None);
+the port keeps a :class:`Block` per layer, so its per-layer spec is the
+reference's without that leading None.
 """
 from __future__ import annotations
 
@@ -31,12 +61,12 @@ import dataclasses
 from typing import Mapping
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import layers, tree
+from ..launch.mesh import current_grid
+from . import layers, sharding, tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +98,10 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16  # compute
     param_dtype: torch.dtype = torch.float32  # master weights
     loss_chunk: int = 128
+    # Sequence parallelism for activations: on a grid the residual stream
+    # splits its sequence over 'model' between the layers' attention and
+    # MLP, at the cost of a sequence all-gather before each.
+    seq_shard_activations: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -86,6 +120,61 @@ class LMConfig:
 
 
 MOE_SEQ_CHUNK = 8192  # cap on the MoE dispatch buffers' length for long sequences
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """How the work of one call splits over a grid: rows over ``dp``,
+    heads, MLP columns, experts and the vocabulary over ``tp``, and with
+    ``seq`` the residual stream's sequence over ``tp`` too. Without a grid
+    (``grid`` None, no axes) every collective the layers call is the
+    identity, so one body serves both."""
+
+    grid: object = None
+    dp: tuple[str, ...] = ()
+    tp: tuple[str, ...] = ()
+    seq: bool = False
+
+    @property
+    def act(self) -> tuple[str, ...]:
+        """The axes the residual stream (and so the norms) splits over."""
+        return self.dp + (self.tp if self.seq else ())
+
+    @property
+    def tp_size(self) -> int:
+        return sharding.size_of(self.grid, self.tp)
+
+
+_LOCAL = _Layout()  # one device
+
+
+def _layout(cfg: "LMConfig", grid, *, seq: bool | None = None) -> _Layout:
+    if grid is None:
+        return _LOCAL
+    names = grid.axis_names
+    out = _Layout(grid, sharding.physical_axes(sharding.DP, names),
+                  sharding.physical_axes(sharding.TP, names),
+                  cfg.seq_shard_activations if seq is None else seq)
+    tpn = out.tp_size
+    if cfg.n_heads % tpn or cfg.n_kv_heads % tpn:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} kv heads do not "
+                         f"split over {tpn} model ranks (n_kv_heads % tp must be 0)")
+    return out
+
+
+def _enter(h: torch.Tensor, L: _Layout) -> torch.Tensor:
+    """A layer's normed input as every tp rank holds it: the whole
+    sequence (all-gathered when the stream is sequence-split; its gradient
+    is whole on every rank, so the backward keeps the rank's slice)."""
+    return sharding.gather(h, L.grid, L.tp, 1, grad="slice") if L.seq else h
+
+
+def _leave(out: torch.Tensor, L: _Layout) -> torch.Tensor:
+    """A tp-partial output summed over ``model`` (and split by sequence
+    again when the stream is sequence-split)."""
+    if L.seq:
+        return sharding.reduce_scatter(out, L.grid, L.tp, 1)
+    return sharding.reduce_from(out, L.grid, L.tp)
 
 
 def layer_windows(cfg: LMConfig, seq_len: int) -> torch.Tensor:
@@ -141,56 +230,79 @@ class Block(nn.Module):
         else:
             self.mlp = _mlp_params(d, cfg.d_ff, pd, device)
 
-    def weights(self) -> dict:
+    def weights(self, L: _Layout = _LOCAL) -> dict:
         """The layer's parameters as the reference's nested dict, cast to
-        the compute dtype (the router stays float32)."""
+        the compute dtype (the router stays float32). On a grid each is
+        read through ``sharding.materialize``: its data-split dimensions
+        gathered (then cast), the norms over the residual stream's axes."""
         nested: dict = {}
         for name, p in self.named_parameters():
             *outer, leaf = name.split(".")
             node = nested
             for key in outer:
                 node = node.setdefault(key, {})
-            node[leaf] = p
+            node[leaf] = sharding.materialize(p, L.grid, L.act if leaf.startswith("ln_") else L.dp)
         return layers.cast_floats(nested, self.cfg.dtype)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, window: int | None,
-                collect: bool = False):
+                collect: bool = False, grid=None):
         """x (B, S, d) -> (x after the layer, MoE aux loss), and with
         ``collect`` the layer's (k, v), each (B, S, Hkv, Dh) after RoPE;
-        ``cos``/``sin`` are RoPE's tables (``layers.rope_tables``)."""
-        lp = self.weights()
-        o, kv = _attn_block(lp, self.cfg, x, cos, sin, window)
+        ``cos``/``sin`` are RoPE's tables (``layers.rope_tables``). On a
+        ``grid`` (passed in, so that the checkpointed recompute sees it) x
+        is the rank's block of the residual stream and k, v its heads."""
+        L = _layout(self.cfg, grid)
+        lp = self.weights(L)
+        o, kv = _attn_block(lp, self.cfg, x, cos, sin, window, L)
         x = x + o
-        mlp_out, aux = _mlp_block(lp, self.cfg, x)
+        mlp_out, aux = _mlp_block(lp, self.cfg, x, L)
         return (x + mlp_out, aux, kv) if collect else (x + mlp_out, aux)
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, length: int,
-               cos: torch.Tensor, sin: torch.Tensor, window: int) -> torch.Tensor:
+               cos: torch.Tensor, sin: torch.Tensor, window: int, grid=None,
+               seq_axes: tuple[str, ...] = ()) -> torch.Tensor:
         """One token, x (B, 1, d), against this layer's cache (B, S, Hkv,
         Dh): its k and v are written into the cache at ``length``, in
-        place, and it attends to positions ``< length + 1``."""
+        place, and it attends to positions ``< length + 1``. On a grid the
+        cache holds the rank's positions (split over ``seq_axes``)."""
         cfg = self.cfg
         b = x.shape[0]
-        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        lp = self.weights()
+        L = _layout(cfg, grid, seq=False)
+        hq, hkv, dh = cfg.n_heads // L.tp_size, cfg.n_kv_heads // L.tp_size, cfg.head_dim
+        lp = self.weights(L)
         h = layers.rms_norm(x, lp["ln_attn"])
         q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         q = layers.apply_rope(q.reshape(b, 1, hq, dh), cos, sin)
-        cache_k[:, length] = layers.apply_rope(k.reshape(b, 1, hkv, dh), cos, sin)[:, 0]
-        cache_v[:, length] = v.reshape(b, hkv, dh)
-        o = layers.decode_attention(q, cache_k, cache_v, length=length + 1, window=window)
-        x = x + o.reshape(b, 1, hq * dh) @ lp["wo"]
-        mlp_out, _ = _mlp_block(lp, cfg, x)
+        k = layers.apply_rope(k.reshape(b, 1, hkv, dh), cos, sin)
+        v = v.reshape(b, 1, hkv, dh)
+        if grid is None:
+            cache_k[:, length], cache_v[:, length] = k[:, 0], v[:, 0]
+            o = layers.decode_attention(q, cache_k, cache_v, length=length + 1, window=window)
+            x = x + o.reshape(b, 1, hq * dh) @ lp["wo"]
+        else:
+            # Every head of the token, then the rank's positions of the cache.
+            q, k, v = (sharding.gather(t, grid, L.tp, 2) for t in (q, k, v))
+            s_loc = cache_k.shape[1]
+            lo = sharding.my_index(grid, seq_axes) * s_loc
+            if lo <= length < lo + s_loc:
+                cache_k[:, length - lo], cache_v[:, length - lo] = k[:, 0], v[:, 0]
+            o = layers.decode_attention_split(q, cache_k, cache_v, length=length + 1,
+                                              window=window, offset=lo, grid=grid, axes=seq_axes)
+            r = sharding.my_index(grid, L.tp)
+            o = o[:, :, r * hq : (r + 1) * hq].reshape(b, 1, hq * dh)
+            x = x + sharding.reduce_from(o @ lp["wo"], grid, L.tp)
+        mlp_out, _ = _mlp_block(lp, cfg, x, L)
         return x + mlp_out
 
 
-def _attn_block(lp: dict, cfg: LMConfig, x: torch.Tensor, cos, sin, window):
-    """-> (the attention's output (B, S, d), its (k, v) after RoPE)."""
-    b, s, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = layers.rms_norm(x, lp["ln_attn"])
+def _attn_block(lp: dict, cfg: LMConfig, x: torch.Tensor, cos, sin, window, L: _Layout):
+    """-> (the attention's output (B, S, d), its (k, v) after RoPE). On a
+    grid: the rank's heads, the output summed over ``model``."""
+    h = sharding.copy_to(_enter(layers.rms_norm(x, lp["ln_attn"]), L), L.grid, L.tp)
+    b, s, _ = h.shape
+    hq, hkv, dh = cfg.n_heads // L.tp_size, cfg.n_kv_heads // L.tp_size, cfg.head_dim
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
@@ -198,16 +310,21 @@ def _attn_block(lp: dict, cfg: LMConfig, x: torch.Tensor, cos, sin, window):
     k = layers.apply_rope(k.reshape(b, s, hkv, dh), cos, sin)
     v = v.reshape(b, s, hkv, dh)
     o = layers.flash_attention(q, k, v, causal=True, window=window)
-    return o.reshape(b, s, hq * dh) @ lp["wo"], (k, v)
+    return _leave(o.reshape(b, s, hq * dh) @ lp["wo"], L), (k, v)
 
 
-def _mlp_block(lp: dict, cfg: LMConfig, x: torch.Tensor):
-    h = layers.rms_norm(x, lp["ln_mlp"])
+def _mlp_block(lp: dict, cfg: LMConfig, x: torch.Tensor, L: _Layout):
+    """-> (the MLP's output, the MoE aux loss). On a grid: the dense MLP
+    split by columns and rows, or the rank's experts (and its columns of
+    the shared experts), the output summed over ``model``."""
+    h = _enter(layers.rms_norm(x, lp["ln_mlp"]), L)
+    hp = sharding.copy_to(h, L.grid, L.tp)
     if not cfg.moe:
-        return layers.swiglu_mlp(lp["mlp"], h), torch.zeros((), device=x.device)
+        return _leave(layers.swiglu_mlp(lp["mlp"], hp), L), torch.zeros((), device=x.device)
     s = h.shape[1]
     moe = lambda hx: layers.moe_mlp(
-        lp["moe"], hx, top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor
+        lp["moe"], hx, top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
+        grid=L.grid, tp=L.tp, dp=L.dp,
     )
     if s > MOE_SEQ_CHUNK and s % MOE_SEQ_CHUNK == 0:
         # Dispatch sequence chunks one after another: one chunk's expert
@@ -218,8 +335,8 @@ def _mlp_block(lp: dict, cfg: LMConfig, x: torch.Tensor):
     else:
         out, aux = moe(h)
     if cfg.moe.n_shared:
-        out = out + layers.swiglu_mlp(lp["shared"], h)
-    return out, aux
+        out = out + layers.swiglu_mlp(lp["shared"], hp)
+    return _leave(out, L), aux
 
 
 class Transformer(nn.Module):
@@ -257,25 +374,31 @@ class Transformer(nn.Module):
         """tokens (B, S) -> (hidden (B, S, d) after the final norm, the MoE
         aux loss summed over layers); with ``collect_cache``, (hidden,
         (ks, vs), aux), the per-layer keys and values stacked (L, B, S,
-        Hkv, Dh)."""
+        Hkv, Dh). Under an ambient grid: the rank's rows, hidden whole on
+        every model rank, and k, v the rank's kv heads."""
         cfg = self.cfg
+        grid = current_grid()
+        L = _layout(cfg, grid)
         b, s = tokens.shape
-        x = F.embedding(tokens, self.embed).to(cfg.dtype)
+        got = sharding.vocab_take(sharding.materialize(self.embed, grid, L.dp), tokens, grid, L.tp)
+        x = (sharding.reduce_scatter(got, grid, L.tp, 1) if L.seq
+             else sharding.reduce_from(got, grid, L.tp)).to(cfg.dtype)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         cos, sin = layers.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
         auxes, kvs = [], []
         for layer, w in zip(self.layers, layer_windows(cfg, s).tolist()):
             window = w if w < s else None  # a window at least S long masks nothing
             if torch.is_grad_enabled():
-                out = checkpoint(layer, x, cos, sin, window, collect_cache, use_reentrant=False,
-                                 preserve_rng_state=False)
+                out = checkpoint(layer, x, cos, sin, window, collect_cache, grid,
+                                 use_reentrant=False, preserve_rng_state=False)
             else:
-                out = layer(x, cos, sin, window, collect_cache)
+                out = layer(x, cos, sin, window, collect_cache, grid)
             x, aux = out[0], out[1]
             auxes.append(aux)
             if collect_cache:
                 kvs.append(out[2])
-        hidden, aux = layers.rms_norm(x, self.ln_final), torch.stack(auxes).sum()
+        aux = torch.stack(auxes).sum()
+        hidden = _enter(layers.rms_norm(x, sharding.materialize(self.ln_final, grid, L.act)), L)
         if collect_cache:
             ks = torch.stack([k for k, _ in kvs])
             vs = torch.stack([v for _, v in kvs])
@@ -300,22 +423,44 @@ def _chunk_loss(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor) -> torch.T
     return torch.sum(lse - gold)
 
 
+def _chunk_loss_sharded(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor, grid,
+                        tp: tuple[str, ...]) -> torch.Tensor:
+    """The chunk's summed cross-entropy with the vocabulary split over
+    ``tp``: ``head`` is the rank's (d, V/tp) columns."""
+    h = sharding.copy_to(h, grid, tp)
+    logits = (h @ head).float()
+    m = sharding.all_max(torch.amax(logits, dim=-1), grid, tp)
+    se = sharding.reduce_from(torch.sum(torch.exp(logits - m[..., None]), dim=-1), grid, tp)
+    lse = m + torch.log(se)
+    v_loc = head.shape[1]
+    local = t - sharding.my_index(grid, tp) * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, -1, torch.clamp(local, 0, v_loc - 1)[..., None])[..., 0]
+    gold = sharding.reduce_from(torch.where(inside, gold, 0.0), grid, tp)
+    return torch.sum(lse - gold)
+
+
 def lm_loss(model: Transformer, hidden: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy, ``loss_chunk`` positions at a time."""
+    """Mean softmax cross-entropy, ``loss_chunk`` positions at a time.
+    Under an ambient grid: vocabulary-parallel over ``model``, the mean
+    over every data rank's rows (the same value on every rank)."""
     b, s, _ = hidden.shape
     chunk = min(model.cfg.loss_chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of loss_chunk {chunk}")
-    head = model.lm_head.to(model.cfg.dtype)
+    grid = current_grid()
+    L = _layout(model.cfg, grid)
+    head = sharding.materialize(model.lm_head, grid, L.dp).to(model.cfg.dtype)
+    fn, extra = (_chunk_loss, ()) if grid is None else (_chunk_loss_sharded, (grid, L.tp))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, chunk):
         h, t = hidden[:, i : i + chunk], targets[:, i : i + chunk]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_loss, h, t, head, use_reentrant=False,
+            total = total + checkpoint(fn, h, t, head, *extra, use_reentrant=False,
                                        preserve_rng_state=False)
         else:
-            total = total + _chunk_loss(h, t, head)
-    return total / (b * s)
+            total = total + fn(h, t, head, *extra)
+    return sharding.reduce_from(total / (b * s * sharding.size_of(grid, L.dp)), grid, L.dp)
 
 
 def train_loss(model: Transformer, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -328,29 +473,65 @@ def train_loss(model: Transformer, batch: Mapping[str, torch.Tensor]) -> torch.T
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device=None) -> dict:
+def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device=None,
+               seq_sharded: bool = False) -> dict:
     """An empty KV cache: ``k`` and ``v`` (L, B, max_len, Hkv, Dh) in the
-    compute dtype, ``length`` 0 (a host int)."""
+    compute dtype, ``length`` 0 (a host int). Under an ambient grid, the
+    rank's block of that cache under :func:`cache_specs` (``seq_sharded``
+    chooses the layout, which the cache records)."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     device = resolve_device(device)
+    grid = current_grid()
+    layout = {}
+    if grid is not None:
+        spec = sharding.resolve_spec(cache_specs(cfg, grid.axis_names, seq_sharded=seq_sharded)["k"],
+                                     grid.axis_names)
+        shape = tuple(sl.stop - sl.start if sl.stop is not None else n
+                      for n, sl in zip(shape, sharding.block_slices(shape, spec, grid)))
+        layout = {"seq_sharded": seq_sharded}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device), "length": 0}
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device), "length": 0, **layout}
+
+
+def _seq_axes(grid, seq_sharded: bool) -> tuple[str, ...]:
+    """The axes a sharded cache splits its sequence over."""
+    return sharding.physical_axes(sharding.ALL if seq_sharded else sharding.TP, grid.axis_names)
 
 
 def _logits(model: Transformer, hidden: torch.Tensor) -> torch.Tensor:
-    return (hidden @ model.lm_head.to(model.cfg.dtype)).float()
+    L = _layout(model.cfg, current_grid(), seq=False)
+    head = sharding.materialize(model.lm_head, L.grid, L.dp).to(model.cfg.dtype)
+    return sharding.gather((hidden @ head).float(), L.grid, L.tp, -1)
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int | None = None):
+def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int | None = None,
+            seq_sharded: bool = False):
     """Run the prompt (B, S) -> (the last position's logits (B, V) in
     float32, the cache). The cache holds the prompt's keys and values at
     positions ``0 .. S-1`` and ``length`` S; ``max_len`` (default S, the
-    reference's) sizes it, so that ``max_len - S`` tokens can follow."""
+    reference's) sizes it, so that ``max_len - S`` tokens can follow.
+
+    Under an ambient grid ``tokens`` are the rank's rows (split over the
+    data axes; with ``seq_sharded``, the whole batch on every rank) and the
+    cache is the rank's block under :func:`cache_specs`."""
     hidden, (ks, vs), _ = model(tokens, collect_cache=True)
-    s = tokens.shape[1]
-    if max_len is not None and max_len > s:
-        cache = init_cache(model.cfg, tokens.shape[0], max_len, device=tokens.device)
+    b, s = tokens.shape
+    grid = current_grid()
+    if grid is not None:
+        L = _layout(model.cfg, grid, seq=False)
+        ks, vs = (sharding.gather(t, grid, L.tp, 3) for t in (ks, vs))  # every kv head
+        n = sharding.size_of(grid, _seq_axes(grid, seq_sharded))
+        max_len = max(max_len or s, s)
+        cache = init_cache(model.cfg, b * (1 if seq_sharded else sharding.size_of(grid, L.dp)),
+                           max_len, device=tokens.device, seq_sharded=seq_sharded)
+        s_loc = max_len // n
+        lo = sharding.my_index(grid, _seq_axes(grid, seq_sharded)) * s_loc
+        hi = min(lo + s_loc, s)
+        if hi > lo:
+            cache["k"][:, :, : hi - lo], cache["v"][:, :, : hi - lo] = ks[:, :, lo:hi], vs[:, :, lo:hi]
+    elif max_len is not None and max_len > s:
+        cache = init_cache(model.cfg, b, max_len, device=tokens.device)
         cache["k"][:, :, :s], cache["v"][:, :, :s] = ks, vs
     else:
         cache = {"k": ks, "v": vs}
@@ -368,14 +549,20 @@ def decode_step(model: Transformer, cache: dict, token: torch.Tensor):
     position)."""
     cfg = model.cfg
     b = token.shape[0]
-    length, max_len = int(cache["length"]), cache["k"].shape[2]
+    grid = current_grid()
+    seq_axes = () if grid is None else _seq_axes(grid, cache.get("seq_sharded", False))
+    length = int(cache["length"])
+    max_len = cache["k"].shape[2] * sharding.size_of(grid, seq_axes)
     if length >= max_len:
         raise ValueError(f"the cache is full: length {length} of {max_len}")
-    x = F.embedding(token, model.embed).to(cfg.dtype)  # (B, 1, d)
+    L = _layout(cfg, grid, seq=False)
+    table = sharding.materialize(model.embed, grid, L.dp)
+    x = sharding.reduce_from(sharding.vocab_take(table, token, grid, L.tp), grid,
+                             L.tp).to(cfg.dtype)  # (B, 1, d)
     positions = torch.full((b, 1), length, device=token.device)
     cos, sin = layers.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
     for i, (layer, w) in enumerate(zip(model.layers, layer_windows(cfg, max_len).tolist())):
-        x = layer.decode(x, cache["k"][i], cache["v"][i], length, cos, sin, w)
+        x = layer.decode(x, cache["k"][i], cache["v"][i], length, cos, sin, w, grid, seq_axes)
     cache["length"] = length + 1
     return _logits(model, layers.rms_norm(x, model.ln_final))[:, 0], cache
 
@@ -395,3 +582,60 @@ def params_from_numpy(t, cfg: LMConfig, *, device: str | torch.device | None = N
     """A :class:`Transformer` on ``device`` holding the weights of the
     reference's parameter tree (numpy or array-likes, layers stacked)."""
     return tree.load(Transformer(cfg, device=device), t)
+
+
+# ---------------------------------------------------------------------------
+# Partitioning
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: LMConfig, axis_names, *, fsdp: bool = True) -> dict:
+    """Megatron TP layout + FSDP, entry for entry the reference's: the
+    non-TP matrix dimension also splits over the data axes (ZeRO-3: the
+    parameters, gradients and AdamW moments all follow these specs), and
+    ``fsdp=False`` gives pure TP. ``layers`` holds one per-layer tree: the
+    reference's stacked specs without their leading ``L`` entry (None)."""
+    tp = "model" if "model" in axis_names else None
+    dp = tuple(a for a in ("pod", "data") if a in axis_names)
+    if not dp or not fsdp:
+        dp = None
+    layer: dict = {
+        "ln_attn": (None,),
+        "ln_mlp": (None,),
+        "wq": (dp, tp),
+        "wk": (dp, tp),
+        "wv": (dp, tp),
+        "wo": (tp, dp),
+    }
+    if cfg.qkv_bias:
+        layer["bq"] = (tp,)
+        layer["bk"] = (tp,)
+        layer["bv"] = (tp,)
+    mlp = {"w_gate": (dp, tp), "w_up": (dp, tp), "w_down": (tp, dp)}
+    if cfg.moe:
+        layer["moe"] = {
+            "router": (None, None),
+            "w_gate": (tp, dp, None),  # expert parallel + FSDP on d
+            "w_up": (tp, dp, None),
+            "w_down": (tp, None, dp),
+        }
+        if cfg.moe.n_shared:
+            layer["shared"] = dict(mlp)
+    else:
+        layer["mlp"] = mlp
+    return {"embed": (tp, dp), "lm_head": (dp, tp), "ln_final": (None,), "layers": layer}
+
+
+def cache_specs(cfg: LMConfig, axis_names, *, seq_sharded: bool) -> dict:
+    """KV-cache layout (L, B, S, Hkv, Dh), the reference's. GQA's few kv
+    heads cannot split over a wide model axis, so the cache splits its
+    **sequence**: over ``model`` with the batch over the data axes, or
+    (``seq_sharded``, batch-1 long context) over every axis."""
+    dp = tuple(a for a in ("pod", "data") if a in axis_names)
+    tp = "model" if "model" in axis_names else None
+    if seq_sharded:
+        all_axes = dp + ((tp,) if tp else ())
+        kv = (None, None, all_axes if all_axes else None, None, None)
+    else:
+        kv = (None, dp if dp else None, tp, None, None)
+    return {"k": kv, "v": kv, "length": ()}

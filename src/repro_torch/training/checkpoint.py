@@ -35,6 +35,14 @@ nested dicts, lists and tuples of tensors, numpy arrays and scalars;
 :class:`~repro_torch.core.types.Stacked` leaves (the transformer's layers)
 are written as one stacked array. :func:`restore` fills the tensors of its
 ``like`` tree in place, after every leaf has passed its CRC.
+
+Under an ambient grid (``launch.mesh.use_grid``; the tensors of a sharded
+model and its optimizer state carry their specs, ``models.sharding``) every
+rank calls these: :func:`save` all-gathers every sharded leaf and rank 0
+writes the full leaves once, the same files as a single-device save;
+:func:`restore` fills each rank's blocks from the full leaves under the
+specs of its ``like``, so a step saved on one grid resumes on another (the
+counterpart of the JAX package's ``restore(..., shardings)``).
 """
 from __future__ import annotations
 
@@ -63,6 +71,8 @@ from ..core.types import (
 )
 from ..device import resolve_device
 from ..kernels import quant
+from ..launch.mesh import current_grid
+from ..models import sharding
 
 INDEX_DIRNAME = "index"
 INDEX_META = "index_meta.json"
@@ -397,13 +407,47 @@ def _step_array(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _gathered(tree, grid):
+    """``tree`` with every sharded tensor (or ``Stacked`` part) replaced by
+    its full tensor; a collective, in flattening order."""
+    full = lambda t: sharding.unshard(t, sharding.spec_of(t), grid) if sharding.spec_of(t) else t
+    leaves = []
+    for _, leaf in tree_flatten_with_path(tree):
+        if isinstance(leaf, Stacked):
+            leaf = Stacked([full(t) for t in leaf.parts])
+        elif isinstance(leaf, torch.Tensor):
+            leaf = full(leaf)
+        leaves.append(leaf)
+    return tree_unflatten(tree, leaves)
+
+
+def _once(fn, *args) -> None:
+    """``fn(*args)`` once: here, or under an ambient grid on rank 0 while
+    every rank waits for it."""
+    grid = current_grid()
+    if grid is None or grid.rank == 0:
+        fn(*args)
+    if grid is not None:
+        grid.barrier()
+
+
 def save(directory: str, step: int, tree) -> str:
     """Atomically write ``tree`` under ``directory/step_<step>``: a
     temporary directory renamed into place, so a crash never leaves a
     partial step behind (the ``checkpoint_write`` fault site fires before
-    the rename)."""
-    os.makedirs(directory, exist_ok=True)
+    the rename). Under an ambient grid every rank calls it: the sharded
+    leaves are gathered, rank 0 writes, and every rank returns once the
+    step is in place."""
+    grid = current_grid()
+    if grid is not None:
+        tree = _gathered(tree, grid)
+    _once(_write_step, directory, step, tree)
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write_step(directory: str, step: int, tree) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
+    os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     manifest = {"step": step, "leaves": []}
     for i, (path, leaf) in enumerate(tree_flatten_with_path(tree)):
@@ -451,7 +495,9 @@ def restore(directory: str, step: int, like):
     :class:`CheckpointCorruptError` naming the leaf). Then a tensor or
     ``Stacked`` leaf of ``like`` is filled in place (its shape and dtype
     must match) and returned; any other leaf comes back as the numpy
-    array."""
+    array. Under an ambient grid, a sharded tensor of ``like`` takes the
+    rank's block of the full leaf under its own spec."""
+    grid = current_grid()
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -466,6 +512,11 @@ def restore(directory: str, step: int, like):
             out.append(arr)
             continue
         t = numpy_to_tensor(arr)
+        if grid is not None:
+            block = lambda full, target: (sharding.shard(full, sharding.spec_of(target), grid)
+                                          if sharding.spec_of(target) else full)
+            t = (torch.stack([block(t[i], p) for i, p in enumerate(leaf.parts)])
+                 if isinstance(leaf, Stacked) and len(t) == len(leaf.parts) else block(t, leaf))
         if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
             raise ValueError(f"leaf {meta['name']}: checkpoint holds {tuple(t.shape)} {t.dtype}, "
                              f"the target {tuple(leaf.shape)} {leaf.dtype}")
@@ -483,16 +534,18 @@ class CheckpointManager:
 
     Construction sweeps orphaned tmp dirs (a crash between mkdtemp and
     rename would otherwise leak them); ``restore_latest`` verifies
-    integrity and falls back to the newest step that passes."""
+    integrity and falls back to the newest step that passes. Under an
+    ambient grid every rank builds it and calls it alike; rank 0 alone
+    sweeps, writes and drops old steps."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
-        sweep_orphan_tmp(directory)
+        _once(sweep_orphan_tmp, directory)
 
     def save(self, step: int, tree) -> str:
         path = save(self.directory, step, tree)
-        self._gc()
+        _once(self._gc)
         return path
 
     def latest_step(self) -> int | None:

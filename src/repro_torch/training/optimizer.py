@@ -14,6 +14,12 @@ the parameters, the gradients and the moments (the reference maps over the
 whole tree three times, which in eager PyTorch would keep a second copy of
 every gradient). The moments and the weights update in place, a leaf in
 about a dozen passes over its bytes.
+
+On a grid (parameters sharded by ``models.sharding.shard_module``) each
+rank updates its blocks: the moments carry their parameter's spec, and
+the clipping norm sums each leaf's squares over the axes that leaf is split
+over (a leaf whole on every rank is counted once), so clipping equals the
+single-device clipping.
 """
 from __future__ import annotations
 
@@ -22,6 +28,9 @@ import math
 from typing import Mapping
 
 import torch
+
+from ..launch.mesh import current_grid
+from ..models import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +60,10 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(params: Mapping[str, torch.Tensor]) -> dict:
-    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+    """Zero moments shaped as the parameters (a sharded parameter's
+    moments are its blocks and carry its spec) and step 0."""
+    zeros = lambda: {n: sharding.tag(torch.zeros_like(p, dtype=torch.float32), sharding.spec_of(p))
+                     for n, p in params.items()}
     device = next(iter(params.values())).device
     return {"mu": zeros(), "nu": zeros(), "step": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -60,13 +72,24 @@ def _as_f32(g: torch.Tensor, compress: bool) -> torch.Tensor:
     return g.to(torch.bfloat16).float() if compress else g.float()
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, *, specs=None, grid=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in float32 (one
-    float32 partial per tensor, added in order)."""
-    total = None
-    for x in tensors:
+    float32 partial per tensor, added in order). With a ``grid``, tensor
+    ``i`` is a block under the resolved ``specs[i]``: the partials of the
+    blocks split over the same axes are summed over those axes, so each
+    leaf counts once."""
+    if grid is None:
+        total = None
+        for x in tensors:
+            sq = torch.sum(torch.square(x.float()))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    groups: dict[tuple, torch.Tensor] = {}
+    for x, spec in zip(tensors, specs):
+        axes = tuple(a for a in grid.axis_names if a in sharding.spec_axes(spec))
         sq = torch.sum(torch.square(x.float()))
-        total = sq if total is None else total + sq
+        groups[axes] = sq if axes not in groups else groups[axes] + sq
+    total = sum(sharding.all_reduce_nograd(sq, grid, axes) for axes, sq in sorted(groups.items()))
     return torch.sqrt(total)
 
 
@@ -79,11 +102,15 @@ def apply_updates(
 ) -> dict:
     """One AdamW step, in place on ``params`` and ``state`` -> metrics
     ``{"grad_norm", "lr"}`` (device scalars). A missing (None) gradient is
-    a zero gradient, as JAX's gradient of an unused weight is."""
+    a zero gradient, as JAX's gradient of an unused weight is. Under an
+    ambient grid the parameters are the rank's blocks (their gradients
+    whole for those blocks) and the norm is the global one."""
     state["step"] += 1
     step = state["step"]
     grads = {n: (torch.zeros_like(p) if grads.get(n) is None else grads[n]) for n, p in params.items()}
-    gnorm = global_norm(_as_f32(g, cfg.compress_grads) for g in grads.values())
+    grid = current_grid()
+    gnorm = global_norm((_as_f32(g, cfg.compress_grads) for g in grads.values()),
+                        specs=[sharding.spec_of(p) for p in params.values()], grid=grid)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()

@@ -9,6 +9,14 @@ there is nothing to jit). ``loss_fn(model, batch)`` returns a scalar.
 Micro-batches run one after another, so one micro-batch's activations are
 live at a time; their gradients are summed in float32 and divided by
 ``grad_accum`` at the end, as the reference's ``lax.scan`` does.
+
+Under an ambient grid (``launch.mesh.use_grid`` around the step's calls)
+the model holds the rank's blocks (``models.sharding.shard_module``) and
+the batch the rank's rows. The model's loss is the mean over the global
+batch, the same on every rank; its backward leaves each block's whole
+gradient (the data-split gathers and the copies of data-replicated weights
+sum over the data axes), and AdamW updates the rank's blocks with the
+global clipping norm.
 """
 from __future__ import annotations
 
