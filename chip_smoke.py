@@ -253,6 +253,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import cProfile
 import dataclasses
 import gc
@@ -1651,6 +1652,7 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
         with recording(calls):
             search(batches[0])
         torch.cuda.synchronize()
+        out.setdefault("shape_checks", []).extend(shape_checks(calls))
         reset_counts()
         outs, lat_ms = [], []
         for qb in batches:
@@ -2919,6 +2921,26 @@ def dist_role(name: str, args, kw, first: bool) -> str:
     return "per-pair in-cluster" if args[1].shape[1] > 1_000 else "rescore"
 
 
+def search_reading(grid, search, shard, qb) -> dict:
+    """One batch of a sharded search read as the dry run predicts it: the
+    rank's collectives by kind, the bytes of its shard's leaves, and its
+    peak device memory over the batch past what was allocated before it
+    (``temp_bytes``)."""
+    from repro_torch.core import distributed as D
+
+    torch.cuda.synchronize()
+    grid.barrier()
+    kinds = copy.deepcopy(grid.comm_by_kind)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    search(shard, qb)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    grid.barrier()
+    return {"comm": comm_since(grid, kinds), "temp_bytes": temp,
+            "shard_bytes": sum(t.numel() * t.element_size() for t in D.named_leaves(shard).values())}
+
+
 def dist_rank(world, payload) -> dict:
     """One of the four gloo ranks sharing the card: each index's shard on
     the 2 x 2 grid (checked against the parent's slice, leaf by leaf),
@@ -2935,6 +2957,8 @@ def dist_rank(world, payload) -> dict:
     g22 = mesh.make_grid(DIST.grid, device=world.device)
     g41 = mesh.make_grid(DIST.grid4, device=world.device)
     batches = [payload["queries"][i * BATCH : (i + 1) * BATCH] for i in range(N_BATCHES)]
+    # Each rank is given its own query block of every batch.
+    b22, b41 = ([D.shard_rows(g, qb, ("model",)) for qb in batches] for g in (g22, g41))
     kw = dict(k=k, n_probe=cfg.n_probe, r0=cfg.r0, r0_centroid=cfg.r0_centroid)
     out = {"points": {}, "rank": world.rank}
     lead = world.rank == 0
@@ -2968,14 +2992,16 @@ def dist_rank(world, payload) -> dict:
         for name, _, opts, tier in points:
             s = lider.set_rescore_tier(shard, "host") if tier == "host" else shard
             search = D.make_sharded_search(g22, s, capacity_factor=DIST.capacity_factor, **kw, **opts)
-            checks, timed = rank_calls(g22, name, search, s, batches[0], time_them=lead)
+            checks, timed = rank_calls(g22, name, search, s, b22[0], time_them=lead)
             reset_counts()
-            res = rank_search(g22, search, s, batches)
+            res = rank_search(g22, search, s, b22)
             res["launches"] = read_counts()
             res["checks"], res["timed"] = checks, timed
+            if name == "F32":
+                res["dryrun"] = search_reading(g22, search, s, b22[0])
             if tier == "host":
                 rows, scores = [], []
-                for qb in batches:
+                for qb in b22:
                     r, sc, _ = search.stage1(s, qb)
                     full = D.gather_query_shards(g22, lider.TopK(ids=r, scores=sc))
                     rows.append(full.ids.cpu())
@@ -2985,7 +3011,7 @@ def dist_rank(world, payload) -> dict:
             del s, search
         if storage == "float32":
             tight = D.make_sharded_search(g22, shard, capacity_factor=DIST.tight, **kw)
-            out["tight"] = rank_search(g22, tight, shard, batches)
+            out["tight"] = rank_search(g22, tight, shard, b22)
         del shard
         gc.collect()
         torch.cuda.empty_cache()
@@ -2995,15 +3021,15 @@ def dist_rank(world, payload) -> dict:
     shard, secs = sharded(g41, "float32")
     search = D.make_sharded_search(g41, shard, capacity_factor=DIST.capacity_factor, **kw)
     reset_counts()
-    out["grid4"] = rank_search(g41, search, shard, batches)
+    out["grid4"] = rank_search(g41, search, shard, b41)
     out["grid4"]["launches"] = read_counts()
     health = np.ones(DIST.grid4[0], bool)
     health[DIST.dead] = False
-    out["health"] = rank_search(g41, search, shard, batches, health=health)
+    out["health"] = rank_search(g41, search, shard, b41, health=health)
     plan = faults.FaultPlan([faults.FaultSpec("shard_search", mode="kill_shard",
                                               payload={"shard": DIST.dead},
                                               times=tuple(range(N_BATCHES)))])
-    out["kill"] = rank_search(g41, search, shard, batches, plan=plan)
+    out["kill"] = rank_search(g41, search, shard, b41, plan=plan)
     del shard, search
     gc.collect()
     torch.cuda.empty_cache()
@@ -3244,7 +3270,11 @@ def phase_distributed(dev, main, smi: str) -> dict:
         f"{n_clusters}, d {CONFIG.dim}): max |difference| {err:.3g} from the single-device "
         f"kmeans_step + update_centroids (atol 1e-5); {r0['lloyd']['ms']:.3f} ms (world wall); "
         f"launches per rank {fmt_counts(r0['lloyd']['launches'])}")
-    del ranks, payload
+    f32 = indexes["float32"]
+    dry = {"search": [r["points"]["F32"]["dryrun"] for r in ranks],
+           "capacity": f32.bank.capacity, "key_len": f32.bank.lsh.key_len,
+           "key_len_centroid": f32.centroid_cm.lsh.key_len}
+    del ranks, payload, f32
     torch.cuda.ipc_collect()
 
     t0 = time.perf_counter()
@@ -3269,7 +3299,7 @@ def phase_distributed(dev, main, smi: str) -> dict:
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     log("distributed", f"phase {time.perf_counter() - t_phase:.1f} s")
-    return {"calls": timed_calls}
+    return {"calls": timed_calls, "dryrun": dry}
 
 
 # ---------------------------------------------------------------------------
@@ -3410,6 +3440,7 @@ def _timed_steps(step, model, state, batches, grid=None) -> list[dict]:
             grid.barrier()
             s0 = grid.comm_s
             b0 = grid.comm_bytes
+            k0 = copy.deepcopy(grid.comm_by_kind)
         t0 = time.perf_counter()
         with mesh.use_grid(grid):
             _, _, m = step(model, state, b)
@@ -3419,8 +3450,17 @@ def _timed_steps(step, model, state, batches, grid=None) -> list[dict]:
             grid.barrier()
         out.append({"s": time.perf_counter() - t0, "loss": loss, "grad_norm": gnorm,
                     "comm_s": grid.comm_s - s0 if grid is not None else 0.0,
-                    "comm_gb": (grid.comm_bytes - b0) / 1e9 if grid is not None else 0.0})
+                    "comm_gb": (grid.comm_bytes - b0) / 1e9 if grid is not None else 0.0,
+                    "comm_kinds": comm_since(grid, k0) if grid is not None else {}})
     return out
+
+
+def comm_since(grid, before: dict) -> dict:
+    """The grid's collective calls and bytes by kind since ``before`` (a
+    copy of ``grid.comm_by_kind``)."""
+    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in ("count", "bytes")}
+            for k, v in grid.comm_by_kind.items()
+            if v["count"] != before.get(k, {}).get("count", 0)}
 
 
 def sharded_rank(world, payload) -> dict:
@@ -3488,6 +3528,7 @@ def sharded_rank(world, payload) -> dict:
     batches = [sharding.shard_batch(b, grid) for b in payload["lm_batches"]]
     res["train"] = _timed_steps(step, model, state, batches, grid)
     res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["train_peak_bytes"] = torch.cuda.max_memory_allocated()
     lr_sum = sum(float(opt_lib.schedule(opt_lib.OptimizerConfig(), torch.tensor(s)))
                  for s in range(1, SHARDED.steps + 1))
     leaves, owned, want_bytes = [], 0, 0
@@ -3577,25 +3618,26 @@ def sharded_rank(world, payload) -> dict:
     shard = D.shard_lider_params(grid, params, ("data",))
     search = D.make_sharded_search(grid, shard, k=SHARDED.k, n_probe=icfg.n_probe, r0=icfg.r0,
                                    r0_centroid=icfg.r0_centroid, capacity_factor=2.0)
-    search(shard, q)  # warm
+    q_me = D.shard_rows(grid, q, ("model",))  # this rank's query block
+    search(shard, q_me)  # warm
     torch.cuda.synchronize()
     grid.barrier()
     reset_counts()
     t0 = time.perf_counter()
-    out, dropped = search(shard, q)
+    out, dropped = search(shard, q_me)
     torch.cuda.synchronize()
     grid.barrier()
     res["search_ms"] = (time.perf_counter() - t0) * 1e3
     res["search_launches"] = read_counts()
     res["dropped"] = int(dropped)
     full = D.gather_query_shards(grid, out)
-    res["checks"], res["calls"] = rank_calls(grid, "F32", search, shard, q, time_them=lead,
+    res["checks"], res["calls"] = rank_calls(grid, "F32", search, shard, q_me, time_them=lead,
                                              path="models_sharded two-tower 2x2 rank 0")
     # The search's two query hashes (the centroids' keys, the bank's),
     # recorded on every rank and timed on rank 0 alone.
     hashes = []
     with recording(hashes, keep=lambda n, a, kw: n == "lsh_hash"):
-        search(shard, q)
+        search(shard, q_me)
     torch.cuda.synchronize()
     grid.barrier()
     res["hash_calls"] = [time_build_call("models_sharded two-tower 2x2 rank 0", role, n, a, kw,
@@ -3865,6 +3907,7 @@ def phase_models_sharded(dev, smi: str) -> dict:
     if rec < LIDER_OF_IVF * ivf or not r0["equals_single"]:
         raise AssertionError(f"two-tower sharded: recall {rec} against IVF-Flat {ivf}, ids == "
                              f"single {r0['equals_single']}")
+    dry = {"train": [r["train"] for r in ranks], "peak_bytes": [r["train_peak_bytes"] for r in ranks]}
     del ranks, payload, lookup
     torch.cuda.ipc_collect()
     gc.collect()
@@ -3892,7 +3935,8 @@ def phase_models_sharded(dev, smi: str) -> dict:
     log("models_sharded", f"phase {time.perf_counter() - t_phase:.1f} s (the 4-rank world "
         f"{t_world:.1f} s, spawn included); {smi}")
     return {"train": r0["train"], "tt_train": r0["tt_train"], "recall": rec, "ivf_recall": ivf,
-            "calls": r0["calls"], "hash_calls": r0["hash_calls"]}
+            "calls": r0["calls"], "hash_calls": r0["hash_calls"],
+            "dryrun": dry}
 
 
 def recall_of(ids: np.ndarray, gt) -> float:
@@ -3976,7 +4020,8 @@ def phase_train_full(smi: str) -> dict:
     if peak >= total:
         raise AssertionError("qwen2.5-3b: the peak reached the card's memory")
     med = statistics.median(s for s, _, _ in steps[1:])
-    return {"step_ms": med * 1e3, "peak_gib": peak / 2**30, "reckon_gib": reckon / 2**30,
+    return {"step_ms": med * 1e3, "peak_gib": peak / 2**30, "peak_bytes": peak,
+            "reckon_gib": reckon / 2**30,
             "tokens_per_s": tokens / med, "mfu": flops / med / PEAK_OPS[torch.bfloat16],
             "model": kept[0]}
 
@@ -4646,6 +4691,177 @@ def phase_models(dev, smi: str, qwen) -> dict:
     return {"serve": serve, "gnn": g, **tt}
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the dry run on the production grid, and its predictions against
+# this run's own readings
+# ---------------------------------------------------------------------------
+
+# A prediction's peak (and, where given, its temporaries: the peak less
+# the arguments) must come within this share of the measured one; its
+# argument and collective bytes must equal the measured ones.
+DRY_PEAK_REL = 0.10
+
+
+def shape_checks(calls) -> list[dict]:
+    """Each recorded kernel call of a distinct shape run again, by its
+    wrapper (a launch outside every counted window) and by its ``ops``
+    entry on ``FakeTensor`` copies of the same arguments (the dry run's
+    shape-only branch): their outputs' shapes, dtypes and devices."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ops
+
+    op = {"fused_verify": ops.verify_topk_op, "sketch_prefilter": ops.sketch_topk_op,
+          "fused_verify_grouped": ops.verify_topk_grouped_op, "lsh_hash": ops.lsh_hash_op,
+          "kmeans_assign": ops.kmeans_assign_op}
+    sig = lambda out: [(tuple(t.shape), str(t.dtype).removeprefix("torch."), t.device.type)  # noqa: E731
+                       for t in (out if isinstance(out, tuple) else (out,))]
+    desc = lambda v: tuple(v.shape) + (str(v.dtype),) if isinstance(v, torch.Tensor) else v  # noqa: E731
+    seen, out = set(), []
+    for name, args, kw in calls:
+        key = (name, tuple(desc(a) for a in args), tuple(sorted((k, desc(v)) for k, v in kw.items())))
+        if key in seen:
+            continue
+        seen.add(key)
+        real = sig(wrappers()[name](*args, **kw))
+        with FakeTensorMode() as mode:
+            fake = lambda v: mode.from_tensor(v) if isinstance(v, torch.Tensor) else v  # noqa: E731
+            got = sig(op[name](*[fake(a) for a in args], **{k: fake(v) for k, v in kw.items()}))
+        out.append({"kernel": name, "args": [desc(a) for a in args], "real": real, "fake": got})
+    torch.cuda.synchronize()
+    return out
+
+
+def _dry_line(what: str, pred: dict, meas: dict) -> tuple[str, list[str]]:
+    """A prediction against a reading: ``pred`` and ``meas`` may hold
+    ``peak`` and ``temp`` (held within DRY_PEAK_REL), ``args`` and
+    ``comm`` (held equal) -> (the printed line, what missed)."""
+    parts, missed = [], []
+    for key, label in (("peak", "peak"), ("temp", "temporaries")):
+        if key in pred:
+            rel = pred[key] / meas[key] - 1
+            parts.append(f"{label} predicted {pred[key] / 2**30:.4f} GiB, measured "
+                         f"{meas[key] / 2**30:.4f} GiB ({rel:+.2%}; limit +-{DRY_PEAK_REL:.0%})")
+            if abs(rel) > DRY_PEAK_REL:
+                missed.append(label)
+    if "args" in pred:
+        parts.append(f"argument bytes predicted {pred['args']}, measured {meas['args']}")
+        if pred["args"] != meas["args"]:
+            missed.append("argument bytes")
+    if "comm" in pred:
+        fmt = lambda c: ", ".join(f"{k} {v['count']} calls {v['bytes']} B"  # noqa: E731
+                                  for k, v in sorted(c.items())) or "none"
+        parts.append(f"collectives predicted {fmt(pred['comm'])}; measured {fmt(meas['comm'])}")
+        if pred["comm"] != meas["comm"]:
+            missed.append("collectives")
+    return f"{what}: " + "; ".join(parts) + (f" -> MISSED {missed}" if missed else " -> met"), missed
+
+
+def phase_dryrun(smi: str, readings: dict, checks: list[dict]) -> dict:
+    """(i) The dry run of every cell on the single-pod production grid
+    (rank 0 of a fake 256-rank world, worker processes side by side); (ii)
+    the dry run's predictions for three cells this run measured, rebuilt
+    with the same configuration; (iii) each kernel's shape-only output
+    against the real kernel's at the main path's shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.lider_msmarco import CONFIG, RetrievalArchConfig
+    from repro_torch.launch import dryrun, mesh, steps
+
+    t_phase = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    name = torch.cuda.get_device_name(0)
+    log("dryrun", f"{name}: {props.total_memory} bytes of device memory; the dry run's card "
+        f"({dryrun.CARD_NAME}) {dryrun.CARD_BYTES}")
+    if (name, props.total_memory) != (dryrun.CARD_NAME, dryrun.CARD_BYTES):
+        # The sweep's ``fits`` is judged against that card's memory.
+        raise AssertionError(f"the dry run assumes a {dryrun.CARD_NAME} of {dryrun.CARD_BYTES} "
+                             f"bytes; this card is a {name} of {props.total_memory}")
+
+    # (i) The sweep.
+    jobs = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    recs = dryrun.sweep(["single"], emit=lambda line: log("dryrun", line))
+    t_sweep = time.perf_counter() - t0
+    n = {st: sum(r["status"] == st for r in recs) for st in ("ok", "skipped", "failed")}
+    log("dryrun", f"single-pod sweep ({jobs} worker processes, fake {dryrun.dry_device().type} "
+        f"tensors): {n['ok']} ok, {n['skipped']} skipped, {n['failed']} failed in {t_sweep:.1f} s")
+    if n["failed"] or n["ok"] != 39 or n["skipped"] != 4:
+        raise AssertionError(f"dry run: {n}; failed: "
+                             + "; ".join(r["error"] for r in recs if r["status"] == "failed"))
+
+    # (ii) Predictions against this run's readings.
+    dev = dryrun.dry_device()
+    lines, missed = [], []
+    qwen = get_arch("qwen2.5-3b")
+    with mesh.fake_world(1):
+        grid = mesh.make_grid((1, 1), device=dev)
+        shape = ShapeSpec("train_1x512", "train", {"seq_len": 512, "global_batch": 1})
+        rec = dryrun.measure(qwen, shape, grid, grad_accum=1)
+    line, miss = _dry_line(
+        "qwen2.5-3b full width, 1 x 512, one rank (train phase)",
+        {"peak": rec["memory"]["peak_bytes"]}, {"peak": readings["train_full"]["peak_bytes"]})
+    lines.append(line)
+    missed += miss
+
+    sh = readings["models_sharded"]
+    lm_cfg, _ = sharded_configs()
+    with mesh.fake_world(4):
+        grid = mesh.make_grid(SHARDED.grid, device=dev)
+        shape = ShapeSpec("train_sharded", "train",
+                          {"seq_len": SHARDED.seq, "global_batch": SHARDED.batch})
+        rec = dryrun.measure(qwen, shape, grid, cfg=lm_cfg, grad_accum=1)
+    for r, (steps_r, peak) in enumerate(zip(sh["train"], sh["peak_bytes"])):
+        if any(s["comm_kinds"] != steps_r[0]["comm_kinds"] for s in steps_r):
+            raise AssertionError(f"models_sharded rank {r}: the steps' collectives differ")
+        line, miss = _dry_line(
+            f"qwen2.5-3b widths at {SHARDED.layers} layers, 2x2 grid, rank {r} (models_sharded), "
+            "a step", {"peak": rec["memory"]["peak_bytes"], "comm": rec["collectives"]},
+            {"peak": peak, "comm": steps_r[0]["comm_kinds"]})
+        lines.append(line)
+        missed += miss
+
+    ds = readings["distributed"]
+    rcfg = RetrievalArchConfig(
+        lider=dataclasses.replace(CONFIG.lider, key_len=ds["key_len"],
+                                  key_len_centroid=ds["key_len_centroid"]),
+        corpus_size=CONFIG.corpus_size, dim=CONFIG.dim, capacity=ds["capacity"], k=CONFIG.k)
+    arch = dataclasses.replace(get_arch("lider-msmarco"), config=rcfg)
+    shape = ShapeSpec("serve_2x2", "retrieval_serve", {"batch": BATCH})
+    with mesh.fake_world(4):
+        grid = mesh.make_grid(DIST.grid, device=dev)
+        rec = dryrun.measure(arch, shape, grid, capacity_factor=DIST.capacity_factor)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            bundle = steps.make_bundle(arch, shape, grid, device=dev,
+                                       capacity_factor=DIST.capacity_factor)
+            shard_bytes = steps.nbytes(steps.arg_tensors(bundle.args[0]))
+            q_bytes = steps.nbytes(steps.arg_tensors(bundle.args[1]))
+    for r, got in enumerate(ds["search"]):
+        line, miss = _dry_line(
+            f"F32 sharded search, 2x2 grid, c {rcfg.lider.n_clusters}, Lp {rcfg.capacity}, rank {r} "
+            "(distributed), a batch of 256",
+            {"args": shard_bytes, "comm": rec["collectives"], "peak": rec["memory"]["peak_bytes"],
+             "temp": rec["memory"]["temp_bytes"]},
+            {"args": got["shard_bytes"], "comm": got["comm"],
+             "peak": got["temp_bytes"] + got["shard_bytes"] + q_bytes, "temp": got["temp_bytes"]})
+        lines.append(line)
+        missed += miss
+    for line in lines:
+        log("dryrun", f"{line} ({smi})")
+
+    # (iii) The shape-only branches against the kernels.
+    kinds = sorted({c["kernel"] for c in checks})
+    bad = [c for c in checks if c["real"] != c["fake"]]
+    log("dryrun", f"shape-only outputs == the kernels' outputs at {len(checks)} distinct main-path "
+        f"shapes of {', '.join(kinds)}: {not bad}")
+    if bad or set(kinds) != set(KERNELS):
+        raise AssertionError(f"dry run shape branches: {bad or set(KERNELS) - set(kinds)}")
+    if missed:
+        raise AssertionError(f"dry run predictions missed: {missed}")
+    log("dryrun", f"phase {time.perf_counter() - t_phase:.1f} s (sweep {t_sweep:.1f} s); {smi}")
+    return {"sweep": recs, "sweep_s": t_sweep}
+
+
 def entry(name: str, calls: list[dict], launches: int, main_calls: list[dict]) -> dict:
     """One kernel's JSON entry: ``ms``, ``plain_ms`` and ``bound_ms`` sum
     the kernel's calls in one batch of the path that ``launches`` counts."""
@@ -4701,6 +4917,7 @@ def main() -> int:
     f32_calls = phase_shapes_f32(main_res)
     build_calls = phase_shapes_build(main_res)
     phase_shapes_distinct(dev)
+    checks = shape_checks(main_res["kernel_calls"] + main_res["build_calls"])
     for key in ("kernel_calls", "build_calls", "params"):
         main_res.pop(key)
     gc.collect()
@@ -4731,6 +4948,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(dev, device["smi"])
     models = phase_models(dev, device["smi"], train["full"].pop("model"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun(device["smi"], {"train_full": train["full"], "models_sharded": sharded["dryrun"],
+                                 "distributed": dist["dryrun"]},
+                 checks + q8["shape_checks"] + q4["shape_checks"])
     enc = lambda name: [c for c in train["calls"] + models["calls"] if c["kernel"] == name]
     qcalls = q8["calls"] + q4["calls"] + dist["calls"] + sharded["calls"]
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]

@@ -43,6 +43,7 @@ def rank_main(world, params, queries, shape):
     search = distributed.make_sharded_search(
         grid, shard, k=K, n_probe=N_PROBE, r0=R0, capacity_factor=2.0
     )
+    queries = distributed.shard_rows(grid, queries, ("model",))  # this rank's block
     search(shard, queries)
     _sync(world.device)
     grid.barrier()

@@ -61,7 +61,9 @@ class EmbStore:
 
     Holds the table as a contiguous CPU tensor of shape ``(c, Lp, d)``
     (``rescore``; ``rescore.numpy()`` shares its memory), outside the
-    bank's device tensors. A search fetches the rows of its provisional
+    bank's device tensors. A store made with ``rescore=None`` and a
+    ``shape`` is abstract: it holds no rows, only what the dry run's
+    memory model reads (``shape``, ``nbytes``). A search fetches the rows of its provisional
     top-k' with :meth:`fetch` and moves only those ``B * k' * d`` floats
     to the card.
 
@@ -83,10 +85,16 @@ class EmbStore:
 
     tier = "host"
 
-    def __init__(self, rescore, *, gids=None):
-        self.rescore = _host(rescore, torch.float32)
-        self.shape = tuple(self.rescore.shape)
-        self.dtype = self.rescore.dtype
+    def __init__(self, rescore=None, *, gids=None, shape=None):
+        if rescore is None:
+            # Abstract: a shape and no rows (the dry run's memory model).
+            if shape is None:
+                raise ValueError("EmbStore needs rescore rows or an explicit shape")
+            self.rescore, self.shape = None, tuple(int(s) for s in shape)
+        else:
+            self.rescore = _host(rescore, torch.float32)
+            self.shape = tuple(self.rescore.shape)
+        self.dtype = torch.float32
         self.gids = None if gids is None else _host(gids, torch.int32)
         self.version = 0  # bumped on every host-tier content write
         self._txn = None  # undo journal while a transaction is open

@@ -61,7 +61,8 @@ def kmeans_step(
     assignment, _ = assign_chunked(x, centroids, chunk=chunk)
     idx = assignment.to(torch.int64)
     sums = cluster_sums(x, idx, n_clusters)
-    counts = torch.bincount(idx, minlength=n_clusters).to(torch.float32)
+    counts = torch.zeros(n_clusters, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx)).to(torch.float32)
     return sums, counts, assignment
 
 

@@ -32,8 +32,9 @@ card, their plain versions on the CPU.
 
 Where the port differs from the JAX program:
 
-- JAX returns one global array. Here each rank returns its own query
-  shard; :func:`gather_query_shards` collects the batch where a caller
+- JAX takes and returns one global array. Here each rank is given its own
+  query shard (:func:`shard_rows` over the query axes) and returns its
+  answers; :func:`gather_query_shards` collects the batch where a caller
   needs it (tests, the example), outside the search.
 - The host tier. JAX's front end fetches the merged top-k' rows from a
   process-local store that holds the whole table, with no new collective.
@@ -172,8 +173,9 @@ def shard_lider_params(
 
 
 def shard_rows(grid: Grid, x: torch.Tensor, data_axes: Sequence[str] = ("data",)) -> torch.Tensor:
-    """This rank's rows of ``x`` for the sharded Lloyd step: the
-    ``flat_index(data_axes)``-th of ``S`` equal row blocks (``N % S == 0``)."""
+    """This rank's rows of ``x``: the ``flat_index(data_axes)``-th of ``S``
+    equal row blocks (``N % S == 0``). The sharded Lloyd step's rows over
+    the data axes; the sharded search's queries over its query axes."""
     s = grid.axis_size(data_axes)
     if x.shape[0] % s:
         raise ValueError(f"{x.shape[0]} rows must divide data shards={s}")
@@ -251,9 +253,9 @@ def make_sharded_search(
 
     ``params_like`` is this rank's shard (:func:`shard_lider_params`); its
     cluster count, storage and rescore tier are read. ``queries`` is the
-    whole (B, d) batch, the same on every rank, with B a multiple of the
-    query-shard count; the rank searches its own ``B / Q`` rows and returns
-    their (B/Q, k) answers. ``dropped`` is the capacity-overflow count
+    rank's own (B/Q, d) block of the batch, ``shard_rows(grid, queries,
+    query_axes)`` (JAX's ``shard_map`` gives a device its block so), and
+    the rank returns its (B/Q, k) answers. ``dropped`` is the capacity-overflow count
     summed over the grid (a 0-d tensor). Every rank of the grid must call
     the search together: it runs collectives.
 
@@ -289,7 +291,6 @@ def make_sharded_search(
     if set(caxes) & set(qaxes):
         raise ValueError(f"cluster axes {caxes} and query axes {qaxes} overlap")
     n_cluster_shards = grid.axis_size(caxes)
-    n_query_shards = grid.axis_size(qaxes)
     reduce_axes = caxes + qaxes
     host_tier = params_like.bank.rescore_tier == "host"
     if block_q is not None and not params_like.bank.quantized:
@@ -298,7 +299,6 @@ def make_sharded_search(
             "(int8/int4) bank: use the per-query spelling (block_q=None) for float banks"
         )
     my = grid.flat_index(caxes)
-    qi = grid.flat_index(qaxes)
     # Create the process groups now, on every rank in the same order.
     grid.group(caxes)
     grid.group(reduce_axes)
@@ -308,13 +308,8 @@ def make_sharded_search(
     def capacity(n_pairs: int) -> int:
         return min(n_pairs, int(math.ceil(n_pairs / n_cluster_shards * capacity_factor)))
 
-    def local_queries(params, queries) -> torch.Tensor:
-        q = torch.as_tensor(queries, dtype=torch.float32, device=params.centroids.device)
-        b = q.shape[0]
-        if b % n_query_shards:
-            raise ValueError(f"batch {b} must divide query shards={n_query_shards}")
-        b_loc = b // n_query_shards
-        return q[qi * b_loc : (qi + 1) * b_loc]
+    def my_queries(params, queries) -> torch.Tensor:
+        return torch.as_tensor(queries, dtype=torch.float32, device=params.centroids.device)
 
     def route(params, q_loc) -> torch.Tensor:
         routed = search_core_model(params.centroid_cm, params.centroids, q_loc,
@@ -438,7 +433,7 @@ def make_sharded_search(
         fn.shard_stats = {"shards_live": int(health.sum()), "shards_total": n_cluster_shards}
         timings.update(gather_s=0.0, prepass_s=0.0)
         comm_from[0] = grid.comm_s
-        q_loc = local_queries(params, queries)
+        q_loc = my_queries(params, queries)
         return bool(health[my]), make_pairs(params, q_loc)
 
     if host_tier:
@@ -464,7 +459,7 @@ def make_sharded_search(
             lo = my * c_local * lp
             owned = (rows >= lo) & (rows < lo + c_local * lp)
             out = _rescore_fetched(params.bank, torch.where(owned, rows - lo, -1),
-                                   local_queries(params, queries), k=k)
+                                   my_queries(params, queries), k=k)
             ids, sc = merge(out.ids, out.scores)
             return timed((TopK(ids=ids, scores=sc), dropped))
 

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -18,3 +19,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds no values: a ``FakeTensor`` (shapes, dtypes and
+    a device only, as the dry run builds its steps) or a meta tensor."""
+    return isinstance(t, FakeTensor) or t.device.type == "meta"

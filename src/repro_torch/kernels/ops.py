@@ -1,14 +1,22 @@
 """Device dispatch for the kernels: a CPU tensor goes to the plain PyTorch
 version, a CUDA tensor to the hand-written kernel. There is no flag and no
-fall-back: a CUDA call the kernel refuses raises."""
+fall-back: a CUDA call the kernel refuses raises.
+
+A tensor that holds no values (a ``FakeTensor``, as the dry run runs its
+steps, or a meta tensor) takes a shape-only branch: empty outputs of the
+kernel's shapes and dtypes on the input's device, and no launch counted.
+There is nothing to compute, on any device."""
 from __future__ import annotations
 
 import torch
 
+from ..device import is_fake
+
 from . import fused_verify as _fv
 from . import kmeans_assign as _km
 from . import lsh_hash as _lsh
-from . import ref
+from . import quant, ref
+from .fused_verify import _workspace, grouped_scratch
 
 
 def _on_cpu(t: torch.Tensor, what: str) -> bool:
@@ -17,6 +25,19 @@ def _on_cpu(t: torch.Tensor, what: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"no {what} kernel for device {t.device}")
     return False
+
+
+def _topk_shape(t: torch.Tensor, lead: tuple[int, ...], k: int, *temps):
+    """The shape-only answer of a top-k kernel: (lead..., k) int32 ids and
+    float32 scores. ``temps`` are thunks that make the wrapper's own
+    temporaries (the quantized or sketched queries, the chunk workspace),
+    held while the outputs are made, as the wrapper holds them around its
+    launch, so that a dry run's memory sees them."""
+    held = [make() for make in temps]
+    out = (torch.empty(lead + (k,), dtype=torch.int32, device=t.device),
+           torch.empty(lead + (k,), dtype=torch.float32, device=t.device))
+    del held
+    return out
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -40,17 +61,23 @@ def verify_topk_op(
     and bfloat16 tables; with ``scales`` an int8 code table (packed int4
     with ``code_dtype="int4"``) scored in the exact integer domain.
     """
-    if _on_cpu(embs, "verification"):
+    fake = is_fake(embs) or is_fake(row_ids)
+    if not fake and _on_cpu(embs, "verification"):
         return ref.verify_topk_ref(
             embs, row_ids, queries, k=k, out_ids=out_ids, scales=scales,
             code_dtype=code_dtype,
         )
     row_ids = _i32(row_ids)
     out_ids = row_ids if out_ids is None else _i32(out_ids)
+    queries = queries.to(torch.float32).contiguous()
+    if fake:
+        b, c = row_ids.shape
+        return _topk_shape(embs, (b,), k, lambda: _workspace(b, c, k, embs.device),
+                           *(() if scales is None else (lambda: quant.quantize_rows(queries),)))
     return _fv.fused_verify(
         embs.contiguous(),
         row_ids,
-        queries.to(torch.float32).contiguous(),
+        queries,
         k=k,
         out_ids=out_ids,
         scales=None if scales is None else scales.to(torch.float32).contiguous(),
@@ -68,14 +95,17 @@ def sketch_topk_op(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Binary-sketch pre-filter -> deduplicated top-k survivor rows, scored
     by negated Hamming distance (``sketch_prefilter`` on the card)."""
-    if _on_cpu(sketches, "sketch pre-filter"):
+    fake = is_fake(sketches) or is_fake(row_ids)
+    if not fake and _on_cpu(sketches, "sketch pre-filter"):
         return ref.sketch_topk_ref(sketches, row_ids, queries, k=k, out_ids=out_ids)
     row_ids = _i32(row_ids)
     out_ids = row_ids if out_ids is None else _i32(out_ids)
-    return _fv.sketch_prefilter(
-        sketches.contiguous(), row_ids, queries.to(torch.float32).contiguous(),
-        k=k, out_ids=out_ids,
-    )
+    queries = queries.to(torch.float32).contiguous()
+    if fake:
+        b, c = row_ids.shape
+        return _topk_shape(sketches, (b,), k, lambda: _workspace(b, c, k, sketches.device),
+                           lambda: quant.sketch_rows(queries))
+    return _fv.sketch_prefilter(sketches.contiguous(), row_ids, queries, k=k, out_ids=out_ids)
 
 
 def verify_topk_grouped_op(
@@ -91,21 +121,21 @@ def verify_topk_grouped_op(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cluster-major verification -> per-(step, slot) dedup top-k'
     (``fused_verify_grouped`` on the card); quantized banks only."""
-    if _on_cpu(embs, "grouped verification"):
+    fake = is_fake(embs) or is_fake(step_slot_ids)
+    if not fake and _on_cpu(embs, "grouped verification"):
         return ref.verify_topk_grouped_ref(
             embs, row_scales, queries, sched_cids, sched_qids, step_slot_ids,
             kp=kp, code_dtype=code_dtype,
         )
-    return _fv.fused_verify_grouped(
-        embs.contiguous(),
-        row_scales.to(torch.float32).contiguous(),
-        queries.to(torch.float32).contiguous(),
-        _i32(sched_cids),
-        _i32(sched_qids),
-        _i32(step_slot_ids),
-        kp=kp,
-        code_dtype=code_dtype,
-    )
+    args = (embs.contiguous(), row_scales.to(torch.float32).contiguous(),
+            queries.to(torch.float32).contiguous(), _i32(sched_cids), _i32(sched_qids),
+            _i32(step_slot_ids))
+    if fake:
+        s_steps, block_q, lp = step_slot_ids.shape
+        scratch = grouped_scratch(s_steps, block_q, lp)
+        return _topk_shape(embs, (s_steps, block_q), kp, lambda: quant.quantize_rows(args[2]),
+                           lambda: torch.empty((scratch,), dtype=torch.float32, device=embs.device))
+    return _fv.fused_verify_grouped(*args, kp=kp, code_dtype=code_dtype)
 
 
 def lsh_hash_op(
@@ -116,12 +146,13 @@ def lsh_hash_op(
     they are; any other float type is widened to float32 first."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.to(torch.float32)
-    if _on_cpu(x, "LSH hash"):
+    fake = is_fake(x)
+    if not fake and _on_cpu(x, "LSH hash"):
         return ref.lsh_hash_ref(x, proj, n_arrays=n_arrays, key_len=key_len)
-    return _lsh.lsh_hash(
-        x.contiguous(), proj.to(torch.float32).contiguous(),
-        n_arrays=n_arrays, key_len=key_len,
-    )
+    x, proj = x.contiguous(), proj.to(torch.float32).contiguous()
+    if fake:  # the kernel writes int32 keys, widened to int64
+        return torch.empty((x.shape[0], n_arrays), dtype=torch.int32, device=x.device).to(torch.int64)
+    return _lsh.lsh_hash(x, proj, n_arrays=n_arrays, key_len=key_len)
 
 
 def kmeans_assign_op(
@@ -135,6 +166,10 @@ def kmeans_assign_op(
     """
     x = x.to(torch.float32)
     centroids = centroids.to(torch.float32)
+    if is_fake(x):
+        n = x.shape[0]
+        return (torch.empty((n,), dtype=torch.int32, device=x.device),
+                torch.empty((n,), dtype=torch.float32, device=x.device))
     if not _on_cpu(x, "k-means assignment"):
         return _km.kmeans_assign(x.contiguous(), centroids.contiguous())
     n = x.shape[0]

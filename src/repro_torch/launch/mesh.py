@@ -28,11 +28,24 @@ for the search, and a layer's weights (MBs to GBs) for an FSDP gather.
 Each collective is timed from a sync of the rank's device before it to a
 sync after it, so a rank's own queued kernels are not counted:
 ``Grid.comm_s`` and ``Grid.comm_bytes`` add up the seconds and the bytes
-the rank sent in, and callers read their differences.
+the rank sent in, and ``Grid.comm_by_kind`` the calls and those bytes per
+kind (``all-gather``, ``all-reduce``); callers read their differences.
 
 :func:`spawn` starts a world of ``n`` ranks on this machine, runs a
-function on each and returns their results. The production meshes of the
-dry run (256 and 512 TPU chips) have no counterpart yet.
+function on each and returns their results.
+
+The dry run (``launch/dryrun.py``) lays its cells on the production grids
+of :func:`make_production_grid`: ``(16, 16)`` over ``("data", "model")``
+and ``(2, 16, 16)`` over ``("pod", "data", "model")``. These are the JAX
+package's TPU v5e-256 mesh shapes (``make_production_mesh``), kept so that
+the two packages' records compare cell for cell; on H100s of 8 cards a
+node, a model axis of 16 spans two nodes. It builds them in a
+:func:`fake_world`: a world of 256 or 512 ranks whose process group
+carries no data (``torch.distributed``'s ``fake`` backend), this process
+its rank 0. There a collective moves nothing and the device is never
+synchronised (the tensors are ``FakeTensor`` s, which hold no values);
+the accounting counts every call all the same. Nothing initialises a
+world at import.
 """
 from __future__ import annotations
 
@@ -51,7 +64,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..device import resolve_device
+from ..device import is_fake, resolve_device
 
 DEFAULT_AXES = ("data", "model")
 # How long a rank waits in a collective or the rendezvous before it fails.
@@ -100,6 +113,7 @@ class Grid:
         # Accounting of the collectives (module docstring).
         self.comm_s = 0.0
         self.comm_bytes = 0
+        self.comm_by_kind: dict[str, dict[str, int]] = {}
 
     def __repr__(self):
         return f"Grid({self.shape}, rank {self.rank}, {self.device}, {self.backend})"
@@ -170,7 +184,7 @@ class Grid:
         by_rank = dict(zip(sorted(members), parts))  # group ranks go by global rank
         out = torch.stack([by_rank[r] for r in members]).view(t.dtype)
         out = out.to(t.device) if self._staged(t) else out
-        self._finish(t, t0)
+        self._finish(t, t0, "all-gather")
         return out
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
@@ -185,28 +199,33 @@ class Grid:
         dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
                         group=group)
         out = out.to(device=t.device, dtype=t.dtype)
-        self._finish(t, t0)
+        self._finish(t, t0, "all-reduce")
         return out
 
     def _start(self, t: torch.Tensor) -> float:
-        _sync(t.device)
+        self._sync(t)
         return time.perf_counter()
 
-    def _finish(self, t: torch.Tensor, t0: float) -> None:
-        _sync(t.device)
+    def _finish(self, t: torch.Tensor, t0: float, kind: str) -> None:
+        self._sync(t)
         self.comm_s += time.perf_counter() - t0
-        self.comm_bytes += t.numel() * t.element_size()
+        nbytes = t.numel() * t.element_size()
+        self.comm_bytes += nbytes
+        tally = self.comm_by_kind.setdefault(kind, {"count": 0, "bytes": 0})
+        tally["count"] += 1
+        tally["bytes"] += nbytes
+
+    def _sync(self, t: torch.Tensor) -> None:
+        """Wait for the rank's device; a fake world or a fake tensor has
+        nothing to wait for."""
+        if t.device.type == "cuda" and self.backend != "fake" and not is_fake(t):
+            torch.cuda.synchronize(t.device)
 
     def barrier(self) -> None:
         if self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 _AMBIENT: list[Grid] = []
@@ -232,6 +251,41 @@ def make_grid(shape: Sequence[int] = (2, 2), axes: Sequence[str] = DEFAULT_AXES,
     """A :class:`Grid` over the current world (the counterpart of the JAX
     package's ``make_host_mesh``)."""
     return Grid(shape, axes, device=device)
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_grid(*, multi_pod: bool = False, device=None) -> Grid:
+    """The dry run's grid: ``(data=16, model=16)``, or with ``multi_pod``
+    ``(pod=2, data=16, model=16)`` (the counterpart of the JAX package's
+    ``make_production_mesh``; module docstring). The world must have 256
+    or 512 ranks, as the grid's (see :func:`fake_world`)."""
+    shape, axes = PRODUCTION_SHAPES[multi_pod]
+    need = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != need:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise RuntimeError(f"the production grid {shape} needs a world of {need} ranks, "
+                           f"have {have} (see fake_world)")
+    return Grid(shape, axes, device=device)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A world of ``n`` ranks with no peers: ``torch.distributed``'s
+    ``fake`` backend over a ``FakeStore``, this process its rank 0. Its
+    collectives move nothing (run them on fake tensors). The world is
+    destroyed on leaving the block, also on an error."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed world is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def data_axes(grid: Grid) -> tuple[str, ...]:

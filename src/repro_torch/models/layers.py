@@ -103,6 +103,13 @@ def flash_attention(
     score tile per (batch, head) is live. Masked scores are ``-1e30``, not
     ``-inf``, and the normaliser is floored at ``1e-30``, as in the
     reference, so a fully masked row gives zeros.
+
+    A tile whose every pair the causal mask or the window masks is
+    skipped: it would add ``exp(-1e30 - m) = 0`` to each sum and multiply
+    the running state by ``exp(0) = 1``, so the result is the same bit for
+    bit (a row's state before its first unmasked key is wiped by the
+    ``exp(-1e30 - m) = 0`` correction that key brings, as when every tile
+    runs).
     """
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -120,7 +127,12 @@ def flash_attention(
     for qi in range(s // q_chunk):
         q_tile = qr[:, qi].float()  # (B, qc, Hkv, G, D)
         q_pos = qi * q_chunk + ar[:q_chunk]
+        q_lo, q_hi = qi * q_chunk, (qi + 1) * q_chunk - 1
+        first = True
         for ki in range(s // kv_chunk):
+            k_lo, k_hi = ki * kv_chunk, (ki + 1) * kv_chunk - 1
+            if (causal and k_lo > q_hi) or (window is not None and q_lo - k_hi >= window):
+                continue  # every pair masked (docstring)
             v_tile = vr[:, ki]
             k_pos = ki * kv_chunk + ar[:kv_chunk]
             s_ = torch.einsum("bqhgd,bkhd->bhgqk", q_tile, kr[:, ki].float()) * scale
@@ -132,12 +144,13 @@ def flash_attention(
                 mask = near if mask is None else mask & near
             if mask is not None:
                 s_ = torch.where(mask, s_, _NEG)
-            if ki == 0:
+            if first:
                 # The running state starts at (m, l, acc) = (-1e30, 0, 0), so
                 # the first tile's correction multiplies zeros: skipped.
                 m = torch.clamp(torch.amax(s_, dim=-1), min=_NEG)
                 p = torch.exp(s_ - m[..., None])
                 l, acc = torch.sum(p, dim=-1), _weighted_values(p, v_tile)
+                first = False
                 continue
             m_new = torch.maximum(m, torch.amax(s_, dim=-1))
             p = torch.exp(s_ - m_new[..., None])

@@ -122,6 +122,11 @@ def block_slices(shape: Sequence[int], spec, grid) -> tuple[slice, ...]:
     return tuple(out)
 
 
+def block_shape(shape: Sequence[int], spec, grid) -> tuple[int, ...]:
+    """The shape of the rank's block of a tensor of ``shape``."""
+    return tuple(len(range(*sl.indices(n))) for n, sl in zip(shape, block_slices(shape, spec, grid)))
+
+
 def shard(full, spec, grid):
     """The rank's block of ``full`` (a tensor or a numpy array; a
     contiguous copy of the same kind)."""
@@ -375,6 +380,29 @@ def shard_module(model: nn.Module, specs, grid, *, source=None, device=None) -> 
             dev = device if device is not None else (p.device if source is None else block.device)
             new = nn.Parameter(block.to(device=dev, dtype=p.dtype), requires_grad=p.requires_grad)
             mod._parameters[pname] = tag(new, spec)
+    warm_groups(grid)
+    return model
+
+
+@torch.no_grad()
+def empty_blocks(model: nn.Module, specs, grid, *, device) -> nn.Module:
+    """Replace each parameter of ``model`` (built on the ``meta`` device,
+    say) by an uninitialised tensor of the rank's block shape under its
+    spec in ``specs`` (None: every parameter whole), on ``device``, tagged
+    with the resolved spec: the layout :func:`shard_module` gives, with no
+    full tensor ever made. Under a ``FakeTensorMode`` the blocks are fake
+    (the dry run). In place; returns ``model``."""
+    for prefix, mod in model.named_modules():
+        for pname, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            name = f"{prefix}.{pname}" if prefix else pname
+            entries = (None,) * p.dim() if specs is None else spec_lookup(specs, name)
+            spec = resolve_spec(entries, grid.axis_names)
+            if len(spec) != p.dim():
+                raise ValueError(f"{name}: spec {spec} for a tensor of {p.dim()} dimensions")
+            block = torch.empty(block_shape(p.shape, spec, grid), dtype=p.dtype, device=device)
+            mod._parameters[pname] = tag(nn.Parameter(block, requires_grad=p.requires_grad), spec)
     warm_groups(grid)
     return model
 

@@ -28,11 +28,18 @@ On a grid (``launch.mesh.use_grid``, parameters laid out by
 :func:`param_specs` through ``sharding.shard_module``) the same entry points
 run Megatron tensor parallelism over ``model`` and FSDP over the data axes:
 
-- ``wq``/``wk``/``wv`` (and their biases) are split by column over whole
-  heads, rank ``r`` holding query heads ``r * Hq/tp ...`` and the kv heads
-  they read (``n_kv_heads % tp == 0``); ``wo`` by row, then a sum over
-  ``model``. The MLP's ``w_gate``/``w_up`` by column, ``w_down`` by row.
-  MoE experts split over ``model`` (``layers.moe_mlp``).
+- ``wq``/``wk``/``wv`` (and their biases) are split evenly by their
+  flattened head columns over ``model``, ``wo`` by row, as the reference
+  stores them; the attention's output is summed over ``model``. Where the
+  heads split whole (``n_heads`` and ``n_kv_heads`` divisible by the
+  model ranks) rank ``r`` attends with its own query heads and the kv
+  heads they read. Where they do not (GQA's few kv heads, or 24 query
+  heads over 16 ranks), the rank all-gathers the k and v columns over
+  ``model`` (and the q columns where the query heads do not split whole),
+  attends with the query heads whose output columns meet its ``wo`` rows,
+  and keeps those columns: exactly what one device computes
+  (:func:`_heads`). The MLP's ``w_gate``/``w_up`` by column, ``w_down``
+  by row. MoE experts split over ``model`` (``layers.moe_mlp``).
 - Each layer's data-split weights are all-gathered inside the layer, so
   the checkpointed recompute gathers them again and no gathered weight
   outlives the step; the gather's backward sums the gradient over the data
@@ -48,8 +55,9 @@ run Megatron tensor parallelism over ``model`` and FSDP over the data axes:
 - Decode splits the cache by :func:`cache_specs`: the sequence over
   ``model`` (batch over data), or over every axis (``seq_sharded``). Each
   rank attends over its positions and the partials are combined
-  (``layers.decode_attention_split``); q, k and v are all-gathered over the
-  heads first, and the rank holding position ``length`` writes k and v.
+  (``layers.decode_attention_split``); q, k and v are all-gathered over
+  their columns first, and the rank holding position ``length`` writes k
+  and v.
 
 The reference stacks its layers (a leading ``L`` axis, spec entry None);
 the port keeps a :class:`Block` per layer, so its per-layer spec is the
@@ -134,6 +142,9 @@ class _Layout:
     dp: tuple[str, ...] = ()
     tp: tuple[str, ...] = ()
     seq: bool = False
+    # Whether the query and kv heads split whole over ``tp`` (module
+    # docstring; :func:`_heads`).
+    whole_heads: bool = True
 
     @property
     def act(self) -> tuple[str, ...]:
@@ -152,14 +163,53 @@ def _layout(cfg: "LMConfig", grid, *, seq: bool | None = None) -> _Layout:
     if grid is None:
         return _LOCAL
     names = grid.axis_names
-    out = _Layout(grid, sharding.physical_axes(sharding.DP, names),
-                  sharding.physical_axes(sharding.TP, names),
-                  cfg.seq_shard_activations if seq is None else seq)
-    tpn = out.tp_size
-    if cfg.n_heads % tpn or cfg.n_kv_heads % tpn:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} kv heads do not "
-                         f"split over {tpn} model ranks (n_kv_heads % tp must be 0)")
-    return out
+    tp = sharding.physical_axes(sharding.TP, names)
+    tpn = sharding.size_of(grid, tp)
+    return _Layout(grid, sharding.physical_axes(sharding.DP, names), tp,
+                   cfg.seq_shard_activations if seq is None else seq,
+                   cfg.n_heads % tpn == 0 and cfg.n_kv_heads % tpn == 0)
+
+
+def _heads(cfg: LMConfig, L: _Layout, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cos, sin):
+    """The rank's q, k, v columns (B, S, cols) -> (q, k, v) in whole heads
+    after RoPE for the rank's attention, the (k, v) to keep for the cache,
+    and the slice of the attention's flattened output that meets the
+    rank's ``wo`` rows (None: all of it).
+
+    Heads split whole (and on one device): the rank's own heads. Otherwise
+    k and v are all-gathered over ``tp`` (and q where the query heads do
+    not split whole); the rank takes the query heads ``h_lo .. h_hi - 1``
+    that its ``wo`` rows read and the kv heads they read: a contiguous
+    range where each of them serves as many of those query heads, else one
+    kv head per query head. The gathers' backward sums the gradient over
+    ``tp`` and keeps the rank's columns. The cache keeps every kv head."""
+    b, s, _ = q.shape
+    dh = cfg.head_dim
+    if L.whole_heads:
+        q = layers.apply_rope(q.reshape(b, s, -1, dh), cos, sin)
+        k = layers.apply_rope(k.reshape(b, s, -1, dh), cos, sin)
+        v = v.reshape(b, s, -1, dh)
+        return q, k, v, (k, v), None
+    hq, hkv, grid = cfg.n_heads, cfg.n_kv_heads, L.grid
+    cq = hq * dh // L.tp_size
+    c_lo = sharding.my_index(grid, L.tp) * cq
+    h_lo, h_hi = c_lo // dh, -(-(c_lo + cq) // dh)
+    if hq % L.tp_size:
+        q = sharding.gather(q, grid, L.tp, 2).reshape(b, s, hq, dh)[:, :, h_lo:h_hi]
+    q = layers.apply_rope(q.reshape(b, s, h_hi - h_lo, dh), cos, sin)
+    k = layers.apply_rope(sharding.gather(k, grid, L.tp, 2).reshape(b, s, hkv, dh), cos, sin)
+    v = sharding.gather(v, grid, L.tp, 2).reshape(b, s, hkv, dh)
+    g = hq // hkv
+    need = [h // g for h in range(h_lo, h_hi)]
+    n_kv = need[-1] - need[0] + 1
+    per = (h_hi - h_lo) // n_kv
+    if (h_hi - h_lo) % n_kv == 0 and all(need[i] - need[0] == i // per for i in range(len(need))):
+        ks, vs = k[:, :, need[0] : need[-1] + 1], v[:, :, need[0] : need[-1] + 1]
+    else:
+        idx = torch.tensor(need, device=k.device)
+        ks, vs = k.index_select(2, idx), v.index_select(2, idx)
+    return q, ks, vs, (k, v), slice(c_lo - h_lo * dh, c_lo - h_lo * dh + cq)
 
 
 def _enter(h: torch.Tensor, L: _Layout) -> torch.Tensor:
@@ -177,15 +227,20 @@ def _leave(out: torch.Tensor, L: _Layout) -> torch.Tensor:
     return sharding.reduce_from(out, L.grid, L.tp)
 
 
+def _windows(cfg: LMConfig) -> list[int]:
+    """Per-layer attention window; ``2**30`` (the mask never fires) on
+    full-attention layers. Host ints: the layers read them to build their
+    masks, with no device tensor to read back."""
+    if cfg.window is None:
+        return [2**30] * cfg.n_layers
+    return [2**30 if i % cfg.local_ratio == cfg.local_ratio - 1 else cfg.window
+            for i in range(cfg.n_layers)]
+
+
 def layer_windows(cfg: LMConfig, seq_len: int) -> torch.Tensor:
     """Per-layer attention window, int32 (L,); ``2**30`` (the mask never
     fires) on full-attention layers."""
-    full = torch.full((cfg.n_layers,), 2**30, dtype=torch.int32)
-    if cfg.window is None:
-        return full
-    idx = torch.arange(cfg.n_layers)
-    is_global = (idx % cfg.local_ratio) == (cfg.local_ratio - 1)
-    return torch.where(is_global, full, torch.tensor(cfg.window, dtype=torch.int32))
+    return torch.tensor(_windows(cfg), dtype=torch.int32)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -268,12 +323,15 @@ class Block(nn.Module):
         cfg = self.cfg
         b = x.shape[0]
         L = _layout(cfg, grid, seq=False)
-        hq, hkv, dh = cfg.n_heads // L.tp_size, cfg.n_kv_heads // L.tp_size, cfg.head_dim
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         lp = self.weights(L)
         h = layers.rms_norm(x, lp["ln_attn"])
         q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        # On a grid: every column of the token's q, k and v, then the
+        # rank's positions of the cache.
+        q, k, v = (sharding.gather(t, grid, L.tp, 2) for t in (q, k, v))
         q = layers.apply_rope(q.reshape(b, 1, hq, dh), cos, sin)
         k = layers.apply_rope(k.reshape(b, 1, hkv, dh), cos, sin)
         v = v.reshape(b, 1, hkv, dh)
@@ -282,16 +340,15 @@ class Block(nn.Module):
             o = layers.decode_attention(q, cache_k, cache_v, length=length + 1, window=window)
             x = x + o.reshape(b, 1, hq * dh) @ lp["wo"]
         else:
-            # Every head of the token, then the rank's positions of the cache.
-            q, k, v = (sharding.gather(t, grid, L.tp, 2) for t in (q, k, v))
             s_loc = cache_k.shape[1]
             lo = sharding.my_index(grid, seq_axes) * s_loc
             if lo <= length < lo + s_loc:
                 cache_k[:, length - lo], cache_v[:, length - lo] = k[:, 0], v[:, 0]
             o = layers.decode_attention_split(q, cache_k, cache_v, length=length + 1,
                                               window=window, offset=lo, grid=grid, axes=seq_axes)
-            r = sharding.my_index(grid, L.tp)
-            o = o[:, :, r * hq : (r + 1) * hq].reshape(b, 1, hq * dh)
+            cq = lp["wo"].shape[0]  # the rank's rows of wo: its columns of the output
+            c_lo = sharding.my_index(grid, L.tp) * cq
+            o = o.reshape(b, 1, hq * dh)[:, :, c_lo : c_lo + cq]
             x = x + sharding.reduce_from(o @ lp["wo"], grid, L.tp)
         mlp_out, _ = _mlp_block(lp, cfg, x, L)
         return x + mlp_out
@@ -302,15 +359,14 @@ def _attn_block(lp: dict, cfg: LMConfig, x: torch.Tensor, cos, sin, window, L: _
     grid: the rank's heads, the output summed over ``model``."""
     h = sharding.copy_to(_enter(layers.rms_norm(x, lp["ln_attn"]), L), L.grid, L.tp)
     b, s, _ = h.shape
-    hq, hkv, dh = cfg.n_heads // L.tp_size, cfg.n_kv_heads // L.tp_size, cfg.head_dim
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = layers.apply_rope(q.reshape(b, s, hq, dh), cos, sin)
-    k = layers.apply_rope(k.reshape(b, s, hkv, dh), cos, sin)
-    v = v.reshape(b, s, hkv, dh)
-    o = layers.flash_attention(q, k, v, causal=True, window=window)
-    return _leave(o.reshape(b, s, hq * dh) @ lp["wo"], L), (k, v)
+    q, k, v, kv, cols = _heads(cfg, L, q, k, v, cos, sin)
+    o = layers.flash_attention(q, k, v, causal=True, window=window).reshape(b, s, -1)
+    if cols is not None:
+        o = o[:, :, cols]
+    return _leave(o @ lp["wo"], L), kv
 
 
 def _mlp_block(lp: dict, cfg: LMConfig, x: torch.Tensor, L: _Layout):
@@ -375,7 +431,8 @@ class Transformer(nn.Module):
         aux loss summed over layers); with ``collect_cache``, (hidden,
         (ks, vs), aux), the per-layer keys and values stacked (L, B, S,
         Hkv, Dh). Under an ambient grid: the rank's rows, hidden whole on
-        every model rank, and k, v the rank's kv heads."""
+        every model rank, and k, v the rank's kv heads (every kv head where
+        the heads do not split whole over ``model``)."""
         cfg = self.cfg
         grid = current_grid()
         L = _layout(cfg, grid)
@@ -386,7 +443,7 @@ class Transformer(nn.Module):
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         cos, sin = layers.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
         auxes, kvs = [], []
-        for layer, w in zip(self.layers, layer_windows(cfg, s).tolist()):
+        for layer, w in zip(self.layers, _windows(cfg)):
             window = w if w < s else None  # a window at least S long masks nothing
             if torch.is_grad_enabled():
                 out = checkpoint(layer, x, cos, sin, window, collect_cache, grid,
@@ -419,7 +476,7 @@ def init(seed: int, cfg: LMConfig, *, device: str | torch.device | None = None) 
 def _chunk_loss(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     logits = (h @ head).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
     return torch.sum(lse - gold)
 
 
@@ -435,7 +492,7 @@ def _chunk_loss_sharded(h: torch.Tensor, t: torch.Tensor, head: torch.Tensor, gr
     v_loc = head.shape[1]
     local = t - sharding.my_index(grid, tp) * v_loc
     inside = (local >= 0) & (local < v_loc)
-    gold = torch.gather(logits, -1, torch.clamp(local, 0, v_loc - 1)[..., None])[..., 0]
+    gold = torch.gather(logits, -1, torch.clamp(local, 0, v_loc - 1).long()[..., None])[..., 0]
     gold = sharding.reduce_from(torch.where(inside, gold, 0.0), grid, tp)
     return torch.sum(lse - gold)
 
@@ -520,7 +577,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int | None = N
     grid = current_grid()
     if grid is not None:
         L = _layout(model.cfg, grid, seq=False)
-        ks, vs = (sharding.gather(t, grid, L.tp, 3) for t in (ks, vs))  # every kv head
+        if L.whole_heads:  # the layers kept their own kv heads; else every one
+            ks, vs = (sharding.gather(t, grid, L.tp, 3) for t in (ks, vs))
         n = sharding.size_of(grid, _seq_axes(grid, seq_sharded))
         max_len = max(max_len or s, s)
         cache = init_cache(model.cfg, b * (1 if seq_sharded else sharding.size_of(grid, L.dp)),
@@ -561,7 +619,7 @@ def decode_step(model: Transformer, cache: dict, token: torch.Tensor):
                              L.tp).to(cfg.dtype)  # (B, 1, d)
     positions = torch.full((b, 1), length, device=token.device)
     cos, sin = layers.rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
-    for i, (layer, w) in enumerate(zip(model.layers, layer_windows(cfg, max_len).tolist())):
+    for i, (layer, w) in enumerate(zip(model.layers, _windows(cfg))):
         x = layer.decode(x, cache["k"][i], cache["v"][i], length, cos, sin, w, grid, seq_axes)
     cache["length"] = length + 1
     return _logits(model, layers.rms_norm(x, model.ln_final))[:, 0], cache

@@ -164,8 +164,10 @@ def kill_plan():
 
 
 def port_rank(world, out_dir, queries, cases, kmeans):
-    """One rank of the port's world: the same calls as the JAX script."""
+    """One rank of the port's world: the same calls as the JAX script, on
+    the rank's own query block."""
     grid = mesh.make_grid(GRID, device=world.device)
+    queries = dist_lib.shard_rows(grid, queries, ("model",))
     res = {"specs": {}, "stats": {}, "out": {}}
     params, shards = {}, {}
     for name in INDEXES:

@@ -25,7 +25,7 @@ device, which is why the losses are not bit-equal.
 
 The MoE cases take ``reduced_lm`` of qwen3-moe-235b-a22b and
 llama4-scout-17b-a16e with 2 kv heads (the reduced configs have 1, which
-does not split over 2 model ranks; the port raises for that) and float32
+does not split whole over 2 model ranks) and float32
 master weights (qwen3-moe's are bfloat16, whose gradients would hold the
 comparison to bfloat16's rounding). JAX is
 imported inside the functions that need it, so the file collects on the
@@ -518,17 +518,31 @@ def test_shard_and_unshard_are_numpy_slicing():
 
 
 def test_n_kv_heads_must_split():
+    """What must split over ``model`` is the kv heads' columns: heads that
+    do not split whole are laid out all the same (gathered in the
+    attention; ``test_torch_dryrun.py`` holds such models to one device),
+    and columns that do not split raise."""
     cfg = port_lm_cfg(lm_jcfg("dense"))
     cfg = dataclasses.replace(cfg, n_kv_heads=1)
 
     class G:
         axis_names = AXES
 
-        def axis_size(self, axes):
-            return 2
+        def __init__(self, model):
+            self.model = model
 
-    with pytest.raises(ValueError, match="n_kv_heads % tp"):
-        tfm._layout(cfg, G())
+        def axis_size(self, axes):
+            return self.model if tuple(axes) == ("model",) else 1
+
+        def flat_index(self, axes):
+            return 0
+
+    assert not tfm._layout(cfg, G(2)).whole_heads
+    spec = sharding.resolve_spec(tfm.param_specs(cfg, AXES, fsdp=False)["layers"]["wk"], AXES)
+    wk = (cfg.d_model, cfg.n_kv_heads * cfg.head_dim)
+    assert sharding.block_shape(wk, spec, G(2)) == (cfg.d_model, cfg.head_dim // 2)
+    with pytest.raises(ValueError, match="does not split"):
+        sharding.block_slices(wk, spec, G(3))
 
 
 # ---------------------------------------------------------------------------
