@@ -114,6 +114,21 @@ Phases, each printing its lines; any failure exits non-zero:
                ``compressed_only_topk``, degraded); a host-tier checkpoint
                at full width loaded on both tiers (every leaf and the
                search identical).
+7b. graphs   — the compiled query path (``core.graphs``: the seven
+               ``jax.jit`` entries of the reference as CUDA graphs), at the
+               end of the main, quantized and serve phases: F32, Q8, Q8-cm,
+               Q4-sk, Q4-sk-cm (the cm points on the engine's padded
+               schedule) and host-tier Q8 over 16 x 256 queries, captured
+               against each entry's ``__wrapped__`` body in turns (plain,
+               captured, captured, plain): ids and scores bit for bit,
+               launches per batch the same, the signature counter
+               (``query_path_cache_size``) flat; batch medians both ways, a
+               profiled batch of each for the device's busy share, the
+               bytes the graphs' pools hold. The serve phase's engines print
+               their graphs' bytes, and the update under serving the time to
+               capture the warmed graphs again on the new leaves (captured
+               == uncaptured after it). One line sums the phase up.
+               ``recording`` and ``all_plain`` run the entries uncaptured.
 8. fabric    — a ``QueryRouter`` over two replicas of the serve phase's
                host-tier int8 index (replica 1 a ``clone_params``: device
                leaves shared, host store copied), each engine on its own
@@ -142,6 +157,11 @@ Phases, each printing its lines; any failure exits non-zero:
                survivors, deleted ids never surfacing; ``save_index`` then
                ``load_index``, every leaf and the search ids identical;
                small int8 and int4 indexes through upsert == rebuild.
+10b. examples — ``examples/quickstart_torch.py``,
+               ``serve_retrieval_torch.py`` and ``chaos_demo_torch.py`` at
+               their default sizes on the card, in process: recall over the
+               floor; every arrival answered on every backend; the rollback
+               bit-identical, the outage degraded and recovered.
 11. distributed — the distributed index (``core.distributed``) at full
                width: float32, int8 and int4 indexes built in this process,
                four gloo ranks spawned on the card as a (data=2, model=2)
@@ -417,8 +437,12 @@ def plain_fns():
 
 def all_plain():
     """Patch every kernel wrapper with its plain version (ops looks them up
-    on their modules at each call)."""
+    on their modules at each call), and run the query path's entries as
+    their plain bodies (a graph's replay would call no wrapper)."""
+    from repro_torch.testing import uncaptured
+
     stack = contextlib.ExitStack()
+    stack.enter_context(uncaptured())
     plain = plain_fns()
     for name, mod in kernel_modules().items():
         stack.enter_context(mock.patch.object(mod, name, plain[name]))
@@ -429,8 +453,10 @@ def recording(calls: list, keep=None):
     """Patch ops' view of the wrappers so each kernel call is recorded,
     (name, args, kwargs) (only where ``keep(name, args, kwargs)``, when
     given), and then launched by the real wrapper (whose counter stays
-    under its own name)."""
+    under its own name). The query path's entries run as their plain bodies
+    meanwhile, so each call reaches ops (a graph's replay would not)."""
     from repro_torch.kernels import ops
+    from repro_torch.testing import uncaptured
 
     real = wrappers()
 
@@ -442,6 +468,7 @@ def recording(calls: list, keep=None):
         return f
 
     stack = contextlib.ExitStack()
+    stack.enter_context(uncaptured())
     for attr, names in (("_fv", ("fused_verify", "sketch_prefilter", "fused_verify_grouped")),
                         ("_lsh", ("lsh_hash",)), ("_km", ("kmeans_assign",))):
         stack.enter_context(mock.patch.object(
@@ -781,6 +808,9 @@ LSH_CASES = [  # (n, d, H, M, row dtype): N off the 64-row block and on both sid
     (300, 768, 10, 10, torch.float32), (2000, 8, 7, 31, torch.float32), (65, 768, 1, 1, torch.bfloat16),
     (256, 768, 10, 16, torch.float32), (129, 768, 3, 31, torch.float32),
     (17000, 768, 10, 10, torch.float32), (20000, 770, 16, 16, torch.bfloat16),
+    # a block group's columns starting off 16 bytes (its box of P starts before them):
+    # serve_retrieval's SK-LSH corpus hash, and H*M = 15 x 15 in bfloat16
+    (30000, 64, 24, 15, torch.float32), (1000, 32, 15, 15, torch.bfloat16),
 ]
 KMEANS_CASES = [  # (n, c, d, offset): N, c and d off every tile and stage; rows 4 bytes off 16
     (1, 1, 8, 0), (257, 7, 33, 0), (1000, 70, 768, 0), (4099, 1, 768, 0), (129, 70, 8, 0),
@@ -1002,6 +1032,8 @@ def phase_main(dev) -> dict:
     order = [c[0] for c in kernel_calls]
     if order != ["lsh_hash", "fused_verify"] * 2:
         raise AssertionError(f"one search batch made kernel calls {order}")
+    search(batches[0])  # the signature's first run and capture, before the timed batches
+    torch.cuda.synchronize()
 
     reset_counts()
     outs, lat_ms, wall_ms = [], [], []
@@ -1039,11 +1071,15 @@ def phase_main(dev) -> dict:
 
     log("main", "first 8 queries: " + against_plain(params, search, batches[0][:8]))
     phase_trace("trace F32", search, batches[1], med)
+    graph_queries, _ = synthetic.retrieval_queries(SEED + 21, corpus, GRAPH_BATCHES * BATCH)
+    graph_batches = list(graph_queries.split(BATCH))
+    f32_graphs = graph_point("graphs", "F32", search, graph_batches, per_batch("F32"))
     return {
         "kernel_calls": kernel_calls, "build_calls": build_calls, "launches": counts,
         "build_launches": first.counts, "build_timed": timed, "recall": rec, "latency_ms": med,
         "peak_gib": peak_build / 2**30, "corpus": corpus, "queries": queries, "gt": gt.ids,
-        "params": params, "centroids": params.centroids,
+        "params": params, "centroids": params.centroids, "graph_batches": graph_batches,
+        "graphs": {"F32": f32_graphs},
     }
 
 
@@ -1266,7 +1302,7 @@ def phase_trace(phase: str, search, qb, batch_ms: float) -> None:
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         log(phase, "device time not measured: the profiler recorded no device events")
-        return
+        return None
     by_name: dict[str, float] = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1280,6 +1316,102 @@ def phase_trace(phase: str, search, qb, batch_ms: float) -> None:
         f"{wall_us / 1e3:.3f} ms); "
         + "; ".join(f"{n} {v / 1e3:.3f} ms ({v / busy:.1%})" for n, v in per_kernel.items() if v)
         + "; top: " + "; ".join(f"{n[:60]} {v / 1e3:.3f} ms" for n, v in top))
+    return busy / 1e3 / batch_ms
+
+
+GRAPH_BATCHES = 16  # batches of BATCH queries the graphs phase runs each way, per turn
+
+
+def padded_cm_search(params, op):
+    """A cluster-major point spelled as the serving engine's staged stage 1
+    runs it: the schedule padded to its worst case (``stats_out``), so
+    every batch of one size has one signature, then the rescore from the
+    resident table."""
+    from repro_torch.configs.lider_msmarco import CONFIG
+    from repro_torch.core import lider
+
+    cfg, k = CONFIG.lider, CONFIG.k
+    kw = op.search_kwargs()
+    block_q = kw.pop("block_q")
+
+    def search(q):
+        prov, _ = lider.host_first_pass_cluster_major(
+            params, q, k=k, n_probe=cfg.n_probe, r0=cfg.r0, r0_centroid=cfg.r0_centroid,
+            block_q=block_q, stats_out={}, **kw)
+        return lider._rescore_provisional(params.bank.gids, params.bank.rescore_embs, prov.ids,
+                                          q, k=k)
+
+    return search
+
+
+def graph_point(phase: str, name: str, search, batches, per: tuple) -> dict:
+    """One operating point through its CUDA graphs (``core.graphs``) against
+    its plain bodies (``testing.uncaptured``, each entry's ``__wrapped__``),
+    over ``batches``, in turns (plain, captured, captured, plain), after a
+    first run and a capture: ids and scores bit-equal batch for batch, the
+    launches of each turn ``len(batches) * per``, the signature counter
+    flat over the captured turns; batch medians by CUDA events and on the
+    host clock, then one profiled batch of each for the device's busy
+    share, and the graphs the captured turns replayed, with the bytes their
+    pools hold."""
+    from repro_torch.core import graphs, lider
+    from repro_torch.testing import uncaptured
+
+    def turn(captured: bool):
+        outs, lat, wall = [], [], []
+        with contextlib.nullcontext() if captured else uncaptured():
+            reset_counts()
+            for qb in batches:
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                s.record()
+                outs.append(search(qb))
+                e.record()
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - h0) * 1e3)
+                lat.append(s.elapsed_time(e))
+            counts = read_counts()
+        return outs, lat, wall, counts
+
+    with uncaptured():
+        search(batches[0])
+    _, t_first = host_ms(lambda: search(batches[0]))  # a first run, then the capture
+    n0 = lider.query_path_cache_size()
+    replays0 = {id(g): g.replays for g in graphs.live_graphs()}
+    want = tuple(len(batches) * v for v in per)
+    lat = {False: [], True: []}
+    wall = {False: [], True: []}
+    outs = {}
+    for captured in (False, True, True, False):
+        o, la, wa, counts = turn(captured)
+        how = "captured" if captured else "uncaptured"
+        if counts != want:
+            raise AssertionError(f"{name} {how}: launches {counts}, expected {want}")
+        if lider.query_path_cache_size() != n0:
+            raise AssertionError(f"{name} {how}: the signature counter moved from {n0} to "
+                                 f"{lider.query_path_cache_size()}")
+        outs.setdefault(captured, o)
+        lat[captured] += la
+        wall[captured] += wa
+    for i, (a, b) in enumerate(zip(outs[False], outs[True])):
+        if not bit_equal(a, b):
+            raise AssertionError(f"{name}: batch {i} captured differs from uncaptured")
+    med = {c: statistics.median(v) for c, v in lat.items()}
+    med_wall = {c: statistics.median(v) for c, v in wall.items()}
+    with uncaptured():
+        busy_plain = phase_trace(f"{phase} {name} uncaptured", search, batches[1], med[False])
+    busy_graph = phase_trace(f"{phase} {name} captured", search, batches[1], med[True])
+    used = [g for g in graphs.live_graphs() if g.replays > replays0.get(id(g), 0)]
+    held, n_used = sum(g.nbytes for g in used), len(used)
+    log(phase, f"{name}: {len(batches)} x {batches[0].shape[0]} queries captured == uncaptured, ids "
+        f"and scores bit for bit, each way twice in turns; launches per batch {fmt_counts(per)} "
+        f"both ways; signature counter {n0}, flat over the captured batches; batch median (CUDA "
+        f"events) uncaptured {med[False]:.3f} ms, captured {med[True]:.3f} ms ({med[False] / med[True]:.2f}x); "
+        f"host wall median uncaptured {med_wall[False]:.3f} ms, captured {med_wall[True]:.3f} ms; "
+        f"first call {t_first:.1f} ms; the captured batches replayed {n_used} graphs holding "
+        f"{held / 1e6:.1f} MB of pools")
+    return {"eager_ms": med[False], "graph_ms": med[True], "busy_eager": busy_plain,
+            "busy_graph": busy_graph, "graph_bytes": held}
 
 
 def verify_counts(name: str, args, kw) -> tuple:
@@ -1651,6 +1783,7 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
         calls = []
         with recording(calls):
             search(batches[0])
+        search(batches[0])  # a first run and capture (cm: batch 0's schedule length)
         torch.cuda.synchronize()
         out.setdefault("shape_checks", []).extend(shape_checks(calls))
         reset_counts()
@@ -1714,6 +1847,12 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
     for name in ("Q8", "Q8-cm") if storage == "int8" else ("Q4-sk-cm",):
         traced = out["paths"][name]
         phase_trace(f"trace {name}", traced["search"], batches[1], traced["latency_ms"])
+    out["graphs"] = {
+        op.name: graph_point("graphs", op.name, padded_cm_search(params, op) if op.block_q
+                             else out["paths"][op.name]["search"], main["graph_batches"],
+                             per_batch(op.name))
+        for op in points
+    }
     for p in out["paths"].values():
         p.pop("search")
     del params, b
@@ -1925,6 +2064,7 @@ def phase_serve(dev, main) -> dict:
     from repro_torch.core import clustering, lider, update
     from repro_torch.data import synthetic
     from repro_torch.serving import DegradePolicy, make_trace, run_open_loop
+    from repro_torch.testing import uncaptured
     from repro_torch.training import checkpoint
 
     cfg, k = CONFIG.lider, CONFIG.k
@@ -1995,6 +2135,8 @@ def phase_serve(dev, main) -> dict:
     del hosts["int4"]
     ph8 = hosts.pop("int8")
     gc.collect()
+    out["graphs"] = graph_point("graphs", "host Q8", lambda q: serve_search(ph8, q),
+                                main["graph_batches"], per_batch("Q8"))
     out["split"] = stage_split(ph8, batches[0])
 
     # The rescore over fetched rows as a kernel call, timed as the shapes
@@ -2042,8 +2184,9 @@ def phase_serve(dev, main) -> dict:
             raise AssertionError(f"{name}: engine answers differ from search_lider")
         if min(counts[0], counts[3]) == 0:
             raise AssertionError(f"{name}: launches {counts}")
-        log("serve", engine_line(name, eng) + f"; warmup {t_warm / 1e3:.2f} s; launches "
-            f"{fmt_counts(counts)}; every answer == search_lider on its batch, ids and scores bit for bit")
+        log("serve", engine_line(name, eng) + f"; warmup {t_warm / 1e3:.2f} s (captures its graphs: "
+            f"{eng.graph_bytes / 1e6:.1f} MB of pools); launches {fmt_counts(counts)}; every answer "
+            "== search_lider on its batch, ids and scores bit for bit")
         return eng
 
     eng = closed_loop(ph8, "engine, closed loop, host-tier Q8")
@@ -2133,14 +2276,20 @@ def phase_serve(dev, main) -> dict:
     counts = read_counts()
     pd_up, _ = upsert(pd99)
     want = serve_batches(pd_up, main["queries"])
-    if not bit_equal((ids, sc), want):
+    with uncaptured():
+        want_plain = serve_batches(pd_up, main["queries"])
+    if not bit_equal((ids, sc), want) or not bit_equal(want, want_plain):
         raise AssertionError("after the update, the host-tier engine differs from the device tier")
-    out["update"] = {"apply_s": t_up / 1e3, "n_upserted": n - n_base}
+    out["update"] = {"apply_s": t_up / 1e3, "n_upserted": n - n_base,
+                     "recapture_s": eng.recapture_s, "graph_bytes": eng.graph_bytes}
     log("serve", f"update under serving: int8 index over {n_base} passages (capacity Lp={cap} from "
         f"the full assignment) on the host tier; apply_updates(upsert of the other {n - n_base}) "
         f"{t_up / 1e3:.3f} s: no growth, recompiles 0, host generation 1, device generation 1; "
-        f"{N_BATCHES} batches served after it == a device-tier copy given the same upsert, ids and "
-        f"scores bit for bit; launches {fmt_counts(counts)}")
+        f"its graphs captured again on the new leaves before they were served in "
+        f"{eng.recapture_s:.3f} s ({eng.graph_bytes / 1e6:.1f} MB of pools after the superseded "
+        f"ones were freed); {N_BATCHES} batches served after it == a device-tier copy given the "
+        f"same upsert, captured and uncaptured, ids and scores bit for bit; launches "
+        f"{fmt_counts(counts)}")
     del eng, pd99, pd_up
     gc.collect()
     torch.cuda.empty_cache()
@@ -4904,6 +5053,63 @@ def build_entry(name: str, calls: list[dict], launches: int, timed: list[dict]) 
     }
 
 
+def graph_summary(f32: dict, q8: dict, q4: dict, serve: dict, smi: str) -> None:
+    """One line: each point's batch medians uncaptured and captured, the
+    device's busy share both ways, and the graphs' memory; the host-tier
+    engine's re-capture after an update."""
+    pts = {**f32, **q8, **q4, "host Q8": serve["graphs"]}
+    log("graphs", f"on {smi}: " + "; ".join(
+        f"{n} {g['eager_ms']:.3f} -> {g['graph_ms']:.3f} ms, busy "
+        + (f"{g['busy_eager']:.1%} -> {g['busy_graph']:.1%}" if g["busy_graph"] is not None
+           else "not measured")
+        + f", {g['graph_bytes'] / 1e6:.1f} MB" for n, g in pts.items())
+        + f"; host-tier engine after a 1% upsert: re-capture {serve['update']['recapture_s']:.3f} s, "
+        f"{serve['update']['graph_bytes'] / 1e6:.1f} MB of pools")
+
+
+def phase_examples() -> dict:
+    """The three serving examples at their default sizes, on the card, in
+    this process (``testing.load_example``): quickstart's recall over the
+    floor; serve_retrieval answering every arrival on every backend;
+    chaos_demo's rollback bit-identical, its outage degraded and recovered."""
+    from repro_torch.testing import load_example
+
+    out = {}
+    for name in ("quickstart_torch", "serve_retrieval_torch", "chaos_demo_torch"):
+        t0 = time.perf_counter()
+        out[name] = load_example(name).main([])
+        log("examples", f"examples/{name}.py at its defaults: {time.perf_counter() - t0:.1f} s")
+    q = out["quickstart_torch"]
+    if q["device"] != "cuda:0" or q["recall"] < RECALL_FLOOR:
+        raise AssertionError(f"quickstart: {q}")
+    served = out["serve_retrieval_torch"]
+    if set(served) != {"lider", "flat", "ivfpq", "sklsh", "mplsh"} or any(
+            r["answered"] != 1024 for r in served.values()) or served["flat"]["recall_at_10"] != 1.0:
+        raise AssertionError(f"serve_retrieval: {served}")
+    c = out["chaos_demo_torch"]
+    if not (c["rollback_identical"] and c["rollbacks"] == 1 and c["generation"] == 1
+            and c["n_degraded"] > 0 and c["recovered"]):
+        raise AssertionError(f"chaos_demo: {c}")
+    log("examples", f"quickstart recall@10 {q['recall']:.4f}, AQT {q['aqt_s'] * 1e3:.4f} ms; "
+        "serve_retrieval every 1,024 arrivals answered on each backend (recall@10 "
+        + ", ".join(f"{n} {r['recall_at_10']:.4f}" for n, r in served.items())
+        + f"; lider's engine {served['lider']['graph_bytes'] / 1e6:.1f} MB of graph pools); "
+        f"chaos_demo rollback bit-identical, {c['n_degraded']} queries degraded in the outage, "
+        f"recovered; the committed update recaptured in {c['recapture_s']:.3f} s "
+        f"(recompiles {c['recompiles']})")
+    return out
+
+
+def free() -> None:
+    """Between phases: drop dead objects, the graphs of freed indexes, and
+    the allocator's cache."""
+    from repro_torch.core import graphs
+
+    gc.collect()
+    graphs.purge()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     from repro_torch.configs.lider_msmarco import CONFIG, QUANTIZED
 
@@ -4920,36 +5126,30 @@ def main() -> int:
     checks = shape_checks(main_res["kernel_calls"] + main_res["build_calls"])
     for key in ("kernel_calls", "build_calls", "params"):
         main_res.pop(key)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     q8 = phase_quantized(dev, main_res, "int8", [p for p in QUANTIZED if p.storage_dtype == "int8"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     q4 = phase_quantized(dev, main_res, "int4", [p for p in QUANTIZED if p.storage_dtype == "int4"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     serve = phase_serve(dev, main_res)
     phase_fabric(dev, main_res, serve.pop("fabric_input"))
-    gc.collect()
-    torch.cuda.empty_cache()
+    graph_summary(main_res["graphs"], q8["graphs"], q4["graphs"], serve, device["smi"])
+    free()
     cli = phase_cli(dev, main_res["corpus"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     phase_lifecycle(dev, main_res)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
+    phase_examples()
+    free()
     dist = phase_distributed(dev, main_res, device["smi"])
     for key in ("corpus", "queries", "gt", "centroids"):
         main_res.pop(key, None)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     sharded = phase_models_sharded(dev, device["smi"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     train = phase_train(dev, device["smi"])
     models = phase_models(dev, device["smi"], train["full"].pop("model"))
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     phase_dryrun(device["smi"], {"train_full": train["full"], "models_sharded": sharded["dryrun"],
                                  "distributed": dist["dryrun"]},
                  checks + q8["shape_checks"] + q4["shape_checks"])

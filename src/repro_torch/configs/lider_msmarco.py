@@ -7,7 +7,8 @@ with two cuts:
 
 - ``corpus_size`` is 1,048,576 passages, not 8,847,360. This is the size
   chosen for the first slice of the port, not one that memory forces: the
-  build at 1M peaks near 11.4 GiB on an 80 GB H100, so a larger corpus
+  float32 build at 1M peaks at 12.33 GiB on an 80 GB H100 (``chip_smoke.py``'s
+  main phase), so a larger corpus
   would fit (at 8.8M the f32 corpus alone is 27 GB and an f32 bank at
   capacity 12,288 another 38.6 GB);
 - ``capacity=None`` (the largest cluster, no drops) replaces 12,288, which

@@ -372,15 +372,19 @@ def make_sharded_search(
     else:
         make_pairs = host_pairs
 
+        # The entries' bodies, uncaptured: the JAX package runs them inside
+        # its one shard_map jit, where they add no trace of their own.
         def first_pass(params, pr):
-            return _cluster_major_first_pass(params, pr.q_pairs, pr.sel_cid[:, None], *pr.sched,
-                                             block_q=block_q, **search_kw)
+            return _cluster_major_first_pass.__wrapped__(
+                params, pr.q_pairs, pr.sel_cid[:, None], *pr.sched, block_q=block_q, **search_kw
+            )
 
         def pair_topk(params, pr):
             # Device tier: the exact rescore of each pair's provisional rows.
             bank = params.bank
-            return _rescore_provisional(bank.gids, bank.rescore_embs, first_pass(params, pr).ids,
-                                        pr.q_pairs, k=k)
+            return _rescore_provisional.__wrapped__(
+                bank.gids, bank.rescore_embs, first_pass(params, pr).ids, pr.q_pairs, k=k
+            )
 
     def resolve_health(shard_health) -> np.ndarray:
         """The caller's mask plus any injected shard kill, on the host."""

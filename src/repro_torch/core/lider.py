@@ -23,6 +23,11 @@ kernels on the card, their plain versions on the CPU.
   ``fused_verify`` rescore over the fetched block (:func:`host_rescore`).
   Ids and scores equal the device tier's, bit for bit. The serving engine
   pipelines the stages across batches.
+
+The seven entries the JAX package compiles with ``jax.jit`` are wrapped in
+the graph cache (``core.graphs``): on the card each signature is captured
+into a CUDA graph once and replayed after, and :func:`query_path_cache_size`
+counts the signatures, as the JAX package counts its traces.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 
 from . import bank as bank_lib
 from . import clustering, lsh as lsh_lib, rescale as rescale_lib, rmi as rmi_lib
+from .graphs import query_path_entry
 from ..device import resolve_device
 from ..kernels.ops import sketch_topk_op, verify_topk_grouped_op, verify_topk_op
 from ..kernels.schedule import _pad_pow2, build_cluster_schedule
@@ -325,6 +331,7 @@ def _provisional_topk(
     )
 
 
+@query_path_entry(inputs=("prov_rows", "queries"))
 def _rescore_provisional(
     gids: torch.Tensor,
     rescore_embs: torch.Tensor,
@@ -374,7 +381,8 @@ def _verify_bank_rows(
     prov_rows, _ = _provisional_topk(
         bank, flat_rows, out_rows, queries, kp=kp, sketch_factor=sketch_factor
     )
-    out = _rescore_provisional(bank.gids, bank.rescore_embs, prov_rows, queries, k=k)
+    # The body alone, as the JAX package inlines this stage here.
+    out = _rescore_provisional.__wrapped__(bank.gids, bank.rescore_embs, prov_rows, queries, k=k)
     return out.ids, out.scores
 
 
@@ -423,6 +431,7 @@ def incluster_search(
     return TopK(ids=ids.reshape(b, p, k), scores=sc.reshape(b, p, k))
 
 
+@query_path_entry(inputs=("queries",), traced=("prune_margin",))
 def _search_lider_device(
     params: LiderParams,
     queries: torch.Tensor,
@@ -506,6 +515,7 @@ def rescore_fetched_rows(
     return verify_topk_op(fetched.reshape(b * kp, d), row_ids, queries, k=k, out_ids=out_ids)
 
 
+@query_path_entry(inputs=("queries",), traced=("prune_margin",))
 def host_first_pass(
     params: LiderParams,
     queries: torch.Tensor,
@@ -540,6 +550,7 @@ def host_fetch(params: LiderParams, prov_rows, *, out: torch.Tensor | None = Non
     return params.bank.store.fetch(prov_rows, out=out)
 
 
+@query_path_entry(inputs=("fetched", "prov_rows", "queries"))
 def host_rescore(
     gids: torch.Tensor,
     fetched: torch.Tensor,
@@ -550,11 +561,17 @@ def host_rescore(
 ) -> TopK:
     """Stage 3: :func:`rescore_fetched_rows` (``fetched`` moved to the
     queries' device if it is not there), deduped by flat row as on the
-    device tier, then rows mapped to global ids through ``gids``."""
+    device tier, then rows mapped to global ids through ``gids``.
+
+    On the card ``fetched`` is copied into the graph's static buffer (from
+    the host, the copy to the card itself), unless it is a buffer registered
+    with ``graphs.persistent`` (the serving engine's staging buffers), which
+    the graph reads where it lies."""
     rows, scores = rescore_fetched_rows(fetched.to(queries.device), prov_rows, queries, k=k)
     return TopK(ids=_row_gids(gids, rows), scores=scores)
 
 
+@query_path_entry(inputs=("prov",))
 def compressed_only_topk(gids: torch.Tensor, prov: TopK, *, k: int) -> TopK:
     """The degraded answer from stage 1 alone (no fetch, no rescore): the
     provisional top-k' is sorted and deduped by flat row already, so its
@@ -574,6 +591,7 @@ def _row_gids(gids: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@query_path_entry(inputs=("queries",), traced=("prune_margin",))
 def _route_pruned(
     params: LiderParams,
     queries: torch.Tensor,
@@ -598,6 +616,9 @@ def _scatter_slot_ids(tgt: torch.Tensor, src: torch.Tensor, size: int) -> torch.
     return flat[:size]
 
 
+@query_path_entry(
+    inputs=("queries", "cids", "sched_cids", "sched_qids", "pair_step", "pair_slot")
+)
 def _cluster_major_first_pass(
     params: LiderParams,
     queries: torch.Tensor,
@@ -814,3 +835,27 @@ def search_lider(
         out = host_rescore(params.bank.gids, host_fetch(params, prov.ids), prov.ids, queries, k=k)
         return (out, pruned) if with_stats else out
     return _search_lider_device(params, queries, **kw)
+
+
+# Every entry of the serving query path (all tiers and the degraded answer),
+# as the JAX package's ``_QUERY_PATH_JITS``.
+_QUERY_PATH_GRAPHS = (
+    "_search_lider_device",
+    "host_first_pass",
+    "host_rescore",
+    "compressed_only_topk",
+    "_route_pruned",
+    "_cluster_major_first_pass",
+    "_rescore_provisional",
+)
+
+
+def query_path_cache_size() -> int:
+    """The distinct signatures (shapes and dtypes of the tensors, static
+    options, device) held across the seven query-path entries, as the JAX
+    package's ``query_path_cache_size`` sums ``jax.jit``'s cache sizes.
+    After ``RetrievalEngine.warmup()`` it stays flat across any mix of batch
+    sizes and ladder rungs: a new signature means a query paid for a first
+    run and a capture. A capture on new leaves of known shapes (an update,
+    a replica) adds none."""
+    return sum(globals()[name].cache_size() for name in _QUERY_PATH_GRAPHS)

@@ -156,8 +156,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int a0 = (group * kWarpgroups + wg) * arrays;  // this warpgroup's first array
   const int my_arrays = max(0, min(arrays, n_arrays - a0));
   const int cols = my_arrays * key_len;        // its columns that hold keys
-  const int off = wg * arrays * key_len;       // where they start in P's box
-  const int col0 = group * kWarpgroups * arrays * key_len;
+  // P's box starts at a 16-byte aligned column, up to 3 before the group's
+  // first: a TMA box whose first coordinate is not 16-byte aligned raised an
+  // illegal instruction on the card (H*M = 15 x 15, the group at column
+  // 150). Every tile is at most kN columns, so off + cols <= kBoxCols.
+  const int first = group * kWarpgroups * arrays * key_len;
+  const int col0 = first & ~3;
+  const int off = (first - col0) + wg * arrays * key_len;  // where its columns start in the box
   const int k_tiles = (d + kBK - 1) / kBK;
   const uint32_t planes = base + kStages * kStageBytes + wg * kPlanesBytes;
 

@@ -5,9 +5,15 @@ launch's error raised, and counting launches.
 
 A router launches from several threads at once, so binding and counting
 take a lock: a counter's ``+=`` is a read and a write, and two threads
-could lose a count between them."""
+could lose a count between them.
+
+A wrapper called while a CUDA graph is being captured launches nothing:
+the graph launches its kernels at each replay. So a count made during a
+capture is held for the graph (:func:`captured_launches`) and added at each
+of its replays (:func:`replayed`), never at the capture."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -22,6 +28,7 @@ LL = ctypes.c_longlong
 
 _bound: dict = {}
 _lock = threading.Lock()
+_capturing = threading.local()  # .held: the counts of the graph being captured here
 
 
 def bind(library: str, symbol: str, argtypes, restype=ctypes.c_int):
@@ -40,9 +47,33 @@ def bind(library: str, symbol: str, argtypes, restype=ctypes.c_int):
 
 
 def count(wrapper, n: int) -> None:
-    """Add ``n`` launches to ``wrapper.launches``, under the lock."""
+    """Add ``n`` launches to ``wrapper.launches``, under the lock; during a
+    capture on this thread, hold them for the graph's replays instead."""
+    held = getattr(_capturing, "held", None)
+    if held is not None:
+        held.append((wrapper, n))
+        return
     with _lock:
         wrapper.launches += n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """The ``(wrapper, n)`` counts made on this thread inside the block (a
+    graph's capture), which leave the counters as they are."""
+    held: list = []
+    _capturing.held = held
+    try:
+        yield held
+    finally:
+        _capturing.held = None
+
+
+def replayed(launches) -> None:
+    """Count the launches of one replay of a graph (its captured counts)."""
+    with _lock:
+        for wrapper, n in launches:
+            wrapper.launches += n
 
 
 def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -31,8 +31,10 @@ SKETCH_WORD_BITS = 32
 def _symmetric(x: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
     x = x.to(torch.float32)
     amax = x.abs().amax(dim=-1)
-    # The pre-rounded float32 reciprocal, as the JAX package multiplies by it.
-    recip = torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
+    # The pre-rounded float32 reciprocal, as the JAX package multiplies by
+    # it; made on the device (a fill, no copy from the host), so a CUDA
+    # graph can capture it.
+    recip = torch.full((), 1.0 / qmax, dtype=torch.float32, device=x.device)
     scales = torch.where(amax > 0, amax * recip, torch.ones_like(amax))
     codes = torch.round(x / scales[..., None]).clamp_(-qmax, qmax).to(torch.int8)
     return codes, scales

@@ -32,6 +32,15 @@ Every backend of the JAX engine is here: ``lider``, ``flat``, ``pq``,
 ``ivfpq``, ``sklsh`` and ``mplsh``. The JAX engine's ``use_fused`` and
 ``block_c`` knobs are not: ``kernels.ops`` dispatches by device.
 
+On the card the query path's entries replay CUDA graphs (``core.graphs``),
+one per signature, keyed on the engine's stream: :meth:`RetrievalEngine.warmup`
+runs every batch size, rung, slot and block_q choice, so it captures them
+all, and a batch after it only replays. The fetched rows land in each
+slot's fixed staging buffer on the card, which the rescore's graph reads
+where it lies. An update that makes new device leaves of the same shapes
+captures the warmed signatures again on the new leaves before they are
+served, and frees the superseded graphs.
+
 On the card each engine owns a CUDA stream, made when the engine is, and
 runs every batch, warm-up and update on it, in whichever thread calls it
 (:meth:`RetrievalEngine._on_stream`). PyTorch's current stream belongs to a
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 
 from .. import faults
+from ..core import graphs
 from ..core import lider as lider_lib
 from ..core.baselines import flat_search, ivfpq_search, mplsh_search, pq_search, sklsh_search
 from ..core.core_model import TopK
@@ -260,8 +270,9 @@ class _Slot:
     ``queries`` (copied to the card), ``rows`` (the provisional rows copied
     back; ``rows_ready`` fires after that copy) and ``staging`` (the
     gathered exact rows, copied to the card on the engine's side stream
-    between ``copy_start`` and ``copied``). On the CPU the same methods
-    pass plain tensors through.
+    between ``copy_start`` and ``copied``, into the card's ``staging``
+    buffer of ``device_buffers``, which a graph reads where it lies). On
+    the CPU the same methods pass plain tensors through.
     """
 
     def __init__(self, device: torch.device, copy_stream):
@@ -269,6 +280,7 @@ class _Slot:
         self.cuda = device.type == "cuda"
         self.copy_stream = copy_stream
         self.buffers: dict[str, torch.Tensor] = {}
+        self.device_buffers: dict[str, torch.Tensor] = {}
         self.copy_pending = False
         if self.cuda:
             self.rows_ready = torch.cuda.Event()
@@ -281,6 +293,17 @@ class _Slot:
         if buf is None or buf.numel() < n or buf.dtype != dtype:
             buf = torch.empty(n, dtype=dtype, pin_memory=self.cuda)
             self.buffers[name] = buf
+        return buf[:n].view(shape)
+
+    def device_buffer(self, name: str, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """A buffer on the card that grows to the largest batch seen,
+        registered with ``graphs.persistent``: the graphs bind its address
+        rather than copy it at each replay."""
+        n = math.prod(shape)
+        buf = self.device_buffers.get(name)
+        if buf is None or buf.numel() < n or buf.dtype != dtype:
+            buf = graphs.persistent(torch.empty(n, dtype=dtype, device=self.device))
+            self.device_buffers[name] = buf
         return buf[:n].view(shape)
 
     def queries_to_device(self, q: np.ndarray) -> torch.Tensor:
@@ -330,18 +353,16 @@ class _Slot:
         compute stream waits for the copy before it uses the result."""
         if not self.cuda:
             return fetched
+        # The slot's fixed buffer on the card. Its last reader, this slot's
+        # previous rescore, has finished: the engine waits for the compute
+        # stream after every rescore, before the slot is used again.
+        dev = self.device_buffer("staging", tuple(fetched.shape), fetched.dtype)
         with torch.cuda.stream(self.copy_stream):
             self.copy_start.record()
-            # Allocated while the side stream is current, so the caching
-            # allocator ties the block to it; record_stream below keeps it
-            # alive until the compute stream is done with it.
-            dev = torch.empty(fetched.shape, dtype=fetched.dtype, device=self.device)
             dev.copy_(fetched, non_blocking=True)
             self.copied.record()
         self.copy_pending = True
-        compute = torch.cuda.current_stream(self.device)
-        compute.wait_event(self.copied)
-        dev.record_stream(compute)
+        torch.cuda.current_stream(self.device).wait_event(self.copied)
         return dev
 
     def copy_seconds(self) -> float:
@@ -618,6 +639,10 @@ class RetrievalEngine:
         self.device_generation = 0  # device tensors changed
         self.host_generation = 0  # host EmbStore content changed
         self.recompiles = 0  # bumped only when shapes changed
+        # What warmup ran (its warm_ladder), so that an update can capture
+        # the same signatures on new leaves; and how long the last one took.
+        self._warm_ladder: bool | None = None
+        self.recapture_s = 0.0
         self.sched_cfg = scheduler if scheduler is not None else SchedulerConfig()
         self.scheduler = Scheduler(
             self.sched_cfg,
@@ -719,6 +744,12 @@ class RetrievalEngine:
         finally:
             caller.wait_stream(self.stream)
 
+    @property
+    def graph_bytes(self) -> int:
+        """Bytes the memory pools of this engine's query-path graphs hold
+        (0 on the CPU, where there are no graphs)."""
+        return 0 if self.stream is None else graphs.held_bytes(self.stream)
+
     def _wait(self) -> None:
         """Wait until the device has finished the work given so far (no
         copy to the host)."""
@@ -731,7 +762,10 @@ class RetrievalEngine:
         ``warm_ladder``) every degradation-ladder rung, and on a host-tier
         index the staged pipeline through every slot at every block_q
         choice. The kernels build on first use and the allocators grow on
-        first use; after this, no timed window pays for either."""
+        first use; after this, no timed window pays for either. On the card
+        this captures every signature of the query path (``core.graphs``),
+        so a batch after it replays a graph."""
+        self._warm_ladder = warm_ladder
         saved = self.rung
         staged = self._staged_host_serving()
         try:
@@ -813,7 +847,11 @@ class RetrievalEngine:
         bit), the engine keeps serving the old generation, and the exception
         propagates. Returns True when tensor shapes changed (capacity
         growth), the one case that re-warms the query path (``recompiles``),
-        here and off the query path.
+        here and off the query path. An update that makes new device leaves
+        of the same shapes adds no signature, but the warmed graphs read the
+        old leaves: on the card they are captured again on the new params
+        before those are served (``recapture_s``), and the superseded ones
+        are freed.
         """
         if self.params is None:
             raise ValueError(
@@ -850,6 +888,8 @@ class RetrievalEngine:
         host_changed = (new_store is not old_store) or (
             new_store is not None and new_store.version != old_hver
         )
+        if device_changed and not grew:
+            self._recapture(new_params)
         self.params = new_params
         self.generation += 1
         if device_changed:
@@ -863,7 +903,25 @@ class RetrievalEngine:
         if grew:
             self.recompiles += 1
             self.warmup()
+        if device_changed and self.stream is not None:
+            kept = {id(t) for t in new_leaves}
+            graphs.release(self.stream, [t for t in old_leaves if id(t) not in kept])
         return grew
+
+    def _recapture(self, new_params) -> None:
+        """Run what warmup ran on ``new_params`` (each signature known, so
+        each is captured and replayed, not run eagerly first), before they
+        are swapped in; nothing on the CPU, which has no graphs."""
+        if self.stream is None or self._warm_ladder is None:
+            return
+        t0 = time.perf_counter()
+        served = self.params
+        self.params = new_params
+        try:
+            self.warmup(warm_ladder=self._warm_ladder)
+        finally:
+            self.params = served
+        self.recapture_s = time.perf_counter() - t0
 
     @staticmethod
     def _host_store(params):

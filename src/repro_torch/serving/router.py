@@ -54,7 +54,12 @@ stream, so a replica's answers are a single engine's, bit for bit. The
 state the threads share is guarded: the kernels' launch counters and the
 loaded libraries take a lock (``kernels.launch``, ``kernels.build``), and
 :meth:`QueryRouter.warmup` builds and loads every kernel library before
-any batch is dispatched, so no pool thread runs ``nvcc``.
+any batch is dispatched, so no pool thread runs ``nvcc``. It also captures
+each engine's query-path CUDA graphs (``core.graphs``; keyed on the engine's
+stream, so two replicas sharing device leaves never replay one graph) before
+the threads serve. A capture runs one at a time in the process, in
+``capture_error_mode="thread_local"``, so the re-capture of a rolling update
+in one pool thread never trips on another thread's launches.
 
 **A replica killed mid-flight.** ``execute_chunk`` returns only after the
 engine's stream has finished the batch (it waits on its stream, and on a

@@ -19,12 +19,18 @@ distances are also held to float64 (:func:`min_dist_error`), at most
 A model's loss and gradients computed twice (:func:`card_against_cpu`) are
 held within ``LOSS_RTOL`` and ``GRAD_RTOL`` / ``GRAD_ATOL``, each element
 also allowed ``NEAR_ZERO`` of its leaf's largest magnitude.
+
+:func:`uncaptured` runs the query path's entries as their plain bodies: the
+search a captured one is held against, and the one a patch of the kernel
+wrappers reaches (a graph's replay calls no Python).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -283,6 +289,21 @@ def card_configs() -> dict:
     out["llama4-scout-17b-a16e"] = dataclasses.replace(out["llama4-scout-17b-a16e"], n_layers=4,
                                                         window=16)
     return out
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Within the block, ``core.lider``'s seven query-path entries are their
+    ``__wrapped__`` bodies: nothing is captured, replayed or counted, and
+    every kernel call runs through the Python wrappers."""
+    from .core import graphs, lider
+
+    with contextlib.ExitStack() as stack:
+        for name in lider._QUERY_PATH_GRAPHS:
+            entry = getattr(lider, name)
+            if isinstance(entry, graphs.QueryPathEntry):
+                stack.enter_context(mock.patch.object(lider, name, entry.__wrapped__))
+        yield
 
 
 def load_example(name: str):

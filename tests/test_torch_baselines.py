@@ -282,6 +282,27 @@ def test_lsh_hash_at_the_baselines_bank_shape():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,d,h,m", [(30000, 64, 24, 15), (1000, 32, 15, 15), (513, 768, 25, 13)])
+def test_lsh_hash_where_a_group_starts_off_16_bytes(n, d, h, m):
+    """Tiles of 5 arrays of 15 bits put the second block group's first
+    column at 150 (600 bytes): its box of P starts at column 148 and the
+    group's columns 2 in (an unaligned box faulted). (30000, 64, 24, 15) is
+    ``examples/serve_retrieval_torch.py``'s SK-LSH / MP-LSH corpus hash."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lsh_hash import lsh_hash
+    from repro_torch.testing import lsh_key_flips
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((n, d), generator=g, device="cuda")
+    p = torch.randn((d, h * m), generator=g, device="cuda")
+    got = lsh_hash(x, p, n_arrays=h, key_len=m)
+    torch.cuda.synchronize()
+    lsh_key_flips(x, p, h, m, got, ref.lsh_hash_ref(x, p, n_arrays=h, key_len=m))
+
+
+@pytest.mark.gpu
 @pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA device")
 @pytest.mark.parametrize("case", ["pq_subspace", "ivf_coarse"])
 def test_kmeans_assign_at_the_baselines_shapes(case):

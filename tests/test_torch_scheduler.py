@@ -287,18 +287,23 @@ def test_dynamic_batches_bit_identical_to_fixed(served):
 
 def test_no_recompiles_across_load_sweep_after_warmup(served):
     """Every batch size and rung was run in warmup: a sweep of queue depths
-    re-warms nothing and every request is answered."""
+    re-warms nothing, adds no query-path signature (the counter of the JAX
+    package's ``test_no_recompiles_across_load_sweep_after_warmup``) and
+    every request is answered."""
     params, q = served
     engine = build_engine(
         params,
         sched=SchedulerConfig(dynamic_batch=True, min_batch=2),
         policy=DegradePolicy(ladder=({"n_probe": 2},), deadline_s=10.0),
     )
+    compiled = lider.query_path_cache_size()
+    assert compiled > 0  # the counter sees the warmed signatures
     for depth in (1, 2, 3, 5, 8, 13, 16, 27):
         rids = [engine.submit(v) for v in q[:depth]]
         engine.drain()
         for r in rids:
             assert isinstance(engine.result(r), QueryResult)
+    assert lider.query_path_cache_size() == compiled
     assert engine.recompiles == 0
     assert set(engine.stats.batch_size_trace) <= set(engine.scheduler.ladder)
 

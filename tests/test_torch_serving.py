@@ -327,10 +327,13 @@ def test_engine_autotunes_block_q_without_recompile(data, host_index):
         batch_size=16, k=10, dim=D, params=host_index, block_q_ladder=ladder,
     )
     eng.warmup()
+    before = lider.query_path_cache_size()
+    assert before > 0
     rng = np.random.default_rng(0)
     hot = q[:1].numpy() + 1e-3 * rng.normal(size=(48, D))
     hot = (hot / np.linalg.norm(hot, axis=-1, keepdims=True)).astype(np.float32)
     got = ids_of(serve(eng, hot))
+    assert lider.query_path_cache_size() == before  # no new signature while adapting
     np.testing.assert_array_equal(got, _search(host_index, torch.from_numpy(hot)).ids.numpy())
     s = eng.stats
     assert eng.recompiles == 0
@@ -369,6 +372,8 @@ def test_host_only_update_does_not_recompile(data):
     )
     eng = _host_engine(ph)
     eng.warmup()
+    before = lider.query_path_cache_size()
+    assert before > 0
 
     def host_only(params):
         st = params.bank.store
@@ -378,6 +383,8 @@ def test_host_only_update_does_not_recompile(data):
     assert not eng.apply_updates(host_only)
     assert eng.recompiles == 0 and eng.device_generation == 0
     assert eng.host_generation == 1 and eng.generation == 1
+    serve(eng, x[:16])
+    assert lider.query_path_cache_size() == before
 
 
 def test_generations_split_on_mixed_update(data):
