@@ -261,7 +261,20 @@ Phases, each printing its lines; any failure exits non-zero:
                blocks of 1,024 seeds at fanout (15, 10) (shapes checked,
                the first block's every edge found in the graph); ms a step,
                peak memory.
-14. kernels  — one JSON line with an entry per kernel (the build kernels'
+14. dryrun   — ``python -m repro_torch.launch.dryrun``'s single-pod sweep
+               (39 ok, 4 skipped, bytes accessed counted in each), then
+               three cells this run measured rebuilt by the dry run: their
+               peaks, argument and collective bytes against the readings,
+               and the same steps run again under the dry run's counters on
+               the card's real tensors, FLOPs, bytes accessed and
+               collectives equal to the fake run's (and, for the two LM
+               cells, to the dry run on fake CPU tensors, whose backward
+               runs on the calling thread), each beside its roofline time
+               and the measured step; each kernel's shape-only output and
+               reported (FLOPs, bytes) == its launch's at every distinct
+               main-path shape, == the build kernels' count and >= the
+               verification kernels' count of distinct valid rows.
+15. kernels  — one JSON line with an entry per kernel (the build kernels'
                calls include the baselines', the encoder's and the
                two-tower's shapes, and the verification kernels' the
                encoder's, the two-tower's, the distributed ranks'
@@ -1441,14 +1454,19 @@ def verify_counts(name: str, args, kw) -> tuple:
     return distinct, pairs, row_bytes, id_bytes + q.numel() * 4 + b * k * 8, per_pair, peak
 
 
-def bound(name: str, args, kw) -> tuple[float, str]:
-    """Least time for the call: each input read once and each output
-    written once over the memory rate, or the operations over the peak rate
-    of their type, whichever is larger. Rows count once per distinct valid
-    row (with their scale on quantized tables), id arrays and queries once.
+def value_counts(name: str, args, kw) -> tuple[int, int, float]:
+    """``(bytes, operations, the peak rate of their type)`` a verification
+    call must move and do. Rows count once per distinct valid row (with
+    their scale on quantized tables), id arrays and queries once.
     Operations: 2d per distinct (query, candidate row) pair for a dot
     product, 2w per pair for a w-word XOR + popcount; for the grouped
-    kernel 2d per (slot, candidate row) of the schedule."""
+    kernel 2d per (slot, candidate row) of the schedule.
+
+    These counts read the call's values (distinct valid rows, live slots),
+    which the kernel table's bounds are made of. The dry run's cost
+    (``kernels/cost.py``) has shapes only, so it counts every candidate as
+    valid and distinct, the work of the plain version and the reference:
+    never less than this (``phase_dryrun`` holds it so)."""
     if name == "fused_verify_grouped":
         embs, _, q, sched_cids, sched_qids, slot_ids = args
         c, lp, d_store = embs.shape
@@ -1464,6 +1482,14 @@ def bound(name: str, args, kw) -> tuple[float, str]:
     else:
         distinct, pairs, row_bytes, other_bytes, per_pair, peak = verify_counts(name, args, kw)
         n_bytes, ops = distinct * row_bytes + other_bytes, per_pair * pairs
+    return n_bytes, ops, peak
+
+
+def bound(name: str, args, kw) -> tuple[float, str]:
+    """Least time for the call: each input read once and each output
+    written once over the memory rate, or the operations over the peak rate
+    of their type, whichever is larger (:func:`value_counts`)."""
+    n_bytes, ops, peak = value_counts(name, args, kw)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1632,6 +1658,18 @@ def phase_shapes_distinct(dev) -> None:
               reps=5, chunk=8)
 
 
+def build_counts(name: str, args, kw) -> tuple[int, int]:
+    """``(operations, bytes)`` of one ``lsh_hash`` or ``kmeans_assign`` call,
+    the dry run's (``kernels/cost.py``): a build call's every row is valid
+    and distinct, so the kernel table's count and the dry run's are one."""
+    from repro_torch.kernels import cost
+
+    x, other = args[0], args[1]
+    if name == "lsh_hash":
+        return cost.lsh_hash(*x.shape, kw["n_arrays"], kw["key_len"], x.element_size())
+    return cost.kmeans_assign(x.shape[0], *other.shape)
+
+
 def build_call_model(name: str, args, kw):
     """``(the cuBLAS product alone, bound ms, bound_by, shape)`` of one
     ``lsh_hash`` or ``kmeans_assign`` call. Bound: the operations the
@@ -1640,21 +1678,19 @@ def build_call_model(name: str, args, kw):
     written once), whichever is larger. Both kernels run three TF32
     products (split TF32) on the tensor cores, 2 d per output each;
     ``shape["f32_bound_ms"]`` gives one float32 product on the CUDA cores
-    beside it."""
+    beside it. The operations and bytes are :func:`build_counts`."""
     x = args[0]
     n, d = x.shape
+    ops, n_bytes = build_counts(name, args, kw)
     if name == "lsh_hash":
         proj = args[1]
-        h, m = kw["n_arrays"], kw["key_len"]
         product = lambda: x.to(torch.float32) @ proj
-        n_bytes, ops = x.numel() * x.element_size() + proj.numel() * 4 + n * h * 4, 2 * n * d * h * m
-        shape = {"N": n, "d": d, "H": h, "M": m, "rows": str(x.dtype).removeprefix("torch.")}
+        shape = {"N": n, "d": d, "H": kw["n_arrays"], "M": kw["key_len"],
+                 "rows": str(x.dtype).removeprefix("torch.")}
     else:
         cen = args[1]
-        c = cen.shape[0]
         product = lambda: x @ cen.T
-        n_bytes, ops = (x.numel() + cen.numel()) * 4 + n * 8, 2 * n * c * d
-        shape = {"N": n, "c": c, "d": d}
+        shape = {"N": n, "c": cen.shape[0], "d": d}
     t_ops = 3 * ops / PEAK_OPS["tf32"]
     shape["f32_bound_ms"] = max(n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS[torch.float32]) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S
@@ -3072,9 +3108,10 @@ def dist_role(name: str, args, kw, first: bool) -> str:
 
 def search_reading(grid, search, shard, qb) -> dict:
     """One batch of a sharded search read as the dry run predicts it: the
-    rank's collectives by kind, the bytes of its shard's leaves, and its
-    peak device memory over the batch past what was allocated before it
-    (``temp_bytes``)."""
+    rank's collectives by kind, the bytes of its shard's leaves, its peak
+    device memory over the batch past what was allocated before it
+    (``temp_bytes``), and the batch's milliseconds from a device sync to a
+    device sync (the four ranks share the card)."""
     from repro_torch.core import distributed as D
 
     torch.cuda.synchronize()
@@ -3082,12 +3119,51 @@ def search_reading(grid, search, shard, qb) -> dict:
     kinds = copy.deepcopy(grid.comm_by_kind)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     search(shard, qb)
     torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
     temp = torch.cuda.max_memory_allocated() - base
     grid.barrier()
-    return {"comm": comm_since(grid, kinds), "temp_bytes": temp,
+    return {"comm": comm_since(grid, kinds), "temp_bytes": temp, "ms": ms,
             "shard_bytes": sum(t.numel() * t.element_size() for t in D.named_leaves(shard).values())}
+
+
+def dist_cell(ds: dict):
+    """(arch, shape) of the F32 sharded search as the dry run rebuilds it:
+    ``lider-msmarco`` at the capacity and key lengths of the distributed
+    phase's index (``ds``), a batch of BATCH on the DIST grid."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.lider_msmarco import CONFIG, RetrievalArchConfig
+
+    rcfg = RetrievalArchConfig(
+        lider=dataclasses.replace(CONFIG.lider, key_len=ds["key_len"],
+                                  key_len_centroid=ds["key_len_centroid"]),
+        corpus_size=CONFIG.corpus_size, dim=CONFIG.dim, capacity=ds["capacity"], k=CONFIG.k)
+    return (dataclasses.replace(get_arch("lider-msmarco"), config=rcfg),
+            ShapeSpec("serve_2x2", "retrieval_serve", {"batch": BATCH}))
+
+
+def real_search_counts(dev, ds: dict, params, qb) -> dict:
+    """The dry run's counters over the F32 sharded search on the card's
+    real tensors: rank 0 of a fake 2x2 world (its collectives hand a rank
+    its own block back) on rank 0's shard of ``params`` and its block of
+    the batch ``qb``, the query path's entries as their plain bodies."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.testing import uncaptured
+
+    arch, shape = dist_cell(ds)
+    with mesh.fake_world(DIST.grid[0] * DIST.grid[1]):
+        grid = mesh.make_grid(DIST.grid, device=dev)
+        shard = D.shard_lider_params(grid, params, ("data",))
+        with uncaptured():
+            rec = dryrun.measure(arch, shape, grid, device=dev, fake=False,
+                                 args=(shard, D.shard_rows(grid, qb, ("model",))),
+                                 capacity_factor=DIST.capacity_factor)
+    del shard
+    return {"cost": rec["cost"], "comm": rec["collectives"]}
 
 
 def dist_rank(world, payload) -> dict:
@@ -3423,6 +3499,7 @@ def phase_distributed(dev, main, smi: str) -> dict:
     dry = {"search": [r["points"]["F32"]["dryrun"] for r in ranks],
            "capacity": f32.bank.capacity, "key_len": f32.bank.lsh.key_len,
            "key_len_centroid": f32.centroid_cm.lsh.key_len}
+    dry["real"] = real_search_counts(dev, dry, f32, batches[0])
     del ranks, payload, f32
     torch.cuda.ipc_collect()
 
@@ -4853,11 +4930,22 @@ DRY_PEAK_REL = 0.10
 
 def shape_checks(calls) -> list[dict]:
     """Each recorded kernel call of a distinct shape run again, by its
-    wrapper (a launch outside every counted window) and by its ``ops``
-    entry on ``FakeTensor`` copies of the same arguments (the dry run's
-    shape-only branch): their outputs' shapes, dtypes and devices."""
+    ``ops`` entry on the real arguments (a launch outside every counted
+    window) and on ``FakeTensor`` copies of them (the dry run's shape-only
+    branch): their outputs' shapes, dtypes and devices, and the
+    ``(flops, bytes)`` each reports to the dry run's counter, beside the
+    kernel table's count of the same call (``least``: :func:`value_counts`
+    of the call's values for a verification kernel, :func:`build_counts`
+    for a build kernel)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import counting
     from repro_torch.kernels import ops
+
+    def reported(fn, *a, **k):
+        tally = []
+        with counting.counting(types.SimpleNamespace(add=lambda *c: tally.append(c))):
+            res = fn(*a, **k)
+        return res, [sum(c[0] for c in tally), sum(c[1] for c in tally)]
 
     op = {"fused_verify": ops.verify_topk_op, "sketch_prefilter": ops.sketch_topk_op,
           "fused_verify_grouped": ops.verify_topk_grouped_op, "lsh_hash": ops.lsh_hash_op,
@@ -4871,11 +4959,20 @@ def shape_checks(calls) -> list[dict]:
         if key in seen:
             continue
         seen.add(key)
-        real = sig(wrappers()[name](*args, **kw))
+        res, real_cost = reported(op[name], *args, **kw)
+        real = sig(res)
         with FakeTensorMode() as mode:
             fake = lambda v: mode.from_tensor(v) if isinstance(v, torch.Tensor) else v  # noqa: E731
-            got = sig(op[name](*[fake(a) for a in args], **{k: fake(v) for k, v in kw.items()}))
-        out.append({"kernel": name, "args": [desc(a) for a in args], "real": real, "fake": got})
+            res, fake_cost = reported(op[name], *[fake(a) for a in args],
+                                      **{k: fake(v) for k, v in kw.items()})
+            got = sig(res)
+        if name in ("lsh_hash", "kmeans_assign"):
+            least = list(build_counts(name, args, kw))
+        else:
+            n_bytes, n_ops, _ = value_counts(name, args, kw)
+            least = [n_ops, n_bytes]
+        out.append({"kernel": name, "args": [desc(a) for a in args], "real": real, "fake": got,
+                    "real_cost": real_cost, "fake_cost": fake_cost, "least": least})
     torch.cuda.synchronize()
     return out
 
@@ -4905,15 +5002,73 @@ def _dry_line(what: str, pred: dict, meas: dict) -> tuple[str, list[str]]:
     return f"{what}: " + "; ".join(parts) + (f" -> MISSED {missed}" if missed else " -> met"), missed
 
 
+def _counts_line(what: str, rec: dict, real: dict, step_ms=None, cpu=None) -> tuple[str, list[str]]:
+    """A cell's dry-run counts (``rec``, fake tensors) against the same step
+    run on the card's real tensors (``real``: ``cost`` and ``comm``) and,
+    where given, the dry run on fake CPU tensors (``cpu``, the same keys),
+    FLOPs, bytes accessed and collectives held equal; beside them the
+    counts' roofline time, max(FLOPs / the bf16 peak, bytes / the memory
+    rate), and the step this run measured, where given (printed, not
+    held)."""
+    c, rc = rec["cost"], real["cost"]
+    t_ops, t_bytes = c["flops"] / PEAK_OPS[torch.bfloat16], c["bytes_accessed"] / PEAK_BYTES_PER_S
+    others = [("on the card's real tensors", real)] + ([("on fake CPU tensors", cpu)] if cpu else [])
+    same = all(o["cost"] == c and o["comm"] == rec["collectives"] for _, o in others)
+    line = (f"{what}: counted {c['flops']:.0f} FLOPs, {c['bytes_accessed']:.0f} bytes accessed; "
+            + "; ".join(f"{label} {o['cost']['flops']:.0f}, {o['cost']['bytes_accessed']:.0f}, "
+                        f"collectives {'equal' if o['comm'] == rec['collectives'] else o['comm']}"
+                        for label, o in others)
+            + "; roofline "
+            f"max(FLOPs / 989e12, bytes / 3.35e12) = {max(t_ops, t_bytes) * 1e3:.4f} ms (by "
+            f"{'FLOPs' if t_ops >= t_bytes else 'bytes'})"
+            + ("" if step_ms is None else f", measured step {step_ms:.3f} ms"))
+    return line + (" -> met" if same else " -> MISSED"), [] if same else [f"{what}: counts"]
+
+
+def dry_lm_cells(dev) -> dict:
+    """The two LM cells the dryrun phase rebuilds, each run by the dry run
+    on fake tensors and again on the card's real ones: ``{"full": qwen2.5-3b
+    at full width, 1 x 512, one rank; "sharded": its widths at SHARDED.layers
+    layers on the SHARDED grid, rank 0 of a fake world}``, each ``(record,
+    {"cost", "comm"} on real tensors, {"cost", "comm"} of the same dry run on
+    fake CPU tensors)``. The CPU run's backward runs on the calling thread,
+    the card's on autograd's device thread: their counts agree only if the
+    collectives of that thread's backward report to the counter."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, mesh
+
+    qwen = get_arch("qwen2.5-3b")
+    lm_cfg, _ = sharded_configs()
+    cells = {"full": ((1, 1), ShapeSpec("train_1x512", "train", {"seq_len": 512, "global_batch": 1}),
+                      {}),
+             "sharded": (SHARDED.grid, ShapeSpec("train_sharded", "train", {
+                 "seq_len": SHARDED.seq, "global_batch": SHARDED.batch}), {"cfg": lm_cfg})}
+    out = {}
+    for key, (shape_2d, shape, knobs) in cells.items():
+        with mesh.fake_world(shape_2d[0] * shape_2d[1]):
+            grid = mesh.make_grid(shape_2d, device=dev)
+            rec = dryrun.measure(qwen, shape, grid, grad_accum=1, **knobs)
+            real = dryrun.measure(qwen, shape, grid, grad_accum=1, fake=False, **knobs)
+            cpu = dryrun.measure(qwen, shape, mesh.make_grid(shape_2d, device="cpu"),
+                                 device="cpu", grad_accum=1, **knobs)
+        out[key] = (rec, {"cost": real["cost"], "comm": real["collectives"]},
+                    {"cost": cpu["cost"], "comm": cpu["collectives"]})
+        del real
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_dryrun(smi: str, readings: dict, checks: list[dict]) -> dict:
     """(i) The dry run of every cell on the single-pod production grid
     (rank 0 of a fake 256-rank world, worker processes side by side); (ii)
     the dry run's predictions for three cells this run measured, rebuilt
-    with the same configuration; (iii) each kernel's shape-only output
-    against the real kernel's at the main path's shapes."""
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.configs.lider_msmarco import CONFIG, RetrievalArchConfig
+    with the same configuration, and the same three steps run again under
+    the dry run's counters on the card's real tensors (FLOPs, bytes and
+    collectives equal to the fake run's; the LM cells' also to the fake
+    CPU run's); (iii) each kernel's shape-only output and reported cost
+    against the real kernel's at the main path's shapes, and the cost
+    against the kernel table's count of the call."""
     from repro_torch.launch import dryrun, mesh, steps
 
     t_phase = time.perf_counter()
@@ -4937,28 +5092,27 @@ def phase_dryrun(smi: str, readings: dict, checks: list[dict]) -> dict:
     if n["failed"] or n["ok"] != 39 or n["skipped"] != 4:
         raise AssertionError(f"dry run: {n}; failed: "
                              + "; ".join(r["error"] for r in recs if r["status"] == "failed"))
+    unread = [f"{r['arch']} x {r['shape']}" for r in recs if r["status"] == "ok"
+              and not r["cost"]["bytes_accessed"] > 0]
+    if unread:
+        raise AssertionError(f"dry run: no bytes accessed counted in {unread}")
 
-    # (ii) Predictions against this run's readings.
+    # (ii) Predictions against this run's readings; the counts on real tensors.
     dev = dryrun.dry_device()
     lines, missed = [], []
-    qwen = get_arch("qwen2.5-3b")
-    with mesh.fake_world(1):
-        grid = mesh.make_grid((1, 1), device=dev)
-        shape = ShapeSpec("train_1x512", "train", {"seq_len": 512, "global_batch": 1})
-        rec = dryrun.measure(qwen, shape, grid, grad_accum=1)
-    line, miss = _dry_line(
-        "qwen2.5-3b full width, 1 x 512, one rank (train phase)",
-        {"peak": rec["memory"]["peak_bytes"]}, {"peak": readings["train_full"]["peak_bytes"]})
+    lm = dry_lm_cells(dev)
+    what = "qwen2.5-3b full width, 1 x 512, one rank (train phase)"
+    rec, real, cpu = lm["full"]
+    line, miss = _dry_line(what, {"peak": rec["memory"]["peak_bytes"]},
+                           {"peak": readings["train_full"]["peak_bytes"]})
+    lines.append(line)
+    missed += miss
+    line, miss = _counts_line(what, rec, real, readings["train_full"]["step_ms"], cpu)
     lines.append(line)
     missed += miss
 
     sh = readings["models_sharded"]
-    lm_cfg, _ = sharded_configs()
-    with mesh.fake_world(4):
-        grid = mesh.make_grid(SHARDED.grid, device=dev)
-        shape = ShapeSpec("train_sharded", "train",
-                          {"seq_len": SHARDED.seq, "global_batch": SHARDED.batch})
-        rec = dryrun.measure(qwen, shape, grid, cfg=lm_cfg, grad_accum=1)
+    rec, real, cpu = lm["sharded"]
     for r, (steps_r, peak) in enumerate(zip(sh["train"], sh["peak_bytes"])):
         if any(s["comm_kinds"] != steps_r[0]["comm_kinds"] for s in steps_r):
             raise AssertionError(f"models_sharded rank {r}: the steps' collectives differ")
@@ -4968,14 +5122,15 @@ def phase_dryrun(smi: str, readings: dict, checks: list[dict]) -> dict:
             {"peak": peak, "comm": steps_r[0]["comm_kinds"]})
         lines.append(line)
         missed += miss
+    line, miss = _counts_line(
+        f"qwen2.5-3b widths at {SHARDED.layers} layers, 2x2 grid, rank 0 (models_sharded)", rec,
+        real, statistics.median(s["s"] for s in sh["train"][0]) * 1e3, cpu)
+    lines.append(line)
+    missed += miss
 
     ds = readings["distributed"]
-    rcfg = RetrievalArchConfig(
-        lider=dataclasses.replace(CONFIG.lider, key_len=ds["key_len"],
-                                  key_len_centroid=ds["key_len_centroid"]),
-        corpus_size=CONFIG.corpus_size, dim=CONFIG.dim, capacity=ds["capacity"], k=CONFIG.k)
-    arch = dataclasses.replace(get_arch("lider-msmarco"), config=rcfg)
-    shape = ShapeSpec("serve_2x2", "retrieval_serve", {"batch": BATCH})
+    arch, shape = dist_cell(ds)
+    rcfg = arch.config
     with mesh.fake_world(4):
         grid = mesh.make_grid(DIST.grid, device=dev)
         rec = dryrun.measure(arch, shape, grid, capacity_factor=DIST.capacity_factor)
@@ -4985,24 +5140,35 @@ def phase_dryrun(smi: str, readings: dict, checks: list[dict]) -> dict:
                                        capacity_factor=DIST.capacity_factor)
             shard_bytes = steps.nbytes(steps.arg_tensors(bundle.args[0]))
             q_bytes = steps.nbytes(steps.arg_tensors(bundle.args[1]))
+    what = (f"F32 sharded search, 2x2 grid, c {rcfg.lider.n_clusters}, Lp {rcfg.capacity}, rank "
+            "{} (distributed), a batch of 256")
     for r, got in enumerate(ds["search"]):
         line, miss = _dry_line(
-            f"F32 sharded search, 2x2 grid, c {rcfg.lider.n_clusters}, Lp {rcfg.capacity}, rank {r} "
-            "(distributed), a batch of 256",
+            what.format(r),
             {"args": shard_bytes, "comm": rec["collectives"], "peak": rec["memory"]["peak_bytes"],
              "temp": rec["memory"]["temp_bytes"]},
             {"args": got["shard_bytes"], "comm": got["comm"],
              "peak": got["temp_bytes"] + got["shard_bytes"] + q_bytes, "temp": got["temp_bytes"]})
         lines.append(line)
         missed += miss
+    line, miss = _counts_line(what.format(0), rec, ds["real"], ds["search"][0]["ms"])
+    lines.append(line)
+    missed += miss
     for line in lines:
         log("dryrun", f"{line} ({smi})")
 
     # (iii) The shape-only branches against the kernels.
     kinds = sorted({c["kernel"] for c in checks})
-    bad = [c for c in checks if c["real"] != c["fake"]]
-    log("dryrun", f"shape-only outputs == the kernels' outputs at {len(checks)} distinct main-path "
-        f"shapes of {', '.join(kinds)}: {not bad}")
+    def cost_ok(c) -> bool:  # one cost from both branches, never below the table's count
+        build = c["kernel"] in ("lsh_hash", "kmeans_assign")
+        return c["real_cost"] == c["fake_cost"] and all(
+            got == want if build else got >= want for got, want in zip(c["fake_cost"], c["least"]))
+
+    bad = [c for c in checks if c["real"] != c["fake"] or not cost_ok(c)]
+    log("dryrun", f"shape-only outputs and reported (FLOPs, bytes) == the kernels' at "
+        f"{len(checks)} distinct main-path shapes of {', '.join(kinds)}, each cost == the "
+        f"build kernels' and >= the verification kernels' count of distinct valid rows: "
+        f"{not bad}")
     if bad or set(kinds) != set(KERNELS):
         raise AssertionError(f"dry run shape branches: {bad or set(KERNELS) - set(kinds)}")
     if missed:

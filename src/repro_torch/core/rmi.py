@@ -28,13 +28,19 @@ class RMIParams:
     n_leaves: int
 
     def take(self, idx: torch.Tensor) -> "RMIParams":
-        """Per-index models out of a stacked bank: leading axis gathered."""
-        return RMIParams(
-            root_w=self.root_w[idx], root_b=self.root_b[idx],
-            leaf_w=self.leaf_w[idx], leaf_b=self.leaf_b[idx],
-            length=self.length[idx], max_err=self.max_err[idx],
-            n_leaves=self.n_leaves,
-        )
+        """Per-index models out of a stacked bank (:func:`gather_banked`)."""
+        return gather_banked(self, idx)
+
+
+def gather_banked(params: RMIParams, idx: torch.Tensor) -> RMIParams:
+    """Per-index models out of a stacked bank: leaves ``(c, ...)`` ->
+    ``idx.shape + (...,)``. The output feeds :func:`predict_banked`."""
+    return RMIParams(
+        root_w=params.root_w[idx], root_b=params.root_b[idx],
+        leaf_w=params.leaf_w[idx], leaf_b=params.leaf_b[idx],
+        length=params.length[idx], max_err=params.max_err[idx],
+        n_leaves=params.n_leaves,
+    )
 
 
 def _wls(x, y, w):
@@ -131,10 +137,25 @@ def predict_banked(params: RMIParams, x: torch.Tensor) -> torch.Tensor:
     pred = torch.minimum(torch.clamp(params.root_w * x + params.root_b, min=0.0), hi)
     leaf = torch.floor(pred * params.n_leaves / torch.clamp(params.length, min=1.0))
     leaf = torch.clamp(leaf.to(torch.int64), 0, params.n_leaves - 1)
+    lw, lb = _leaf_wb(params, x, leaf)
+    return torch.minimum(torch.clamp(lw * x + lb, min=0.0), hi)
+
+
+def _leaf_wb(params: RMIParams, x: torch.Tensor, leaf: torch.Tensor):
     shape = x.shape + (params.n_leaves,)
     lw = torch.gather(params.leaf_w.expand(shape), -1, leaf[..., None])[..., 0]
     lb = torch.gather(params.leaf_b.expand(shape), -1, leaf[..., None])[..., 0]
-    return torch.minimum(torch.clamp(lw * x + lb, min=0.0), hi)
+    return lw, lb
+
+
+def predict_raw(params: RMIParams, x: torch.Tensor) -> torch.Tensor:
+    """The leaf models' prediction unclipped (the Table 4 out-of-range
+    diagnostics); ``params`` broadcast against ``x`` as in
+    :func:`predict_banked`, so one fitted array's params take keys of any
+    shape."""
+    leaf = _leaf_of(params.root_w, params.root_b, x, params.length, params.n_leaves)
+    lw, lb = _leaf_wb(params, x, leaf)
+    return lw * x + lb
 
 
 def predict(params: RMIParams, x: torch.Tensor) -> torch.Tensor:

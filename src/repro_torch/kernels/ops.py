@@ -5,17 +5,22 @@ fall-back: a CUDA call the kernel refuses raises.
 A tensor that holds no values (a ``FakeTensor``, as the dry run runs its
 steps, or a meta tensor) takes a shape-only branch: empty outputs of the
 kernel's shapes and dtypes on the input's device, and no launch counted.
-There is nothing to compute, on any device."""
+There is nothing to compute, on any device.
+
+Under a counter (``repro_torch/counting.py``) each wrapper reports its
+call's cost from shapes and dtypes (``kernels/cost.py``), the same from
+every branch, and the counter counts none of the wrapper's own ops."""
 from __future__ import annotations
 
 import torch
 
+from .. import counting
 from ..device import is_fake
 
 from . import fused_verify as _fv
 from . import kmeans_assign as _km
 from . import lsh_hash as _lsh
-from . import quant, ref
+from . import cost, quant, ref
 from .fused_verify import _workspace, grouped_scratch
 
 
@@ -44,6 +49,10 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
+def _separate(out_ids, row_ids) -> bool:
+    return out_ids is not None and out_ids is not row_ids
+
+
 def verify_topk_op(
     embs: torch.Tensor,
     row_ids: torch.Tensor,
@@ -61,28 +70,31 @@ def verify_topk_op(
     and bfloat16 tables; with ``scales`` an int8 code table (packed int4
     with ``code_dtype="int4"``) scored in the exact integer domain.
     """
-    fake = is_fake(embs) or is_fake(row_ids)
-    if not fake and _on_cpu(embs, "verification"):
-        return ref.verify_topk_ref(
-            embs, row_ids, queries, k=k, out_ids=out_ids, scales=scales,
+    with counting.kernel(lambda: cost.fused_verify(
+            *row_ids.shape, queries.shape[-1], k, cost.row_bytes(embs, scales),
+            out_ids=_separate(out_ids, row_ids))):
+        fake = is_fake(embs) or is_fake(row_ids)
+        if not fake and _on_cpu(embs, "verification"):
+            return ref.verify_topk_ref(
+                embs, row_ids, queries, k=k, out_ids=out_ids, scales=scales,
+                code_dtype=code_dtype,
+            )
+        row_ids = _i32(row_ids)
+        out_ids = row_ids if out_ids is None else _i32(out_ids)
+        queries = queries.to(torch.float32).contiguous()
+        if fake:
+            b, c = row_ids.shape
+            return _topk_shape(embs, (b,), k, lambda: _workspace(b, c, k, embs.device),
+                               *(() if scales is None else (lambda: quant.quantize_rows(queries),)))
+        return _fv.fused_verify(
+            embs.contiguous(),
+            row_ids,
+            queries,
+            k=k,
+            out_ids=out_ids,
+            scales=None if scales is None else scales.to(torch.float32).contiguous(),
             code_dtype=code_dtype,
         )
-    row_ids = _i32(row_ids)
-    out_ids = row_ids if out_ids is None else _i32(out_ids)
-    queries = queries.to(torch.float32).contiguous()
-    if fake:
-        b, c = row_ids.shape
-        return _topk_shape(embs, (b,), k, lambda: _workspace(b, c, k, embs.device),
-                           *(() if scales is None else (lambda: quant.quantize_rows(queries),)))
-    return _fv.fused_verify(
-        embs.contiguous(),
-        row_ids,
-        queries,
-        k=k,
-        out_ids=out_ids,
-        scales=None if scales is None else scales.to(torch.float32).contiguous(),
-        code_dtype=code_dtype,
-    )
 
 
 def sketch_topk_op(
@@ -95,17 +107,19 @@ def sketch_topk_op(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Binary-sketch pre-filter -> deduplicated top-k survivor rows, scored
     by negated Hamming distance (``sketch_prefilter`` on the card)."""
-    fake = is_fake(sketches) or is_fake(row_ids)
-    if not fake and _on_cpu(sketches, "sketch pre-filter"):
-        return ref.sketch_topk_ref(sketches, row_ids, queries, k=k, out_ids=out_ids)
-    row_ids = _i32(row_ids)
-    out_ids = row_ids if out_ids is None else _i32(out_ids)
-    queries = queries.to(torch.float32).contiguous()
-    if fake:
-        b, c = row_ids.shape
-        return _topk_shape(sketches, (b,), k, lambda: _workspace(b, c, k, sketches.device),
-                           lambda: quant.sketch_rows(queries))
-    return _fv.sketch_prefilter(sketches.contiguous(), row_ids, queries, k=k, out_ids=out_ids)
+    with counting.kernel(lambda: cost.sketch_prefilter(
+            *row_ids.shape, queries.shape[-1], k, out_ids=_separate(out_ids, row_ids))):
+        fake = is_fake(sketches) or is_fake(row_ids)
+        if not fake and _on_cpu(sketches, "sketch pre-filter"):
+            return ref.sketch_topk_ref(sketches, row_ids, queries, k=k, out_ids=out_ids)
+        row_ids = _i32(row_ids)
+        out_ids = row_ids if out_ids is None else _i32(out_ids)
+        queries = queries.to(torch.float32).contiguous()
+        if fake:
+            b, c = row_ids.shape
+            return _topk_shape(sketches, (b,), k, lambda: _workspace(b, c, k, sketches.device),
+                               lambda: quant.sketch_rows(queries))
+        return _fv.sketch_prefilter(sketches.contiguous(), row_ids, queries, k=k, out_ids=out_ids)
 
 
 def verify_topk_grouped_op(
@@ -121,21 +135,24 @@ def verify_topk_grouped_op(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cluster-major verification -> per-(step, slot) dedup top-k'
     (``fused_verify_grouped`` on the card); quantized banks only."""
-    fake = is_fake(embs) or is_fake(step_slot_ids)
-    if not fake and _on_cpu(embs, "grouped verification"):
-        return ref.verify_topk_grouped_ref(
-            embs, row_scales, queries, sched_cids, sched_qids, step_slot_ids,
-            kp=kp, code_dtype=code_dtype,
-        )
-    args = (embs.contiguous(), row_scales.to(torch.float32).contiguous(),
-            queries.to(torch.float32).contiguous(), _i32(sched_cids), _i32(sched_qids),
-            _i32(step_slot_ids))
-    if fake:
-        s_steps, block_q, lp = step_slot_ids.shape
-        scratch = grouped_scratch(s_steps, block_q, lp)
-        return _topk_shape(embs, (s_steps, block_q), kp, lambda: quant.quantize_rows(args[2]),
-                           lambda: torch.empty((scratch,), dtype=torch.float32, device=embs.device))
-    return _fv.fused_verify_grouped(*args, kp=kp, code_dtype=code_dtype)
+    with counting.kernel(lambda: cost.fused_verify_grouped(
+            *step_slot_ids.shape, *queries.shape, kp, cost.row_bytes(embs, row_scales))):
+        fake = is_fake(embs) or is_fake(step_slot_ids)
+        if not fake and _on_cpu(embs, "grouped verification"):
+            return ref.verify_topk_grouped_ref(
+                embs, row_scales, queries, sched_cids, sched_qids, step_slot_ids,
+                kp=kp, code_dtype=code_dtype,
+            )
+        args = (embs.contiguous(), row_scales.to(torch.float32).contiguous(),
+                queries.to(torch.float32).contiguous(), _i32(sched_cids), _i32(sched_qids),
+                _i32(step_slot_ids))
+        if fake:
+            s_steps, block_q, lp = step_slot_ids.shape
+            scratch = grouped_scratch(s_steps, block_q, lp)
+            return _topk_shape(embs, (s_steps, block_q), kp, lambda: quant.quantize_rows(args[2]),
+                               lambda: torch.empty((scratch,), dtype=torch.float32,
+                                                   device=embs.device))
+        return _fv.fused_verify_grouped(*args, kp=kp, code_dtype=code_dtype)
 
 
 def lsh_hash_op(
@@ -146,13 +163,15 @@ def lsh_hash_op(
     they are; any other float type is widened to float32 first."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.to(torch.float32)
-    fake = is_fake(x)
-    if not fake and _on_cpu(x, "LSH hash"):
-        return ref.lsh_hash_ref(x, proj, n_arrays=n_arrays, key_len=key_len)
-    x, proj = x.contiguous(), proj.to(torch.float32).contiguous()
-    if fake:  # the kernel writes int32 keys, widened to int64
-        return torch.empty((x.shape[0], n_arrays), dtype=torch.int32, device=x.device).to(torch.int64)
-    return _lsh.lsh_hash(x, proj, n_arrays=n_arrays, key_len=key_len)
+    with counting.kernel(lambda: cost.lsh_hash(*x.shape, n_arrays, key_len, x.element_size())):
+        fake = is_fake(x)
+        if not fake and _on_cpu(x, "LSH hash"):
+            return ref.lsh_hash_ref(x, proj, n_arrays=n_arrays, key_len=key_len)
+        x, proj = x.contiguous(), proj.to(torch.float32).contiguous()
+        if fake:  # the kernel writes int32 keys, widened to int64
+            return torch.empty((x.shape[0], n_arrays), dtype=torch.int32,
+                               device=x.device).to(torch.int64)
+        return _lsh.lsh_hash(x, proj, n_arrays=n_arrays, key_len=key_len)
 
 
 def kmeans_assign_op(
@@ -164,19 +183,20 @@ def kmeans_assign_op(
     build the (N, c) distances); the plain version runs ``chunk`` rows at
     a time so its (chunk, c) distances stay small.
     """
-    x = x.to(torch.float32)
-    centroids = centroids.to(torch.float32)
-    if is_fake(x):
+    with counting.kernel(lambda: cost.kmeans_assign(x.shape[0], *centroids.shape)):
+        x = x.to(torch.float32)
+        centroids = centroids.to(torch.float32)
+        if is_fake(x):
+            n = x.shape[0]
+            return (torch.empty((n,), dtype=torch.int32, device=x.device),
+                    torch.empty((n,), dtype=torch.float32, device=x.device))
+        if not _on_cpu(x, "k-means assignment"):
+            return _km.kmeans_assign(x.contiguous(), centroids.contiguous())
         n = x.shape[0]
-        return (torch.empty((n,), dtype=torch.int32, device=x.device),
-                torch.empty((n,), dtype=torch.float32, device=x.device))
-    if not _on_cpu(x, "k-means assignment"):
-        return _km.kmeans_assign(x.contiguous(), centroids.contiguous())
-    n = x.shape[0]
-    assign = torch.empty((n,), dtype=torch.int32, device=x.device)
-    min_d = torch.empty((n,), dtype=torch.float32, device=x.device)
-    for s in range(0, n, chunk):
-        assign[s : s + chunk], min_d[s : s + chunk] = ref.kmeans_assign_ref(
-            x[s : s + chunk], centroids
-        )
-    return assign, min_d
+        assign = torch.empty((n,), dtype=torch.int32, device=x.device)
+        min_d = torch.empty((n,), dtype=torch.float32, device=x.device)
+        for s in range(0, n, chunk):
+            assign[s : s + chunk], min_d[s : s + chunk] = ref.kmeans_assign_ref(
+                x[s : s + chunk], centroids
+            )
+        return assign, min_d

@@ -9,37 +9,52 @@ of 256 (or 512) ranks, this process rank 0 of the production grid
 (:func:`~.mesh.make_production_grid`), under a ``FakeTensorMode``, the
 step of :func:`~.steps.make_bundle` runs once on rank 0's own shards
 (``FakeTensor`` s: shapes, dtypes and a device, no memory, no values).
-On the way it reads:
+On the way it reads, in one dispatch mode (:class:`StepCounter`):
 
 - memory: every storage the step makes, live from its first op to its
-  last reference (:class:`MemoryTracker`): ``peak_bytes`` is the largest
+  last reference: ``peak_bytes`` is the largest
   sum of live storages with the arguments counted, ``argument_bytes`` the
   rank's shards, ``temp_bytes`` the peak less them, ``output_bytes`` the
   storages the step returns, and ``fits`` whether the peak fits the card
   (:data:`CARD_BYTES`). Memory that no op allocates (the cuBLAS
   workspace, the CUDA context, the caching allocator's rounding) is not
   in it;
-- ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count of
-  the products and attention (the checkpointed layers' recompute
-  included; not the hand-written kernels' work, which runs no PyTorch
-  product); ``bytes_accessed`` is null (nothing counts it here);
+- ``cost``: XLA's ``cost_analysis()`` for a program that fuses nothing,
+  which is what an eager rank runs. Each dispatched op counts the bytes of
+  its tensor operands and of its results (``bytes_accessed``; a gather
+  counts its whole source, as XLA's does; an in-place op's tensor is read
+  and written) and the FLOPs of ``torch.utils.flop_counter``'s formulas
+  (``flops``: products and attention, the checkpointed layers' recompute
+  included; elementwise ops count none, where XLA counts one a element).
+  Views, metadata and aliasing ops and allocations that read nothing
+  (:func:`op_bytes`) count 0, and so does the autograd engine's store of a
+  new gradient into ``.grad`` (:data:`GRAD_STORE_OPS`). A kernel wrapper reports its call's
+  ``(flops, bytes)`` from shapes alone (``kernels/cost.py``), the same from
+  the launch, the plain version and the shape-only branch, and none of its
+  own ops counts; a collective of the grid counts its input and output
+  once each. The counts cover the whole step as it runs, every layer and
+  micro-batch: the reference's count one loop body, which its
+  ``loop_factor`` corrects, so a roofline must not multiply these by it;
 - ``collectives``: per kind, the calls and the bytes the rank sent in,
   from the grid's accounting (``Grid.comm_by_kind``).
 
 An LM cell runs at depths 1 and 2 (:data:`LM_DEPTHS`), and every count
 is carried to the model's layers: each layer does the same work, so a
-step's memory, FLOPs and collectives are ``a + (L - 1) b``
+step's memory, FLOPs, bytes and collectives are ``a + (L - 1) b``
 (``tests/test_torch_dryrun.py`` holds this equal to a run at full depth).
-Where the step accumulates micro-batches (an LM train cell), it runs two
-of them, and the dry run scales the second's counts to all of them; the
-peak is the second's, the steady state. ``loop_factor`` is the
+Where the step accumulates micro-batches (an LM train cell), it runs
+three of them, and the dry run scales the second's counts to all of them
+(the first's backward makes the gradients, the others add to them); the
+peak is the steady state's. ``loop_factor`` is the
 reference's (layers x micro-batches), for the records to compare.
 
 On a PyTorch built with CUDA the fake tensors are CUDA tensors, so the
 steps take the card's code paths (and the kernels' wrappers their
 shape-only branch); a CPU-only build (no fake CUDA tensor takes Python
 indexing there) runs them as CPU tensors. Each record says which
-(``device``).
+(``device``). :func:`measure` with ``fake=False`` runs the same step on
+real tensors (uninitialised, or the caller's): the same ops dispatch, so it
+counts the same.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--mesh single|multi|both]
@@ -51,6 +66,7 @@ this process may use (:func:`sweep`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -63,6 +79,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from ..configs import ARCHS, get_arch
+from .. import counting
 from . import mesh as mesh_lib
 from .steps import arg_tensors, make_bundle, nbytes
 
@@ -76,17 +93,64 @@ LM_DEPTHS = (1, 2)
 MESHES = {"single": ("single_pod_16x16", False), "multi": ("multi_pod_2x16x16", True)}
 
 
-class MemoryTracker(TorchDispatchMode):
-    """Live storage bytes over a run: each storage an op returns counts
-    from then until it is freed (a finalizer on its storage object), each
-    once however many views share it. ``track`` counts tensors made before
-    the run (the arguments)."""
+# Ops that move no data: allocations that read nothing, and aliasing ops
+# whose schema does not mark them as views (``OpOverload.is_view`` marks the
+# rest: view, expand, t, transpose, permute, slice, select, as_strided, ...).
+FREE_OPS = frozenset({
+    "aten::_unsafe_view", "aten::lift_fresh", "aten::detach", "aten::alias",
+    "aten::empty", "aten::empty_like", "aten::empty_strided", "aten::empty_permuted",
+    "aten::new_empty", "aten::new_empty_strided",
+})
+
+
+# The autograd engine storing a new gradient into ``.grad`` takes the tensor,
+# or copies it where something else still holds it (a collective's work
+# object over gloo, released on its own thread): a matter of timing. XLA's
+# program returns a gradient where it made it, so neither counts; adding into
+# an existing gradient (the micro-batches' accumulation) does.
+GRAD_STORE_OPS = frozenset({"aten::clone", "aten::copy_"})
+
+
+def _stores_a_gradient(func) -> bool:
+    if func._schema.name not in GRAD_STORE_OPS:
+        return False
+    node = torch._C._current_autograd_node()
+    return node is not None and node.name() == "torch::autograd::AccumulateGrad"
+
+
+def op_bytes(func, args, kwargs, out) -> int:
+    """The bytes one op accesses, as XLA counts an unfused instruction: the
+    bytes of its tensor operands and of its results; 0 for views, aliasing
+    ops, allocations (:data:`FREE_OPS`) and ops that return no tensor
+    (metadata: sizes, devices, dtypes)."""
+    if func.is_view or func._schema.name in FREE_OPS:
+        return 0
+    results = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+    if not results:
+        return 0
+    operands = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in operands + results)
+
+
+class StepCounter(TorchDispatchMode):
+    """One pass over a step's ops: live storage bytes (each storage an op
+    returns counts from then until it is freed, a finalizer on its storage
+    object, each once however many views share it; ``track`` counts
+    tensors made before the run, the arguments), and ``flops`` and
+    ``bytes_accessed`` (module docstring). Register it with
+    ``counting.counting`` to receive the kernels' and collectives'
+    reports (:meth:`add`)."""
 
     def __init__(self):
         super().__init__()
+        from torch.utils.flop_counter import flop_registry
+
         self.live = 0
         self.peak = 0
+        self.flops = 0
+        self.bytes_accessed = 0
         self._sizes: dict[int, int] = {}
+        self._flop_fns = flop_registry
 
     def track(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -102,11 +166,21 @@ class MemoryTracker(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self.live -= self._sizes.pop(key, 0)
 
+    def add(self, flops: int, nbytes: int) -> None:
+        self.flops += flops
+        self.bytes_accessed += nbytes
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self.track(t)
+        if not counting.is_hidden() and not _stores_a_gradient(func):
+            flop_fn = self._flop_fns.get(func._overloadpacket)
+            if flop_fn is not None:
+                self.flops += flop_fn(*args, **kwargs, out_val=out)
+            self.bytes_accessed += op_bytes(func, args, kwargs, out)
         return out
 
 
@@ -116,10 +190,10 @@ def dry_device() -> torch.device:
     return torch.device("cuda", 0) if torch.backends.cuda.is_built() else torch.device("cpu")
 
 
-def _counts(grid, flops) -> dict:
-    """The run's counters so far: ``"flops"`` and a ``(kind, "count" |
-    "bytes")`` entry for each kind of collective."""
-    out = {"flops": flops.get_total_flops()}
+def _counts(grid, counter: StepCounter) -> dict:
+    """The run's counters so far: ``"flops"``, ``"bytes"`` and a ``(kind,
+    "count" | "bytes")`` entry for each kind of collective."""
+    out = {"flops": counter.flops, "bytes": counter.bytes_accessed}
     for kind, v in grid.comm_by_kind.items():
         out.update({(kind, f): v[f] for f in ("count", "bytes")})
     return out
@@ -127,35 +201,34 @@ def _counts(grid, flops) -> dict:
 
 def _scaled(marks: list, end: dict, accum: int) -> dict:
     """Counters at the start of the run, as each micro-batch began, and at
-    its end -> the whole step's: the second micro-batch's share repeated
-    for every micro-batch not run."""
+    its end -> the whole step's: the second micro-batch's share (from its
+    start to the third's) repeated for every micro-batch not run."""
     total = {k: v - marks[0].get(k, 0) for k, v in end.items()}
-    if len(marks) >= 3:
-        extra = accum - (len(marks) - 1)
+    extra = accum - (len(marks) - 1)
+    if len(marks) > 1 and extra:
         for k in total:
-            total[k] += extra * (marks[2].get(k, 0) - marks[1].get(k, 0))
+            total[k] += extra * (marks[3].get(k, 0) - marks[2].get(k, 0))
     return total
 
 
 def run_bundle(bundle, grid) -> dict:
-    """Run one bundle's step under the trackers (inside the fake mode the
-    bundle was built in) -> the record's measured fields."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    """Run one bundle's step under the counters (inside the fake mode the
+    bundle was built in, or on real tensors) -> the record's measured
+    fields."""
     args = arg_tensors(bundle.args)
-    mem = MemoryTracker()
+    counter = StepCounter()
     for t in args:
-        mem.track(t)
-    arg_bytes = mem.live
-    with mesh_lib.use_grid(grid), FlopCounterMode(display=False) as flops, mem:
-        marks = [_counts(grid, flops)]
-        hook = lambda: marks.append(_counts(grid, flops))  # noqa: E731
+        counter.track(t)
+    arg_bytes = counter.live
+    with mesh_lib.use_grid(grid), counting.counting(counter), counter:
+        marks = [_counts(grid, counter)]
+        hook = lambda: marks.append(_counts(grid, counter))  # noqa: E731
         bundle.micro_hooks.append(hook)
         try:
             out = bundle.fn(*bundle.args)
         finally:
             bundle.micro_hooks.remove(hook)
-        end = _counts(grid, flops)
+        end = _counts(grid, counter)
     total = _scaled(marks, end, bundle.accum)
     seen, out_bytes = set(), 0
     for t in arg_tensors(out):
@@ -165,9 +238,9 @@ def run_bundle(bundle, grid) -> dict:
             out_bytes += t.untyped_storage().nbytes()
     return {
         "memory": {"argument_bytes": int(arg_bytes), "output_bytes": int(out_bytes),
-                   "temp_bytes": int(mem.peak - arg_bytes), "peak_bytes": int(mem.peak),
-                   "fits": bool(mem.peak <= CARD_BYTES)},
-        "cost": {"flops": float(total.pop("flops")), "bytes_accessed": None},
+                   "temp_bytes": int(counter.peak - arg_bytes), "peak_bytes": int(counter.peak),
+                   "fits": bool(counter.peak <= CARD_BYTES)},
+        "cost": {"flops": float(total.pop("flops")), "bytes_accessed": float(total.pop("bytes"))},
         "collectives": {kind: {"count": total[(kind, "count")], "bytes": total[(kind, "bytes")]}
                         for kind, _ in total},
     }
@@ -175,8 +248,8 @@ def run_bundle(bundle, grid) -> dict:
 
 def _run_lm_depths(arch, shape, grid, device, bundle, knobs: dict) -> dict:
     """An LM cell run at the depths of :data:`LM_DEPTHS` and carried to
-    its layer count: every count of the run (memory, FLOPs, collectives)
-    is ``a + (L - 1) b``, ``b`` a layer's share (the two runs' difference);
+    its layer count: every count of the run (memory, FLOPs, bytes,
+    collectives) is ``a + (L - 1) b``, ``b`` a layer's share (the two runs' difference);
     the arguments are the whole model's (``bundle``)."""
     base = knobs.get("cfg") or arch.config
     runs = []
@@ -205,20 +278,33 @@ def _extrapolate(a, b, n: int):
     return type(a)(a + n * (b - a))
 
 
-def measure(arch, shape, grid, *, device=None, **knobs) -> dict:
+def measure(arch, shape, grid, *, device=None, fake: bool = True, args=None,
+            **knobs) -> dict:
     """One cell's measured fields and its bundle's numbers: the step of
     ``make_bundle(arch, shape, grid, **knobs)`` run on rank 0's fake
-    shards (an LM's at two depths, :func:`_run_lm_depths`)."""
+    shards (an LM's at two depths, :func:`_run_lm_depths`).
+
+    With ``fake=False`` the step runs on real tensors on ``device``: the
+    caller's ``args`` where given (not for an LM, whose depths are cut),
+    else the builders' uninitialised ones (they zero what they index with:
+    tokens, ids); the whole cell's bundle is still built fake, for its
+    numbers."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     device = torch.device(device) if device is not None else dry_device()
-    with FakeTensorMode():
+    mode = FakeTensorMode()
+    with mode:
         bundle = make_bundle(arch, shape, grid, device=device, **knobs)
+    with mode if fake else contextlib.nullcontext():
         if arch.family == "lm":
             rec = _run_lm_depths(arch, shape, grid, device, bundle, knobs)
         else:
             grid.comm_by_kind.clear()
-            rec = run_bundle(bundle, grid)
+            run = bundle
+            if not fake:
+                run = (dataclasses.replace(bundle, args=tuple(args)) if args is not None
+                       else make_bundle(arch, shape, grid, device=device, **knobs))
+            rec = run_bundle(run, grid)
     rec["model_flops"] = bundle.model_flops
     rec["loop_factor"] = bundle.loop_factor
     if bundle.accum > 1:
@@ -262,7 +348,8 @@ def iter_cells(arch_filter=None, shape_filter=None):
 
 def summary(rec: dict) -> str:
     """One line of a cell's record: argument and peak GiB a rank, whether
-    it fits, model and counted FLOPs, collective GB by kind."""
+    it fits, model and counted FLOPs, bytes accessed, collective GB by
+    kind."""
     if rec["status"] != "ok":
         return f"{rec['status']} ({rec.get('error', rec.get('reason', ''))[:120]})"
     m = rec["memory"]
@@ -270,7 +357,8 @@ def summary(rec: dict) -> str:
                      for k, v in sorted(rec["collectives"].items())) or "none"
     return (f"args {m['argument_bytes'] / 2**30:.3f} GiB, peak {m['peak_bytes'] / 2**30:.3f} GiB"
             f"{'' if m['fits'] else ' (does not fit)'}, model flops {rec['model_flops']:.4g}, "
-            f"counted {rec['cost']['flops']:.4g}; {coll}; {rec['run_s']:.1f} s")
+            f"counted {rec['cost']['flops']:.4g}, bytes accessed {rec['cost']['bytes_accessed']:.4g}; "
+            f"{coll}; {rec['run_s']:.1f} s")
 
 
 _WORKER: dict = {}

@@ -30,6 +30,9 @@ sync after it, so a rank's own queued kernels are not counted:
 ``Grid.comm_s`` and ``Grid.comm_bytes`` add up the seconds and the bytes
 the rank sent in, and ``Grid.comm_by_kind`` the calls and those bytes per
 kind (``all-gather``, ``all-reduce``); callers read their differences.
+Under a cost counter (``repro_torch/counting.py``) a collective counts its
+input and its output once each, as XLA counts an all-gather's operand and
+result, and none of the staging and copies it makes.
 
 :func:`spawn` starts a world of ``n`` ranks on this machine, runs a
 function on each and returns their results.
@@ -65,6 +68,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import is_fake, resolve_device
+from .. import counting
 
 DEFAULT_AXES = ("data", "model")
 # How long a rank waits in a collective or the rendezvous before it fails.
@@ -175,16 +179,18 @@ class Grid:
         list form of ``dist.all_gather``; over gloo a CUDA tensor goes
         through the host (module docstring)."""
         group, members = self.group(axes)
-        t0 = self._start(t)
-        src = t.cpu() if self._staged(t) else t.contiguous()
-        if self.backend == "gloo" and src.dtype == torch.bfloat16:
-            src = src.view(torch.float16)  # gloo moves the 16-bit payload as float16 bits
-        parts = [torch.empty_like(src) for _ in members]
-        dist.all_gather(parts, src, group=group)
-        by_rank = dict(zip(sorted(members), parts))  # group ranks go by global rank
-        out = torch.stack([by_rank[r] for r in members]).view(t.dtype)
-        out = out.to(t.device) if self._staged(t) else out
-        self._finish(t, t0, "all-gather")
+        with counting.hidden():
+            t0 = self._start(t)
+            src = t.cpu() if self._staged(t) else t.contiguous()
+            if self.backend == "gloo" and src.dtype == torch.bfloat16:
+                src = src.view(torch.float16)  # gloo moves the 16-bit payload as float16 bits
+            parts = [torch.empty_like(src) for _ in members]
+            dist.all_gather(parts, src, group=group)
+            by_rank = dict(zip(sorted(members), parts))  # group ranks go by global rank
+            out = torch.stack([by_rank[r] for r in members]).view(t.dtype)
+            out = out.to(t.device) if self._staged(t) else out
+            self._finish(t, t0, "all-gather")
+        counting.report(0, _nbytes(t) + _nbytes(out))
         return out
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
@@ -192,14 +198,16 @@ class Grid:
         over the ranks along ``axes`` (a new tensor on ``t``'s device; over
         gloo a CUDA tensor goes through the host)."""
         group, _ = self.group(axes)
-        t0 = self._start(t)
-        out = t.cpu() if self._staged(t) else t.clone()
-        if self.backend == "gloo" and out.dtype == torch.bfloat16:
-            out = out.float()  # gloo sums bfloat16 in float32 here, rounded once after
-        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
-                        group=group)
-        out = out.to(device=t.device, dtype=t.dtype)
-        self._finish(t, t0, "all-reduce")
+        with counting.hidden():
+            t0 = self._start(t)
+            out = t.cpu() if self._staged(t) else t.clone()
+            if self.backend == "gloo" and out.dtype == torch.bfloat16:
+                out = out.float()  # gloo sums bfloat16 in float32 here, rounded once after
+            dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+                            group=group)
+            out = out.to(device=t.device, dtype=t.dtype)
+            self._finish(t, t0, "all-reduce")
+        counting.report(0, _nbytes(t) + _nbytes(out))
         return out
 
     def _start(self, t: torch.Tensor) -> float:
@@ -209,7 +217,7 @@ class Grid:
     def _finish(self, t: torch.Tensor, t0: float, kind: str) -> None:
         self._sync(t)
         self.comm_s += time.perf_counter() - t0
-        nbytes = t.numel() * t.element_size()
+        nbytes = _nbytes(t)
         self.comm_bytes += nbytes
         tally = self.comm_by_kind.setdefault(kind, {"count": 0, "bytes": 0})
         tally["count"] += 1
@@ -226,6 +234,10 @@ class Grid:
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 _AMBIENT: list[Grid] = []

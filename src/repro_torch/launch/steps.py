@@ -17,10 +17,12 @@ ever made. ``fn(*args)`` runs one step under the ambient grid
 kernels' wrappers take their shape-only branch (``kernels/ops.py``).
 
 Where the reference's step scans micro-batches (the LM train step,
-``grad_accum = b // dp`` by default), ``fn`` runs two of them
-(``accum_run``; one where there is one) and calls every hook in
+``grad_accum = b // dp`` by default), ``fn`` runs three of them
+(``accum_run``; all of them where there are fewer) and calls every hook in
 ``micro_hooks`` as each begins, so the dry run can read its counters per
-micro-batch and scale the repeated one to ``accum`` micro-batches.
+micro-batch and scale the repeated one to ``accum`` micro-batches. The
+first micro-batch is not the repeated one: its backward makes the
+gradients that the others' add to.
 
 Where a rank's arguments differ from the reference's per-device shards
 (each pinned exactly in ``tests/test_torch_dryrun.py``):
@@ -184,7 +186,7 @@ def make_lm_bundle(arch: ArchSpec, shape: ShapeSpec, grid: Grid, *, device,
     if shape.kind == "train":
         opt_state = opt_lib.init_state(dict(model.named_parameters()))
         accum = grad_accum or max(1, b // max(dp_size, 1))
-        run = min(accum, 2)
+        run = min(accum, 3)
         hooks: list = []
         batch = {k: _block((b, s), torch.int32, (dp, None), grid, device, zero=True)
                  for k in ("tokens", "targets")}

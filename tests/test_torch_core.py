@@ -154,6 +154,59 @@ def test_fit_rmi_and_predict_match_jax():
     np.testing.assert_array_equal(rmi.predict(same, _t(x)).numpy(), _np(jp))
 
 
+def _jax_rmi_params(jr):
+    return rmi.RMIParams(
+        **{f: _t(_np(getattr(jr, f))) for f in ("root_w", "root_b", "leaf_w", "leaf_b", "length", "max_err")},
+        n_leaves=jr.n_leaves,
+    )
+
+
+def test_predict_raw_matches_jax_on_table4_inputs():
+    """``tests/test_rmi.py``'s Table 4 case: raw 30-bit keys and their
+    re-scaled form, one RMI of 5 leaves each. On JAX's fitted parameters the
+    unclipped predictions are equal exactly (elementwise), and so are the
+    out-of-range counts; the port's own fit on the re-scaled keys
+    predicts to the RMI tolerance with the same out-of-range count."""
+    keys = np.sort(np.random.default_rng(3).integers(0, 2**30, size=1000)).astype(np.uint32)
+    y_hi = float(keys.shape[0] - 1)
+    oor = lambda p: int(((p <= 0) | (p >= y_hi)).sum())  # noqa: E731
+    raw = keys.astype(np.float32)
+    jp_raw = jrmi.fit_rmi(jnp.asarray(raw), jnp.ones_like(jnp.asarray(raw)), n_leaves=5)
+    jpred_raw = _np(jrmi.predict_raw(jp_raw, jnp.asarray(raw)))
+    got_raw = rmi.predict_raw(_jax_rmi_params(jp_raw), _t(raw)).numpy()
+    np.testing.assert_array_equal(got_raw, jpred_raw)
+    jresc_p = jresc.fit_rescale(jnp.asarray(keys))
+    scaled = _np(jresc.rescale(jresc_p, jnp.asarray(keys)))
+    tresc = rescale.fit_rescale(_t(keys.astype(np.int64)))
+    np.testing.assert_array_equal(rescale.rescale(tresc, _t(keys.astype(np.int64))).numpy(), scaled)
+    jp = jrmi.fit_rmi(jnp.asarray(scaled), jnp.ones_like(jnp.asarray(scaled)), n_leaves=5)
+    jpred = _np(jrmi.predict_raw(jp, jnp.asarray(scaled)))
+    np.testing.assert_array_equal(rmi.predict_raw(_jax_rmi_params(jp), _t(scaled)).numpy(), jpred)
+    own = rmi.predict_raw(rmi.fit_rmi(_t(scaled), torch.ones(scaled.shape), n_leaves=5), _t(scaled))
+    np.testing.assert_allclose(own.numpy(), jpred, rtol=RMI_RTOL, atol=RMI_ATOL)
+    assert oor(own.numpy()) == oor(jpred) <= 2
+    assert oor(got_raw) == oor(jpred_raw) >= oor(jpred)
+
+
+def test_gather_banked_matches_jax():
+    """Per-(query, cluster) models gathered out of a stacked bank of 4
+    fitted RMIs, then ``predict_banked`` on them: leaves and predictions
+    equal exactly."""
+    rng = np.random.default_rng(5)
+    keys = np.sort(rng.random((4, 64)).astype(np.float32) * 63, axis=-1)
+    w = np.ones((4, 64), np.float32)
+    jr = jax.vmap(lambda x, ww: jrmi.fit_rmi(x, ww, n_leaves=4))(jnp.asarray(keys), jnp.asarray(w))
+    idx = rng.integers(0, 4, (3, 5)).astype(np.int32)
+    jg = jrmi.gather_banked(jr, jnp.asarray(idx))
+    tg = rmi.gather_banked(_jax_rmi_params(jr), _t(idx).long())
+    for f in ("root_w", "root_b", "leaf_w", "leaf_b", "length", "max_err"):
+        np.testing.assert_array_equal(getattr(tg, f).numpy(), _np(getattr(jg, f)), err_msg=f)
+    assert tg.n_leaves == jg.n_leaves == 4
+    x = (rng.random((3, 5)) * 63).astype(np.float32)
+    np.testing.assert_array_equal(rmi.predict_banked(tg, _t(x)).numpy(),
+                                  _np(jrmi.predict_banked(jg, jnp.asarray(x))))
+
+
 # ---------------------------------------------------------------------------
 # core model
 # ---------------------------------------------------------------------------

@@ -33,18 +33,22 @@ needed.
   versions' outputs (shapes, dtypes).
 - ``dryrun.main`` on one cell per family, and its exit code on a failure.
 """
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import textwrap
+import threading
+import types
 
 import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch import counting
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.configs.lider_msmarco import RetrievalArchConfig
@@ -204,8 +208,9 @@ def _shapes(out) -> list:
 
 
 def _cell_reading(grid, arch, shape, device, *, real_index=None) -> dict:
-    """Build one cell's bundle on the grid, run it and read rank 0's
-    counters, argument bytes and output shapes."""
+    """Build one cell's bundle on the grid, run it under the dry run's
+    counter and read rank 0's collectives, FLOPs and bytes accessed,
+    argument bytes and output shapes."""
     b = steps.make_bundle(arch, shape, grid, device=device)
     if real_index is not None:
         params, x = real_index
@@ -216,10 +221,11 @@ def _cell_reading(grid, arch, shape, device, *, real_index=None) -> dict:
         _fill(b.args, grid.rank)
     arg_bytes = steps.nbytes(steps.arg_tensors(b.args))
     grid.comm_by_kind.clear()
-    with mesh.use_grid(grid):
+    counter = dryrun.StepCounter()
+    with mesh.use_grid(grid), counting.counting(counter), counter:
         out = b.fn(*b.args)
     return {"comm": {k: dict(v) for k, v in grid.comm_by_kind.items()}, "arg_bytes": arg_bytes,
-            "shapes": _shapes(out)}
+            "shapes": _shapes(out), "cost": (counter.flops, counter.bytes_accessed)}
 
 
 CAND = ShapeSpec("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 402})
@@ -330,13 +336,17 @@ def test_fake_world_equals_real_world(worlds, cell):
     real, fake = worlds
     want, got = real[0][cell], fake[cell]
     assert got["comm"] == want["comm"] and got["comm"]
+    # The same ops dispatch; the search's kernels report the same cost from
+    # their plain versions (real) and their shape-only branches (fake).
+    assert got["cost"] == want["cost"] and min(got["cost"]) > 0
     assert got["arg_bytes"] == want["arg_bytes"]
     assert got["shapes"] == want["shapes"]
 
 
 def test_lm_depths_carry_to_the_layer_count():
     """The dry run's two runs (depths 1 and 2) carried to 3 layers == a
-    run of the 3-layer model: memory, FLOPs and collectives exactly."""
+    run of the 3-layer model: memory, FLOPs, bytes accessed and
+    collectives exactly."""
     cfg = dataclasses.replace(SMALL_LM, n_layers=3)
     arch = dataclasses.replace(SMALL_LM_ARCH, config=cfg)
     shape = arch.shapes[0]
@@ -348,12 +358,118 @@ def test_lm_depths_carry_to_the_layer_count():
     assert carried.pop("depth") == {"run": [1, 2], "layers": 3}
     assert {k: carried[k] for k in full} == full
     assert full["collectives"]["all-gather"]["count"] > 0
+    assert full["cost"]["bytes_accessed"] > 0 and full["cost"]["flops"] > 0
+
+
+@pytest.mark.parametrize("cell", ["lm", "lider"])
+def test_real_tensors_count_as_fake_ones(cell):
+    """``dryrun.measure(fake=False)``, as ``chip_smoke.py`` runs it on the
+    card: the small LM train cell on real uninitialised tensors and the
+    small search cell on a real index, on rank 0 of a fake 2x2 world, count
+    the FLOPs, bytes and collectives of the fake run exactly (the same ops
+    dispatch; the kernels run their plain versions and report the same
+    cost as their shape-only branches)."""
+    arch = SMALL_LM_ARCH if cell == "lm" else SMALL_RET_ARCH
+    shape = arch.shapes[0]
+    with mesh.fake_world(4):
+        grid = mesh.make_grid((2, 2), device="cpu")
+        fake = dryrun.measure(arch, shape, grid, device="cpu")
+        args = None
+        if cell == "lider":
+            params, x = _small_index()
+            args = (dist_lib.shard_lider_params(grid, params, ("data",)),
+                    x[: shape.dims["batch"]].reshape(2, -1, x.shape[1])[0])
+        real = dryrun.measure(arch, shape, grid, device="cpu", fake=False, args=args)
+    assert real["cost"] == fake["cost"] and min(real["cost"].values()) > 0
+    assert real["collectives"] == fake["collectives"]
+
+
+def _one_layer_step(grid):
+    """The small LM train cell at one layer and one micro-batch, built on
+    fake tensors on ``grid``."""
+    arch = dataclasses.replace(SMALL_LM_ARCH, config=dataclasses.replace(SMALL_LM, n_layers=1))
+    return steps.make_bundle(arch, arch.shapes[0], grid, device="cpu", grad_accum=1)
+
+
+def test_step_counter_flops_equal_flop_counter_mode():
+    """``StepCounter.flops`` (``torch.utils.flop_counter``'s formulas op by
+    op) == ``FlopCounterMode``'s total over the same run: a small LM train
+    step on rank 0 of a fake 2x2 world, attention and the checkpointed
+    layer's recompute included (no kernel runs there)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with mesh.fake_world(4):
+        grid = mesh.make_grid((2, 2), device="cpu")
+        with FakeTensorMode():
+            b = _one_layer_step(grid)
+            counter = dryrun.StepCounter()
+            with (mesh.use_grid(grid), FlopCounterMode(display=False) as ref,
+                  counting.counting(counter), counter):
+                b.fn(*b.args)
+    assert counter.flops == ref.get_total_flops() > 0
+
+
+def _backward_on_a_thread(monkeypatch):
+    """``Tensor.backward`` run on a thread of its own under the caller's
+    dispatch modes, as autograd runs a card's backward on its device
+    thread."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    backward = torch.Tensor.backward
+
+    def on_a_thread(self, *a, **kw):
+        modes, errors = _get_current_dispatch_mode_stack(), []
+
+        def body():
+            try:
+                with contextlib.ExitStack() as stack:
+                    for m in modes:
+                        stack.enter_context(m)
+                    backward(self, *a, **kw)
+            except BaseException as e:  # noqa: BLE001 - raised on the caller's thread
+                errors.append(e)
+
+        t = threading.Thread(target=body)
+        t.start()
+        t.join()
+        if errors:
+            raise errors[0]
+
+    monkeypatch.setattr(torch.Tensor, "backward", on_a_thread)
+
+
+def test_backward_on_another_thread_counts_the_same(monkeypatch):
+    """A report reaches the counter from any thread, and hiding is a
+    thread's own. So a small LM train step (rank 0 of a fake 2x2 world, its
+    backward's collectives included) counts the same FLOPs, bytes and
+    collectives with its backward run on another thread."""
+    seen = []
+    with counting.counting(types.SimpleNamespace(add=lambda *c: seen.append(c))):
+        with counting.hidden():
+            t = threading.Thread(target=counting.report, args=(1, 2))
+            t.start()
+            t.join()
+            counting.report(3, 4)  # hidden here: the wrapper around it reports
+        counting.report(5, 6)
+    assert seen == [(1, 2), (5, 6)]
+
+    def run():
+        with mesh.fake_world(4):
+            grid = mesh.make_grid((2, 2), device="cpu")
+            with FakeTensorMode():
+                return dryrun.run_bundle(_one_layer_step(grid), grid)
+
+    here = run()
+    _backward_on_a_thread(monkeypatch)
+    there = run()
+    assert there["cost"] == here["cost"] and there["collectives"] == here["collectives"]
+    assert here["collectives"]["all-reduce"]["count"] > 0
 
 
 def test_micro_batches_scale_to_the_step():
-    """A train step of 4 micro-batches run as the dry run runs it (2 of
+    """A train step of 4 micro-batches run as the dry run runs it (3 of
     them, the second's counts repeated) == the step run in full: FLOPs,
-    collectives and the peak, exactly."""
+    bytes accessed, collectives and the peak, exactly."""
     cfg = dataclasses.replace(SMALL_LM, n_layers=1)
     arch = dataclasses.replace(SMALL_LM_ARCH, config=cfg)
     shape = arch.shapes[0]  # 8 rows over 2 data ranks: 4 micro-batches of 1
@@ -361,13 +477,14 @@ def test_micro_batches_scale_to_the_step():
         grid = mesh.make_grid((2, 2), device="cpu")
         with FakeTensorMode():
             two = steps.make_bundle(arch, shape, grid, device="cpu")
-            assert (two.accum, two.accum_run) == (4, 2)
+            assert (two.accum, two.accum_run) == (4, 3)
             scaled = dryrun.run_bundle(two, grid)
             full = steps.make_bundle(arch, shape, grid, device="cpu")
             full.fn = steps._train_fn(tfm.train_loss, 4, 4, full.micro_hooks)
             grid.comm_by_kind.clear()
             whole = dryrun.run_bundle(full, grid)
     assert scaled == whole
+    assert whole["cost"]["bytes_accessed"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -541,6 +658,51 @@ def test_kernel_shape_branch_matches_plain_version(case):
         [(tuple(t.shape), t.dtype, "meta") for t in want]
 
 
+# Each case's (flops, bytes), by hand from its shapes: 4 queries of d = 32
+# against 6 candidates each; rows 4d bytes (f32), d + 4 (int8 and its scale),
+# d / 2 + 4 (int4), one 32-bit word (sketch); ids and queries 4 bytes an
+# element, a top-k output 8 bytes a slot. Grouped: S = 3 steps of block_q =
+# 2 slots over Lp = 10 rows. Hash: 7 x 32 rows through 32 x 12 projections
+# to 7 x 3 keys. k-means: 9 x 32 rows against 5 centroids.
+_IDS_Q = 4 * 6 * 4 + 4 * 32 * 4
+KERNEL_COSTS = {
+    "verify_f32_k_above_c": (2 * 32 * 24, 24 * 128 + _IDS_Q + 4 * 9 * 8),
+    "verify_int8": (2 * 32 * 24, 24 * 36 + _IDS_Q + 4 * 3 * 8),
+    "verify_int4": (2 * 32 * 24, 24 * 20 + _IDS_Q + 4 * 8 * 8),
+    "sketch_k_above_c": (2 * 1 * 24, 24 * 4 + _IDS_Q + 4 * 10 * 8),
+    "grouped_int8": (2 * 32 * 3 * 2 * 10,
+                     3 * 10 * 36 + 3 * 2 * 10 * 4 + (3 + 6) * 4 + 4 * 32 * 4 + 3 * 2 * 4 * 8),
+    "grouped_int4_kp_above_lp": (2 * 32 * 3 * 2 * 10,
+                                 3 * 10 * 20 + 3 * 2 * 10 * 4 + (3 + 6) * 4 + 4 * 32 * 4
+                                 + 3 * 2 * 12 * 8),
+    "lsh_hash": (2 * 7 * 32 * 12, 7 * 32 * 4 + 32 * 12 * 4 + 7 * 3 * 4),
+    "kmeans_assign": (2 * 9 * 5 * 32, (9 * 32 + 5 * 32) * 4 + 9 * 8),
+}
+
+
+@pytest.mark.parametrize("case", list(_kernel_cases()))
+def test_kernel_reports_its_cost(case):
+    """Under the dry run's counter a wrapper's call counts its kernel's
+    (flops, bytes), the hand-computed ones, and none of its own ops: on
+    the plain CPU branch and on the shape-only branch (fake tensors)."""
+    fn, args, kw = _kernel_cases()[case]
+
+    def counted(*a):
+        counter = dryrun.StepCounter()
+        with counting.counting(counter), counter:
+            fn(*a, **kw)
+        return counter.flops, counter.bytes_accessed
+
+    assert counted(*args) == KERNEL_COSTS[case]
+    with FakeTensorMode() as mode:
+        assert counted(*[mode.from_tensor(a) for a in args]) == KERNEL_COSTS[case]
+    calls = []
+    with counting.counting(types.SimpleNamespace(add=lambda *c: calls.append(c))):
+        with counting.hidden():  # inside another wrapper: the outer one reports
+            fn(*args, **kw)
+    assert calls == []
+
+
 # ---------------------------------------------------------------------------
 # The grid in a fake world, and the CLI
 # ---------------------------------------------------------------------------
@@ -583,7 +745,7 @@ def test_dryrun_main_writes_a_record(tmp_path, arch, shape):
     m = rec["memory"]
     assert 0 < m["argument_bytes"] <= m["peak_bytes"] and m["fits"]
     assert m["temp_bytes"] == m["peak_bytes"] - m["argument_bytes"]
-    assert rec["cost"]["bytes_accessed"] is None and rec["model_flops"] > 0
+    assert rec["cost"]["bytes_accessed"] > 0 and rec["cost"]["flops"] > 0 and rec["model_flops"] > 0
     assert set(rec["collectives"]) <= {"all-gather", "all-reduce"}
     assert (arch == "lider-msmarco") == ("tier_memory" in rec)
 
