@@ -41,23 +41,32 @@ Phases, each printing its lines; any failure exits non-zero:
                offset. Then the baselines' shapes: ``lsh_hash`` at H = 24
                arrays of M = 20 bits, ``kmeans_assign`` on a d = 96 column
                slice against c = 256 and at c = 1,024, d = 768.
-4. main      — the ``lider-msmarco`` configuration (1,048,576 x 768
-               synthetic corpus, float32 bank): ``build_lider`` through
-               both build kernels, three times. The first build of the
-               process is the main path's (its launches counted, its
-               stages timed, run under ``cProfile``, the arguments of each
-               kernel's first call kept); a second, warm build is timed the
-               same way and its k-means centroids and assignments must equal
-               the first's, bit for bit (the Lloyd sums add each cluster's
-               rows in one fixed order); then the Lloyd sums at full size,
-               timed beside ``index_add_``; a third build times every
-               build-kernel call on its own, beside its plain version and
-               the cuBLAS product. Then 4 batches of 256 queries through
-               ``search_lider`` at k=100, recall@100 against Flat, the first 8 queries against
-               the same search with every kernel swapped for its plain
-               version (query keys compared first), launches per batch
-               (2 ``fused_verify``, 2 ``lsh_hash``), and a
-               ``torch.profiler`` trace of one more batch.
+4. main      — the ``lider-msmarco`` configuration at the reference's size
+               (8,847,360 x 768 synthetic corpus, float32 bank, capacity
+               None: Lp from the largest cluster, ``REDUCED``): the corpus,
+               the queries and Flat's exact top-100. ``build_lider``
+               through both build kernels, three times. The first build of
+               the process is the main path's (its launches counted, its
+               stages timed, run under ``cProfile``; its first call of each
+               kernel role kept, then held against its plain version and
+               timed at full size as the shapes phase does, while only the
+               corpus is on the card); it is freed but for its k-means
+               result. A second build times every build-kernel call on its
+               own, beside its plain version and the cuBLAS product. A
+               third, warm build is searched; its k-means centroids and
+               assignments must equal the first's, bit for bit (the Lloyd
+               sums add each cluster's rows in one fixed order); then the
+               Lloyd sums at full size, timed beside ``index_add_``. Then 4
+               batches of 256 queries through ``search_lider`` at k=100,
+               recall@100 against Flat, the first 8 queries against the
+               same search with every kernel swapped for its plain version
+               (query keys compared first), launches per batch (2
+               ``fused_verify``, 2 ``lsh_hash``), and a ``torch.profiler``
+               trace of one more batch. Last the corpus goes to host
+               memory: the later phases at this size build from it. Every
+               phase at this size prints its peak device memory beside
+               PERF.md's prediction (``PREDICTED_PEAK_GB``), its index's
+               bytes and the corpus's.
 5. shapes    — each kernel call of the main path (the build's and one
                search batch's), on the arguments it was given, held against
                the plain version over the whole call and timed with CUDA
@@ -72,9 +81,17 @@ Phases, each printing its lines; any failure exits non-zero:
                merges; for ``fused_verify_grouped``, beside the per-step
                floor: each real step's live rows and ids read once). Then
                the in-cluster shape on traffic without repeated rows
-               (float32, int8, sketch), timed the same way.
+               (float32, int8, sketch), timed the same way. Then the
+               reference's ``serve_bulk`` shape: one batch of 8,192 queries
+               through ``search_lider``, captured (a first run, the
+               capture, replays), whose ids must equal the same queries' in
+               batches of 256 (scores bit for bit, else within rtol 1e-5;
+               the line says which), timed, with its peak and its graph's
+               pool, and each of its kernel calls timed as above.
 6. quantized — the float index is freed, then the int8 and the int4 index
-               are built at full width in turn, and 4 x 256 queries run on
+               are built in turn from the corpus in host memory (each
+               rescore table and its gids == the float index's, by a
+               checksum of its words), and 4 x 256 queries run on
                each quantized operating point (Q8, Q8-cm on int8; Q4-sk,
                Q4-sk-cm on int4): recall@100, each kernel's launches per
                batch, Q8-cm == Q8 and Q4-sk-cm == Q4-sk bit for bit, the
@@ -85,19 +102,27 @@ Phases, each printing its lines; any failure exits non-zero:
                block_q 32, and Q8 and Q8-cm at k' = 1,100, == the per-query
                search bit for bit; the covering sketch factor (m = C =
                80,000) == the unfiltered Q4 search bit for bit; each of
-               their grouped and sketch calls timed.
-7. serve     — the int8 and int4 indexes again, built on the host rescore
-               tier (``configs.lider_msmarco.HOST_TIER``) and copied to the
-               device tier (``nbytes_by_tier`` and the device memory the
-               host tier frees printed): Q8, Q8-cm, Q4-sk and Q4-sk-cm over
-               4 x 256 queries == the device tier, ids and scores bit for
-               bit, with the device tier's launches per batch; one host-tier Q8 batch
-               split into its stages (first pass, rows to the host, the
-               gather by ``torch.index_select`` and by numpy ``take``,
-               bit-equal, H2D from pinned and pageable memory, rescore);
-               the rescore over fetched rows timed as a ``fused_verify``
-               call, its launches counted around one ``host_rescore``. Then ``RetrievalEngine`` (``configs.lider_msmarco.
-               SERVING``): a closed loop of 16 x 256 queries on host-tier
+               their grouped and sketch calls timed; on int8, Q8 at the
+               ``serve_bulk`` shape as in the shapes phase.
+7. serve     — the int8 and int4 indexes again, one at a time, built on the
+               host rescore tier (``configs.lider_msmarco.HOST_TIER``) from
+               the corpus in host memory, so the build never holds the
+               float32 table on the card, and copied to the device tier and
+               back (the device memory the host tier frees must equal the
+               table): Q8, Q8-cm, Q4-sk and Q4-sk-cm over 4 x 256 queries ==
+               the device tier, ids and scores bit for bit, with the device
+               tier's launches per batch; on int8 the captured host-tier Q8
+               batch (7b) and the rescore over fetched rows timed as a
+               ``fused_verify`` call, its launches counted around one
+               ``host_rescore``. The paths below keep the 1,048,576-row
+               corpus (``SMALL_N``, their earlier size; each prints its cut with
+               the seconds and bytes that force it): one host-tier Q8 batch
+               of the int8 index built on that corpus split into its stages
+               (first pass, rows to the host, the gather by
+               ``torch.index_select`` and by numpy ``take``, bit-equal, H2D
+               from pinned and pageable memory, rescore). Then
+               ``RetrievalEngine`` (``configs.lider_msmarco.SERVING``): a
+               closed loop of 16 x 256 queries on host-tier
                Q8 (every answer == ``search_lider`` on its batch, bit for
                bit; some gather began while the device still ran the
                next batch's first pass, read from that pass's CUDA event;
@@ -149,8 +174,8 @@ Phases, each printing its lines; any failure exits non-zero:
                baselines' ``lsh_hash`` and ``kmeans_assign`` calls held
                against their plain versions and timed beside their bounds;
                IVF-PQ's two k-means, Lloyd step by Lloyd step, by stage.
-10. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width, the main
-               path's centroids frozen and the capacity fixed from the full
+10. lifecycle — ``configs.lider_msmarco.LIFECYCLE`` at full width on the
+               1,048,576-row corpus, its float32 build's centroids frozen and the capacity fixed from the full
                assignment: build on 80%, upsert 20% in 4 batches, equal bit
                for bit to a rebuild over 100% (bank and search ids); delete
                5% with eager compaction, equal to a rebuild over the
@@ -163,7 +188,7 @@ Phases, each printing its lines; any failure exits non-zero:
                floor; every arrival answered on every backend; the rollback
                bit-identical, the outage degraded and recovered.
 11. distributed — the distributed index (``core.distributed``) at full
-               width: float32, int8 and int4 indexes built in this process,
+               width on the 1,048,576-row corpus: float32, int8 and int4 indexes built in this process,
                four gloo ranks spawned on the card as a (data=2, model=2)
                grid, each taking its clusters' shard of every index from
                this process's tensors through CUDA IPC (every leaf
@@ -299,6 +324,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -321,7 +347,35 @@ PEAK_OPS = {  # per second: f32 CUDA cores; tf32, bf16 and int8 tensor cores (de
     torch.float32: 67e12, "tf32": 495e12, torch.bfloat16: 989e12, torch.int8: 1979e12,
 }
 RECALL_FLOOR = 0.5  # only catches garbage
+# Where no index of the configuration can reach RECALL_FLOOR, LIDER's recall
+# at its n_probe must keep this share of IVF-Flat's over as many clusters
+# (an exact scan of the clusters whose centroids score highest): the
+# two-tower items (0.513 on an H100, PERF.md) and lider-msmarco at
+# 8,847,360 passages, where the in-cluster window R = r0 * k covers 4.6% of
+# a mean cluster of 8,640 rows, against 39% of 1,024 at 1,048,576. With
+# routing out of the way the JAX package's own recall falls so with the
+# cluster size, and the port's equals it (tests/test_torch_recall_scale.py).
+LIDER_OF_IVF = 0.4
 N_BATCHES, BATCH, SEED = 4, 256, 0
+BULK = 8192  # queries a batch of the reference's serve_bulk shape (configs.lider_msmarco.ARCH)
+# The corpus of the paths that keep their earlier size: at 8,847,360 rows
+# their time, memory or disk would break the run (each prints its cut).
+SMALL_N = 1_048_576
+RUN_LIMIT_S = 1200
+# Peak device memory of each phase at 8,847,360 x 768, Lp 12,776, in GB
+# (1e9 bytes): PERF.md's prediction, from the byte counts of the tensors
+# each phase holds at its peak.
+PREDICTED_PEAK_GB = {
+    "data": 54.54,  # the corpus, its noise, then its normalised copy
+    "main": 74.09,  # first build: corpus + f32 table + two fit chunks (one recorded) + keys
+    "shapes": 66.62,  # f32 index + a bfloat16 copy of its table + plain chunks
+    "bulk F32": 66.58,  # f32 index + the 8,192-query graph (32 x 773.8 MB)
+    "int8": 58.82,  # build: table + codes + sketches + a dequantized fit chunk + keys
+    "bulk Q8": 77.93,  # int8 index + the 8,192-query graph
+    "int4": 54.74,
+    "serve int8": 57.15,  # the device-tier copy of the host-tier index + its graphs
+    "serve int4": 51.96,
+}
 KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
     "fused_verify": ("src/repro_torch/kernels/csrc/fused_verify.cu",
                      "src/repro/kernels/fused_verify.py:82"),
@@ -381,6 +435,10 @@ def per_build(cfg, *, kmeans: bool = True) -> tuple:
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def clock(done: str, t_start: float) -> None:
+    log("time", f"{done} done at {time.perf_counter() - t_start:.1f} s of the run")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -541,6 +599,8 @@ def phase_device() -> dict:
     log("device", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"count {torch.cuda.device_count()}")
     print(smi, flush=True)
+    log("device", host_memory_line("at the start") + "; free disk: " + ", ".join(
+        f"{where} {shutil.disk_usage(where).free / 1e9:.2f} GB" for where in (ROOT, tempfile.gettempdir())))
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("chip_smoke: float32 matmuls must not run in TF32 here")
     return {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count(), "smi": smi}
@@ -991,9 +1051,213 @@ def hold_min_dist(errs: dict, where: str) -> str:
             f"{errs['plain']:.3g} (limit {f} x plain = {lim:.3g}), a TF32 product {errs['tf32']:.3g}")
 
 
-def phase_main(dev) -> dict:
-    from repro_torch.configs.lider_msmarco import CONFIG, REDUCED
+def index_nbytes(params) -> int:
+    """Bytes of an index's tensors (on the card; a host tier's table is not
+    one of them)."""
+    from repro_torch.core.types import tensor_leaves
+
+    return sum(t.nbytes for t in tensor_leaves(params))
+
+
+def peak_line(key: str, peak: int, index_bytes: int, corpus_bytes: int, where: str) -> str:
+    """A phase's peak device memory beside its prediction
+    (``PREDICTED_PEAK_GB``, PERF.md's), the bytes of its index on the card
+    and of the corpus (``where`` it lives)."""
+    pred = PREDICTED_PEAK_GB[key]
+    return (f"{key}: peak device memory (max_memory_allocated) {peak / 1e9:.2f} GB, predicted "
+            f"{pred:.2f} GB ({peak / 1e9 / pred - 1:+.1%}); the index's tensors on the card "
+            f"{index_bytes / 1e9:.3f} GB; the corpus {corpus_bytes / 1e9:.3f} GB, in {where}")
+
+
+def host_memory() -> dict:
+    """Bytes by key of ``/proc/meminfo`` and of this process's
+    ``/proc/self/status``."""
+    info = {}
+    for path in ("/proc/meminfo", "/proc/self/status"):
+        for line in Path(path).read_text().splitlines():
+            key, _, value = line.partition(":")
+            if value.strip().endswith("kB"):
+                info[key] = int(value.split()[0]) * 1024
+    return info
+
+
+def host_memory_line(when: str) -> str:
+    """The host's memory and this process's resident set, in GB."""
+    info = host_memory()
+    return (f"host memory, {when}: {info['MemTotal'] / 1e9:.2f} GB in all, "
+            f"{info['MemAvailable'] / 1e9:.2f} GB available; this process {info['VmRSS'] / 1e9:.2f} GB "
+            "resident")
+
+
+def table_fingerprint(table: torch.Tensor) -> tuple[int, int]:
+    """Two checksums of a ``(c, Lp, d)`` float32 table's 32-bit words, on
+    its device: their sum, and their sum each times its position within a
+    cluster's rows mod 65,521, plus one (int64, wrapping), eight clusters at
+    a time."""
+    words = table.view(torch.int32)
+    weight = (torch.arange(words[0].numel(), device=table.device) % 65_521 + 1).view(words[0].shape)
+    total = torch.zeros((), dtype=torch.int64, device=table.device)
+    weighted = torch.zeros_like(total)
+    for s in range(0, words.shape[0], 8):
+        w = words[s : s + 8].to(torch.int64)
+        total += w.sum()
+        weighted += (w * weight).sum()
+    return int(total), int(weighted)
+
+
+def same_table(what: str, bank, table) -> None:
+    """The rescore table and the gids of a quantized ``bank`` against the
+    float32 main index's (``table``: its fingerprint and gids): the same
+    rows in the same slots, or a raise."""
+    fingerprint, gids = table
+    got = table_fingerprint(bank.rescore_embs)
+    if got != fingerprint or not torch.equal(bank.gids, gids):
+        raise AssertionError(f"{what}: the rescore table (fingerprint {got}) or its gids differ "
+                             f"from the float32 index's (fingerprint {fingerprint})")
+    log("serve" if what.startswith("serve") else "quantized",
+        f"{what}: rescore table and gids == the float32 main index's (fingerprint {got})")
+
+
+def phase_bulk(phase: str, name: str, params, search, queries, per: tuple, corpus_bytes: int,
+               reps: int = 3) -> dict:
+    """The reference's ``serve_bulk`` shape: ``queries`` (``BULK`` of them)
+    in one batch through ``search`` (``search_lider``), captured as the query
+    path always is: a first run, the capture, then replays. The ids must
+    equal the same queries' in batches of ``BATCH``; the scores bit for bit,
+    or else within rtol 1e-5 (the line says which held). The launches of
+    the first run are one batch's; then the replays timed by CUDA events,
+    the phase's peak device memory and the graph's pool. Last, each kernel
+    call of one batch timed beside its bound, as the shapes phase does.
+    The graphs of ``params`` are freed first, and the bulk graph after."""
+    from repro_torch.core import graphs
+    from repro_torch.core.types import tensor_leaves
+
+    small = [search(q) for q in queries.split(BATCH)]
+    want = (torch.cat([o.ids for o in small]), torch.cat([o.scores for o in small]))
+    del small
+    stream = torch.cuda.current_stream()
+    graphs.release(stream, tensor_leaves(params))
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first, t_first = host_ms(lambda: search(queries))
+    counts = read_counts()
+    if counts != per:
+        raise AssertionError(f"{phase} {name} bulk: the first run launched {counts}, expected {per}")
+    pool = graphs.held_bytes(stream)
+    lat = []
+    for _ in range(reps):
+        got, ms = event_ms(lambda: search(queries))
+        lat.append(ms)
+        if not bit_equal((got.ids, got.scores), (first.ids, first.scores)):
+            raise AssertionError(f"{phase} {name} bulk: a replay differs from the first run")
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(first.ids, want[0]):
+        rows = int((first.ids != want[0]).any(1).sum())
+        raise AssertionError(f"{phase} {name} bulk: {rows} of {queries.shape[0]} queries' ids differ "
+                             f"from the same queries in batches of {BATCH}")
+    if bit_equal((first.ids, first.scores), want):
+        scores = "scores bit for bit"
+    else:
+        torch.testing.assert_close(first.scores, want[1], rtol=1e-5, atol=0)
+        scores = (f"scores within rtol 1e-5 (not bit for bit; max |diff| "
+                  f"{float((first.scores - want[1]).abs().max()):.3g})")
+    med = statistics.median(lat)
+    log(phase, f"{name} at the serve_bulk shape: {queries.shape[0]} queries in one batch == the same "
+        f"queries in batches of {BATCH}: ids equal, {scores}; first run (eager, then the capture) "
+        f"{t_first:.1f} ms, launches {fmt_counts(counts)}; replayed batch median {med:.3f} ms (CUDA "
+        f"events; all {', '.join(f'{v:.3f}' for v in lat)}), {queries.shape[0] / med * 1e3:.0f} "
+        f"queries/s; the graph's pool {pool / 1e9:.3f} GB; "
+        + peak_line(f"bulk {name}", peak, index_nbytes(params), corpus_bytes, "host memory"))
+    graphs.release(stream, tensor_leaves(params))
+    free()
+    calls = []
+    with recording(calls):
+        search(queries)
+    torch.cuda.synchronize()
+    timed = []
+    first_fv = next(c for c in calls if c[0] != "lsh_hash")
+    hash_roles = iter(("query hash (centroids)", "query hash (bank)"))
+    for call in calls:
+        cname, args, kw = call
+        if cname == "lsh_hash":
+            res = time_build_call(f"{name} bulk", next(hash_roles), cname, args, kw, reps=10)
+        else:
+            role, _, chunk = _role(cname, args, kw, first=call is first_fv)
+            if role == "rescore" and args[1].shape[1] > 10_000:  # a float table's in-cluster call
+                role, chunk = "in-cluster", 8
+            res = time_call(f"{name} bulk", role, cname, args, kw, reps=3, chunk=chunk)
+        res["launches_per_batch"] = per[list(KERNELS).index(cname)]
+        timed.append(res)
+    del calls
+    free()
+    return {"ms": med, "first_ms": t_first, "pool_bytes": pool, "peak_gb": peak / 1e9,
+            "scores_bit_equal": scores == "scores bit for bit", "calls": timed}
+
+
+def phase_small(dev) -> dict:
+    """The ``SMALL_N``-row corpus of the paths that keep their earlier size:
+    the corpus, 4 x 256 queries, Flat's exact top-k, and the centroids and
+    index bytes of its float32 build."""
+    from repro_torch.configs.lider_msmarco import CONFIG
     from repro_torch.core import lider
+    from repro_torch.core.baselines import flat_search
+    from repro_torch.data import synthetic
+
+    corpus = synthetic.retrieval_corpus(SEED, SMALL_N, CONFIG.dim, device=dev)
+    queries, _ = synthetic.retrieval_queries(SEED + 1, corpus, N_BATCHES * BATCH)
+    params = lider.build_lider(SEED, corpus, CONFIG.lider, device=dev)
+    return {"corpus": corpus, "queries": queries, "gt": flat_search(corpus, queries, k=CONFIG.k).ids,
+            "centroids": params.centroids, "index_bytes": index_nbytes(params)}
+
+
+def cut_line(phase: str, secs: float, scale: float, t_run: float, why: str) -> str:
+    """Why ``phase`` ran on the ``SMALL_N``-row corpus: its seconds here,
+    times ``scale`` (the float32 index's bytes at the reference's size over
+    its bytes at ``SMALL_N``) beside the run's time so far and limit, and
+    ``why`` (what this run measured that the larger size would break)."""
+    from repro_torch.configs.lider_msmarco import CONFIG
+
+    return (f"cut: {phase} ran on the {SMALL_N:,}-row corpus, not {CONFIG.corpus_size:,}: "
+            f"{secs:.1f} s here, ~{secs * scale:.0f} s at {scale:.2f}x the tables, with the run at "
+            f"{t_run:.0f} s of its {RUN_LIMIT_S} s limit; {why}")
+
+
+def reference_capacity(dev, corpus, assignment, cfg) -> str:
+    """The reference's capacity on the build's assignment: the clusters it
+    would overflow, the passages it would drop, and ``build_bank`` at it
+    raising ``CapacityOverflowError`` (before any pack) as the reference's
+    does. Fails where ``cfg.capacity`` is None and the reference's capacity
+    drops nothing: the cut in ``REDUCED`` would then not be forced."""
+    from repro_torch.configs.lider_msmarco import ARCH
+    from repro_torch.core import bank
+
+    cap = ARCH.config.capacity
+    sizes = assignment.to(torch.int64).bincount(minlength=cfg.n_clusters)
+    over, drops = int((sizes > cap).sum()), int((sizes - cap).clamp(min=0).sum())
+    if cfg.capacity is not None:
+        return f"the reference's capacity {cap} is the configuration's"
+    if not drops:
+        raise AssertionError(f"capacity None, but the reference's {cap} drops nothing here")
+    try:
+        bank.build_bank(torch.Generator(device=dev), corpus, assignment, n_clusters=cfg.n_clusters,
+                        capacity=cap, n_arrays=cfg.n_arrays, key_len=cfg.key_len,
+                        n_leaves=cfg.n_leaves)
+    except bank.CapacityOverflowError as e:
+        if e.n_dropped != drops:
+            raise AssertionError(f"build_bank at capacity {cap} counts {e.n_dropped} drops, not {drops}")
+    else:
+        raise AssertionError(f"build_bank at capacity {cap} did not raise")
+    return (f"the reference's capacity {cap} overflows {over} clusters and would drop {drops} "
+            "passages: build_bank at it raises CapacityOverflowError, so the cell takes capacity None")
+
+
+def phase_main(dev) -> dict:
+    """The main phase at the reference's size; see the module docstring.
+    Returns the readings and, for the later 8.8M phases, the queries, the
+    exact top-k, the searched index and the corpus in host memory."""
+    from repro_torch.configs.lider_msmarco import CONFIG, REDUCED
+    from repro_torch.core import bank, lider
     from repro_torch.core.baselines import flat_search
     from repro_torch.core.utils import recall_at_k
     from repro_torch.data import synthetic
@@ -1006,30 +1270,60 @@ def phase_main(dev) -> dict:
     t0 = time.perf_counter()
     corpus = synthetic.retrieval_corpus(SEED, CONFIG.corpus_size, CONFIG.dim, device=dev)
     queries, _ = synthetic.retrieval_queries(SEED + 1, corpus, N_BATCHES * BATCH)
+    bulk_queries, _ = synthetic.retrieval_queries(SEED + 31, corpus, BULK)
+    graph_queries, _ = synthetic.retrieval_queries(SEED + 21, corpus, GRAPH_BATCHES * BATCH)
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
+    peak_data = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    gt = flat_search(corpus, queries, k=CONFIG.k)
+    torch.cuda.synchronize()
+    t_flat = time.perf_counter() - t0
+    log("main", f"data: corpus {corpus.nbytes / 1e9:.3f} GB made on the card in {t_data:.2f} s "
+        f"(peak {peak_data / 1e9:.2f} GB, predicted {PREDICTED_PEAK_GB['data']} GB: the rows, their "
+        f"noise and the normalised copy); Flat's exact top-{CONFIG.k} of the {N_BATCHES * BATCH} "
+        f"queries {t_flat:.2f} s")
+
+    # 1. The main path's build: counted, staged, profiled; its first call of
+    # each kernel role is kept and checked at its full size while only the
+    # corpus is on the card. Only its k-means result is kept after that.
+    torch.cuda.reset_peak_memory_stats()
     build_calls = []
     first = build_counted("main", dev, corpus, cfg, calls=build_calls, profile=True)
-    params, stats = first.params, first.stats
+    km, stats = first.km, first.stats
+    index_bytes = index_nbytes(first.params)
     peak_build = torch.cuda.max_memory_allocated()
-    warm = build_counted("main", dev, corpus, cfg)
-    del warm.params
-    log("main", same_builds(first.km, warm.km))
-    log("main", lloyd_sums(corpus, first.km.assignment, cfg.n_clusters))
+    if stats.n_dropped:
+        raise AssertionError(f"the build dropped {stats.n_dropped} passages")
+    first.params = None
+    free()
+    build_shapes = phase_shapes_build(build_calls, cfg.n_clusters)
+    checks = shape_checks(build_calls)
+    del build_calls
+    free()
+    # 2. A build whose every kernel call is timed alone; 3. the warm build,
+    # searched below: its k-means result must equal the first's bit for bit.
     timed = time_every_build_call(dev, corpus, cfg)
-    log("main", f"data {t_data:.2f} s; capacity Lp={stats.capacity}; indexed {stats.n_indexed}, "
-        f"dropped {stats.n_dropped}; peak device memory of the first build "
-        f"{peak_build / 2**30:.2f} GiB")
+    free()
+    warm = build_counted("main", dev, corpus, cfg)
+    params = warm.params
+    table = (table_fingerprint(params.bank.embs), params.bank.gids.clone())
+    log("main", same_builds(km, warm.km))
+    log("main", lloyd_sums(corpus, km.assignment, cfg.n_clusters))
+    log("main", f"capacity Lp={stats.capacity} (largest cluster {int(km.assignment.bincount().max())});"
+        f" indexed {stats.n_indexed}, dropped {stats.n_dropped}; peak device memory of the first "
+        f"build {peak_build / 1e9:.2f} GB; " + reference_capacity(dev, corpus, km.assignment, cfg))
     log("main", f"first build_lider of the process {first.secs:.2f} s ({fmt_stages(first)}); warm "
         f"build {warm.secs:.2f} s ({fmt_stages(warm)})")
     log("main", f"first build under cProfile, the functions with most time of their own: {first.top}")
     for name in BUILD_KERNELS:
         mine = [t for t in timed if t["kernel"] == name]
-        log("main", f"a third build, every call timed alone: {len(mine)} {name} calls, kernel "
+        log("main", f"a build with every call timed alone: {len(mine)} {name} calls, kernel "
             f"{sum(t['ms'] for t in mine):.3f} ms in all, plain version "
             f"{sum(t['plain_ms'] for t in mine):.3f} ms, cuBLAS product alone "
             f"{sum(t['product_ms'] for t in mine):.3f} ms, bound {sum(t['bound_ms'] for t in mine):.3f} ms"
             f" (one float32 product on the CUDA cores: {sum(t['f32_bound_ms'] for t in mine):.3f} ms)")
+    del warm, km
 
     k, n_probe = CONFIG.k, cfg.n_probe
     search = lambda q: lider.search_lider(
@@ -1067,32 +1361,41 @@ def phase_main(dev) -> dict:
     scores = torch.cat([o.scores for o in outs])
     if ids.shape != (N_BATCHES * BATCH, k) or not bool(torch.isfinite(scores).all()):
         raise AssertionError(f"bad result: shape {tuple(ids.shape)}, finite {bool(torch.isfinite(scores).all())}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gt = flat_search(corpus, queries, k=k)
-    torch.cuda.synchronize()
-    t_flat = time.perf_counter() - t0
     rec = float(recall_at_k(ids, gt.ids))
     med = statistics.median(lat_ms)
     log("main", f"{N_BATCHES} x {BATCH} queries at k={k}: launches {fmt_counts(counts)} "
         f"({per_batch('F32')} per batch, as the code predicts); per-batch latency median "
         f"{med:.3f} ms (CUDA events; all {', '.join(f'{v:.3f}' for v in lat_ms)}), host wall "
         f"median {statistics.median(wall_ms):.3f} ms, {BATCH / med * 1e3:.0f} queries/s")
-    log("main", f"recall@{k} vs Flat = {rec:.4f} (floor {RECALL_FLOOR}); Flat {t_flat:.2f} s")
-    if rec < RECALL_FLOOR:
-        raise AssertionError(f"recall@{k} {rec} below {RECALL_FLOOR}")
+    ivf = ivf_recall(params, queries, gt.ids, cfg, k)
+    log("main", f"recall@{k} vs Flat = {rec:.4f}; IVF-Flat (an exact scan of the {n_probe} clusters "
+        f"whose centroids score highest) {ivf['ivf']:.4f}, so LIDER keeps {rec / ivf['ivf']:.3f} of "
+        f"it (floor {LIDER_OF_IVF}); an exact scan of the {n_probe} clusters LIDER routes to "
+        f"{ivf['routed']:.4f}")
+    if rec < LIDER_OF_IVF * ivf["ivf"]:
+        raise AssertionError(f"recall@{k} {rec} below {LIDER_OF_IVF} of IVF-Flat's {ivf['ivf']}")
 
     log("main", "first 8 queries: " + against_plain(params, search, batches[0][:8]))
     phase_trace("trace F32", search, batches[1], med)
-    graph_queries, _ = synthetic.retrieval_queries(SEED + 21, corpus, GRAPH_BATCHES * BATCH)
     graph_batches = list(graph_queries.split(BATCH))
     f32_graphs = graph_point("graphs", "F32", search, graph_batches, per_batch("F32"))
+    log("main", peak_line("main", torch.cuda.max_memory_allocated(), index_bytes, corpus.nbytes,
+                          "the card"))
+    # The later phases at this size need the corpus only to build from: it
+    # goes to host memory, and the card keeps the index.
+    host_corpus, t_move = host_ms(lambda: bank.copy_through_pinned(
+        torch.empty(corpus.shape, dtype=corpus.dtype), corpus))
+    del corpus
+    free()
+    log("main", f"corpus to host memory in {t_move / 1e3:.2f} s (through a pinned buffer); on the "
+        f"card: {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     return {
-        "kernel_calls": kernel_calls, "build_calls": build_calls, "launches": counts,
-        "build_launches": first.counts, "build_timed": timed, "recall": rec, "latency_ms": med,
-        "peak_gib": peak_build / 2**30, "corpus": corpus, "queries": queries, "gt": gt.ids,
-        "params": params, "centroids": params.centroids, "graph_batches": graph_batches,
-        "graphs": {"F32": f32_graphs},
+        "kernel_calls": kernel_calls, "build_shapes": build_shapes, "build_checks": checks,
+        "launches": counts, "build_launches": first.counts, "build_timed": timed, "recall": rec,
+        "latency_ms": med, "peak_gb": peak_build / 1e9, "host_corpus": host_corpus,
+        "queries": queries, "bulk_queries": bulk_queries, "gt": gt.ids, "params": params,
+        "graph_batches": graph_batches, "graphs": {"F32": f32_graphs}, "search": search,
+        "table": table, "index_bytes": index_bytes, "ivf_recall": ivf["ivf"],
     }
 
 
@@ -1155,10 +1458,11 @@ def build_counted(phase: str, dev, corpus, cfg, *, calls=None, profile=False, se
     want = per_build(cfg, kmeans=kmeans)
     if counts != want:
         raise AssertionError(f"{phase}: one build launched {counts}, expected {want}")
-    log(phase, f"one build_lider launched {fmt_counts(counts)}, as the code predicts "
-        f"({cfg.kmeans_iters} Lloyd steps + 1 final assignment; ceil({cfg.n_clusters} / "
-        "64) bank-fit chunks + 1 centroid-model fit)" if kmeans else
-        f"one build_lider (given centroids) launched {fmt_counts(counts)}, as the code predicts")
+    log(phase, (f"one build_lider launched {fmt_counts(counts)}, as the code predicts "
+                f"({cfg.kmeans_iters} Lloyd steps + 1 final assignment; ceil({cfg.n_clusters} / "
+                "64) bank-fit chunks + 1 centroid-model fit)" if kmeans else
+                f"one build_lider (given centroids) launched {fmt_counts(counts)}, as the code "
+                "predicts") + f"; indexed {stats.n_indexed}, dropped {stats.n_dropped}")
     return types.SimpleNamespace(params=params, stats=stats, secs=secs, stages=stages,
                                  counts=counts, top=top_functions(prof) if prof else None,
                                  km=outs["k-means" if kmeans else "assignment"])
@@ -1286,7 +1590,9 @@ def time_every_build_call(dev, corpus, cfg) -> list[dict]:
     with contextlib.ExitStack() as stack:
         for attr, name in (("_lsh", "lsh_hash"), ("_km", "kmeans_assign")):
             stack.enter_context(mock.patch.object(ops, attr, types.SimpleNamespace(**{name: timed(name)})))
-        lider.build_lider(SEED, corpus, cfg, device=dev)
+        _, stats = lider.build_lider(SEED, corpus, cfg, device=dev, return_stats=True)
+    log("main", f"the build with every call timed: indexed {stats.n_indexed}, dropped "
+        f"{stats.n_dropped}")
     return rows
 
 
@@ -1438,11 +1744,15 @@ def verify_counts(name: str, args, kw) -> tuple:
     out = kw.get("out_ids")
     out = row_ids if out is None else out
     b, k = q.shape[0], kw["k"]
-    valid = out >= 0
-    rows = row_ids.to(torch.int64)
-    distinct = int(torch.unique(rows[valid]).numel())
-    pairs = int(torch.unique(
-        (torch.arange(b, device=rows.device)[:, None] * table.shape[0] + rows)[valid]).numel())
+    # 256 queries at a time: a batch of 8,192 has 655 M candidates.
+    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=row_ids.device)
+    pairs = 0
+    for s in range(0, b, 256):
+        rows, valid = row_ids[s : s + 256].to(torch.int64), out[s : s + 256] >= 0
+        seen[rows[valid]] = True
+        pairs += int(torch.unique(
+            (torch.arange(rows.shape[0], device=rows.device)[:, None] * table.shape[0] + rows)[valid]).numel())
+    distinct = int(seen.sum())
     if name == "sketch_prefilter":
         row_bytes, per_pair, peak = table.shape[1] * 4, 2 * table.shape[1], PEAK_OPS[torch.int8]
     elif kw.get("scales") is not None:
@@ -1577,7 +1887,8 @@ def time_call(path: str, role: str, name: str, args, kw, *, reps: int, chunk: in
     run = lambda: wrappers()[name](*args, **kw)
     got = run()
     torch.cuda.synchronize()
-    want = plain_chunked(name, args, kw, chunk)
+    plain = lambda: plain_chunked(name, args, kw, chunk)
+    want = plain()
     exact = name != "fused_verify" or kw.get("scales") is not None
     if exact:
         if not bit_equal(got, want):
@@ -1587,7 +1898,7 @@ def time_call(path: str, role: str, name: str, args, kw, *, reps: int, chunk: in
         err, swaps = compare(got, want)
     ms = cuda_ms(run, reps)
     dev_ms = device_ms(name, run, wrappers()[name])
-    plain_ms = cuda_ms(lambda: plain_chunked(name, args, kw, chunk), 1)
+    _, plain_ms = event_ms(plain)  # warm: the call that made ``want`` ran first
     bound_ms, bound_by = bound(name, args, kw)
     res = {"kernel": name, "path": path, "call": role, **describe(name, args, kw), "ms": ms,
            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1748,7 +2059,7 @@ def time_build_call(path: str, role: str, name: str, args, kw, *, reps: int) -> 
     del got, want
     ms = cuda_ms(run, reps)
     dev_ms = device_ms(name, run, wrappers()[name])
-    plain_ms = cuda_ms(plain, 1)
+    _, plain_ms = event_ms(plain)  # warm: the call that made ``want`` ran first
     product_ms = cuda_ms(product, reps)
     f32 = f", one float32 product on the CUDA cores {shape.pop('f32_bound_ms'):.4f} ms"
     dims = ", ".join(f"{k}={v}" for k, v in shape.items())
@@ -1762,19 +2073,22 @@ def time_build_call(path: str, role: str, name: str, args, kw, *, reps: int) -> 
             "bound_by": bound_by, "max_abs_err": err, **extra}
 
 
-def phase_shapes_build(main) -> list[dict]:
+def phase_shapes_build(calls, n_clusters: int) -> list[dict]:
     """The build's first call of each role (the k-means step over all N,
-    one bank-fit chunk, the centroid-model fit) and one search batch's two
-    query hashes."""
-    res = []
+    one bank-fit chunk, the centroid-model fit)."""
     reps = {"k-means step": 5, "bank fit": 20, "centroid fit": 50}
-    for name, args, kw in main["build_calls"]:
-        role = build_role(name, args, main["params"].n_clusters)
+    res = []
+    for name, args, kw in calls:
+        role = build_role(name, args, n_clusters)
         res.append(time_build_call("build", role, name, args, kw, reps=reps[role]))
-    hashes = [c for c in main["kernel_calls"] if c[0] == "lsh_hash"]
-    for role, (name, args, kw) in zip(("query hash (centroids)", "query hash (bank)"), hashes):
-        res.append(time_build_call("F32", role, name, args, kw, reps=50))
     return res
+
+
+def phase_shapes_hashes(main) -> list[dict]:
+    """One search batch's two query hashes."""
+    hashes = [c for c in main["kernel_calls"] if c[0] == "lsh_hash"]
+    return [time_build_call("F32", role, name, args, kw, reps=50)
+            for role, (name, args, kw) in zip(("query hash (centroids)", "query hash (bank)"), hashes)]
 
 
 def _role(name: str, args, kw, first: bool) -> tuple[str, int, int]:
@@ -1793,23 +2107,29 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
     """Build the ``storage`` index at full width, drive each operating point
     in ``points`` over 4 x 256 queries, check it, and time its calls."""
     from repro_torch.configs.lider_msmarco import CONFIG
-    from repro_torch.core import lider
+    from repro_torch.core import graphs, lider
+    from repro_torch.core.types import tensor_leaves
     from repro_torch.core.utils import recall_at_k
     from repro_torch.kernels.schedule import build_cluster_schedule
 
     cfg = CONFIG.lider
     k = CONFIG.k
     torch.cuda.reset_peak_memory_stats()
-    built = build_counted("quantized", dev, main["corpus"], points[0].lider_config(cfg))
+    corpus = main["host_corpus"]
+    built = build_counted("quantized", dev, corpus, points[0].lider_config(cfg))
     params, stats, t_build = built.params, built.stats, built.secs
-    del built
     b = params.bank
-    log("quantized", f"{storage} index: build_lider {t_build:.2f} s; Lp={stats.capacity}, dropped "
-        f"{stats.n_dropped}; codes {tuple(b.embs.shape)} {b.embs.dtype}, rescore "
-        f"{tuple(b.rescore_embs.shape)}, sketches {tuple(b.sketches.shape)} {b.sketches.dtype}; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if stats.n_dropped:
+        raise AssertionError(f"{storage}: the build dropped {stats.n_dropped} passages")
+    log("quantized", f"{storage} index from the corpus in host memory: build_lider {t_build:.2f} s "
+        f"({fmt_stages(built)}); Lp={stats.capacity}, dropped {stats.n_dropped}; codes "
+        f"{tuple(b.embs.shape)} {b.embs.dtype}, rescore {tuple(b.rescore_embs.shape)}, sketches "
+        f"{tuple(b.sketches.shape)} {b.sketches.dtype}; peak device memory of the build "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del built
+    same_table(f"quantized {storage}", b, main["table"])
     batches = [main["queries"][i * BATCH : (i + 1) * BATCH] for i in range(N_BATCHES)]
-    out = {"build_s": t_build, "paths": {}, "calls": []}
+    out = {"build_s": t_build, "paths": {}, "calls": [], "index_bytes": index_nbytes(params)}
     results = {}
     for op in points:
         search = lambda q, op=op: lider.search_lider(
@@ -1843,11 +2163,13 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
         med = statistics.median(lat_ms)
         log("quantized", f"{op.name} ({storage}, {op.search_kwargs()}): launches per batch "
             f"{fmt_counts(c // N_BATCHES for c in counts)} (as the code predicts); recall@{k} vs Flat "
-            f"{rec:.4f} (float32 bank {main['recall']:.4f}; floor {RECALL_FLOOR}); batch latency "
+            f"{rec:.4f} (float32 bank {main['recall']:.4f}; floor {LIDER_OF_IVF} of IVF-Flat's "
+            f"{main['ivf_recall']:.4f}); batch latency "
             f"median {med:.3f} ms (all {', '.join(f'{v:.3f}' for v in lat_ms)}), "
             f"{BATCH / med * 1e3:.0f} queries/s")
-        if rec < RECALL_FLOOR:
-            raise AssertionError(f"{op.name}: recall@{k} {rec} below {RECALL_FLOOR}")
+        if rec < LIDER_OF_IVF * main["ivf_recall"]:
+            raise AssertionError(f"{op.name}: recall@{k} {rec} below {LIDER_OF_IVF} of IVF-Flat's "
+                                 f"{main['ivf_recall']}")
         log("quantized", f"{op.name}: first 8 queries: "
             + against_plain(params, search, batches[0][:8]))
         results[op.name] = (ids, scores)
@@ -1883,12 +2205,21 @@ def phase_quantized(dev, main, storage: str, points) -> dict:
     for name in ("Q8", "Q8-cm") if storage == "int8" else ("Q4-sk-cm",):
         traced = out["paths"][name]
         phase_trace(f"trace {name}", traced["search"], batches[1], traced["latency_ms"])
+    # The graphs captured so far (one a cm schedule length) would crowd the
+    # graph points' own at this size.
+    graphs.release(torch.cuda.current_stream(), tensor_leaves(params))
+    free()
     out["graphs"] = {
         op.name: graph_point("graphs", op.name, padded_cm_search(params, op) if op.block_q
                              else out["paths"][op.name]["search"], main["graph_batches"],
                              per_batch(op.name))
         for op in points
     }
+    log("quantized", peak_line(storage, torch.cuda.max_memory_allocated(), index_nbytes(params),
+                               corpus.nbytes, "host memory"))
+    if storage == "int8":
+        out["bulk"] = phase_bulk("quantized", "Q8", params, out["paths"]["Q8"]["search"],
+                                 main["bulk_queries"], per_batch("Q8"), corpus.nbytes)
     for p in out["paths"].values():
         p.pop("search")
     del params, b
@@ -2090,62 +2421,68 @@ def serve_search_stage1(ph, qb):
                                  r0_centroid=cfg.r0_centroid)
 
 
-def phase_serve(dev, main) -> dict:
-    """The host rescore tier and the serving engine at full width, on the
-    int8 and int4 indexes of the quantized phase (built again): tiers, the
-    engine closed and open loop, an update under serving, faults, a
-    host-tier checkpoint, and the rescore over fetched rows timed."""
-    from repro_torch import faults
-    from repro_torch.configs.lider_msmarco import CONFIG, HOST_TIER, SERVING
-    from repro_torch.core import clustering, lider, update
-    from repro_torch.data import synthetic
-    from repro_torch.serving import DegradePolicy, make_trace, run_open_loop
-    from repro_torch.testing import uncaptured
-    from repro_torch.training import checkpoint
+def phase_serve_tiers(dev, main) -> dict:
+    """The host rescore tier at the reference's size: the int8 and the int4
+    index built on the host tier from the corpus in host memory, each
+    moved to the device tier and searched there, then moved back (the move
+    frees the float32 table's bytes of the card exactly), the four
+    ``HOST_TIER`` points on the moved index == the device tier bit for bit;
+    on int8 the captured host-tier Q8 batch, its stages and the rescore over
+    fetched rows timed. One host table at a time: two and the corpus would
+    pass the host's memory."""
+    from repro_torch.configs.lider_msmarco import CONFIG, HOST_TIER
+    from repro_torch.core import graphs, lider
+    from repro_torch.core.types import tensor_leaves
 
     cfg, k = CONFIG.lider, CONFIG.k
     batches = [main["queries"][i * BATCH : (i + 1) * BATCH] for i in range(N_BATCHES)]
     out = {"tiers": {}}
-
-    # 1. Tiers: each quantized index is built on the tier its points name
-    # (``HOST_TIER``: the table built on the card, then moved to the host),
-    # and a device-tier copy made with ``set_rescore_tier``; every point must
-    # return the device tier's ids and scores, bit for bit.
-    hosts = {}
+    corpus = main["host_corpus"]
     for storage in ("int8", "int4"):
         points = [p for p in HOST_TIER if p.storage_dtype == storage]
-        gc.collect()
-        torch.cuda.empty_cache()
+        free()
         torch.cuda.reset_peak_memory_stats()
-        ph, t_build = host_ms(lambda: lider.build_lider(SEED, main["corpus"], points[0].lider_config(cfg),
-                                                        device=dev))
+        log("serve", host_memory_line(f"{storage} host tier, before the build"))
+        (ph, stats), t_build = host_ms(lambda: lider.build_lider(
+            SEED, corpus, points[0].lider_config(cfg), device=dev, return_stats=True))
         if ph.bank.rescore_tier != "host":
             raise AssertionError(f"{storage}: the HOST_TIER build is on the {ph.bank.rescore_tier} tier")
         peak = torch.cuda.max_memory_allocated()
         m_host = torch.cuda.memory_allocated()
+        log("serve", host_memory_line(f"{storage} host tier, built"))
         pd, t_dev = host_ms(lambda: lider.set_rescore_tier(ph, "device"))
-        m_dev = torch.cuda.memory_allocated()
+        same_table(f"serve {storage} (host tier, built from the corpus in host memory)",
+                   pd.bank, main["table"])
+        del ph  # moved back below: two host tables and the corpus would pass the host's memory
         dev_results = {}
         for op in points:
             outs = [serve_search(pd, qb, **op.search_kwargs()) for qb in batches]
             dev_results[op.name] = (torch.cat([o.ids for o in outs]), torch.cat([o.scores for o in outs]))
+        del outs
         before = pd.bank.nbytes_by_tier()
-        del ph
+        index_bytes = index_nbytes(pd)
+        graphs.release(torch.cuda.current_stream(), tensor_leaves(pd))
+        free()
+        m_dev = torch.cuda.memory_allocated()
         ph, t_move = host_ms(lambda: lider.set_rescore_tier(pd, "host"))
         del pd
-        gc.collect()
-        torch.cuda.empty_cache()
+        free()
         m1 = torch.cuda.memory_allocated()
         after = ph.bank.nbytes_by_tier()
-        log("serve", f"{storage} index built on the host tier in {t_build / 1e3:.2f} s (peak device "
-            f"memory {peak / 2**30:.2f} GiB, the device tier's build; then {m_host / 1e9:.3f} GB "
-            f"allocated); set_rescore_tier(device) {t_dev / 1e3:.2f} s: {m_dev / 1e9:.3f} GB allocated; "
-            f"set_rescore_tier(host) {t_move / 1e3:.2f} s and empty_cache: {m1 / 1e9:.3f} GB (freed "
-            f"{(m_dev - m1) / 1e9:.3f} GB; the host table is {after['host'] / 1e9:.3f} GB); "
+        if m_dev - m1 != after["host"]:
+            raise AssertionError(f"{storage}: the host tier freed {m_dev - m1} bytes of the card, "
+                                 f"the float32 table is {after['host']}")
+        log("serve", f"{storage} index built on the host tier in {t_build / 1e3:.2f} s (indexed "
+            f"{stats.n_indexed}, dropped {stats.n_dropped}; then {m_host / 1e9:.3f} GB "
+            f"allocated); set_rescore_tier(device) {t_dev / 1e3:.2f} s; after its searches, their "
+            f"graphs freed: {m_dev / 1e9:.3f} GB allocated; set_rescore_tier(host) "
+            f"{t_move / 1e3:.2f} s, the device-tier index dropped and empty_cache: {m1 / 1e9:.3f} "
+            f"GB (the host tier frees {m_dev - m1} bytes == the host table's {after['host']}); "
             f"nbytes_by_tier {before} -> {after}")
         out["tiers"][storage] = {"nbytes_device": before, "nbytes_host": after,
-                                 "freed_gb": (m_dev - m1) / 1e9, "move_s": t_move / 1e3,
-                                 "build_s": t_build / 1e3, "build_peak_gib": peak / 2**30}
+                                 "freed_gb": (m_dev - m1) / 1e9, "to_device_s": t_dev / 1e3,
+                                 "move_s": t_move / 1e3, "build_s": t_build / 1e3,
+                                 "build_peak_gb": peak / 1e9}
         for op in points:
             serve_search(ph, batches[0], **op.search_kwargs())  # warm
             reset_counts()
@@ -2167,16 +2504,27 @@ def phase_serve(dev, main) -> dict:
                 f"ids and scores bit for bit; launches per batch {fmt_counts(c // N_BATCHES for c in counts)}"
                 f" (the device tier's); batch latency (host clock, synchronised) median {med:.3f} ms "
                 f"(all {', '.join(f'{v:.3f}' for v in lat)}), {BATCH / med * 1e3:.0f} queries/s")
-        hosts[storage] = ph
-    del hosts["int4"]
-    ph8 = hosts.pop("int8")
-    gc.collect()
-    out["graphs"] = graph_point("graphs", "host Q8", lambda q: serve_search(ph8, q),
-                                main["graph_batches"], per_batch("Q8"))
-    out["split"] = stage_split(ph8, batches[0])
+        if storage == "int8":
+            out.update(host_q8_stages(ph, main, batches))
+        log("serve", peak_line(f"serve {storage}", torch.cuda.max_memory_allocated(), index_bytes,
+                               corpus.nbytes, "host memory"))
+        del ph
+    free()
+    return out
 
-    # The rescore over fetched rows as a kernel call, timed as the shapes
-    # phase times a call.
+
+def host_q8_stages(ph8, main, batches) -> dict:
+    """On the host-tier int8 index: the captured host-tier Q8 batch
+    (``graph_point``), one batch split into its stages, and the rescore
+    over fetched rows timed as a kernel call, its launches counted around
+    one ``host_rescore``."""
+    from repro_torch.configs.lider_msmarco import CONFIG, HOST_TIER
+    from repro_torch.core import lider
+
+    k, dev = CONFIG.k, batches[0].device
+    out = {"graphs": graph_point("graphs", "host Q8", lambda q: serve_search(ph8, q),
+                                 main["graph_batches"], per_batch("Q8"))}
+    out["split"] = stage_split(ph8, batches[0])
     calls = []
     with recording(calls, lambda name, a, kw_: name == "fused_verify" and kw_.get("scales") is None):
         serve_search(ph8, batches[0])
@@ -2187,7 +2535,6 @@ def phase_serve(dev, main) -> dict:
         raise AssertionError(f"the rescore's table has {args[0].shape[0]} rows, not B * k' = {n_fetched}")
     out["rescore_call"] = time_call("Q8 host", "rescore (fetched rows)", name, args, kw_, reps=20,
                                     chunk=256)
-    # Its launches: one host_rescore of batch 0, counts reset around it.
     prov, _ = serve_search_stage1(ph8, batches[0])
     fetched = lider.host_fetch(ph8, prov.ids).to(dev)
     torch.cuda.synchronize()
@@ -2200,7 +2547,25 @@ def phase_serve(dev, main) -> dict:
         raise AssertionError(f"host_rescore launched {fmt_counts(counts)}")
     out["rescore_call"]["launches_per_batch"] = fv
     log("serve", f"host_rescore of one batch launches {fmt_counts(counts)}")
-    del prov, fetched
+    return out
+
+
+def phase_serve(dev, main) -> dict:
+    """The serving engine on the int8 index of ``main``'s corpus (the
+    1,048,576-row one, :func:`phase_small`), built on the host tier: one
+    batch's stages, the engine closed and open loop, an update under
+    serving, faults, a host-tier checkpoint."""
+    from repro_torch import faults
+    from repro_torch.configs.lider_msmarco import CONFIG, HOST_TIER, SERVING
+    from repro_torch.core import clustering, lider, update
+    from repro_torch.data import synthetic
+    from repro_torch.serving import DegradePolicy, make_trace, run_open_loop
+    from repro_torch.testing import uncaptured
+    from repro_torch.training import checkpoint
+
+    cfg, k = CONFIG.lider, CONFIG.k
+    ph8 = lider.build_lider(SEED, main["corpus"], HOST_TIER[0].lider_config(cfg), device=dev)
+    out = {"split": stage_split(ph8, main["queries"][:BATCH])}
 
     # 2. The engine, closed loop: 16 x 256 queries, then drain.
     n_closed = SERVING.closed_loop_batches * SERVING.batch
@@ -2375,7 +2740,7 @@ def phase_serve(dev, main) -> dict:
         torch.cuda.empty_cache()
     shutil.rmtree(d, ignore_errors=True)
     out["checkpoint"] = {"save_s": t_save / 1e3, "load_s": loads, "gb": size / 1e9}
-    log("serve", f"host-tier int8 checkpoint at full width: save_index {t_save / 1e3:.2f} s "
+    log("serve", f"host-tier int8 checkpoint: save_index {t_save / 1e3:.2f} s "
         f"({size / 1e9:.2f} GB on disk); load_index as host {loads['host']:.2f} s, as device "
         f"{loads['device']:.2f} s; all {len(want)} leaves identical and search ids and scores "
         "identical on both tiers")
@@ -2919,7 +3284,7 @@ def phase_lifecycle(dev, main) -> dict:
     del loaded, deleted
     small = phase_lifecycle_small(dev)
     return {"upsert_per_s": rates, "upsert_s": t_up, "delete_s": t_delete, "save_s": t_save,
-            "load_s": t_load, "peak_gib": peak, "small": small}
+            "load_s": t_load, "peak_gib": peak, "small": small, "save_gb": size / 1e9}
 
 
 def phase_lifecycle_small(dev) -> list[str]:
@@ -3353,7 +3718,7 @@ def phase_distributed(dev, main, smi: str) -> dict:
     lloyd_want = clustering.update_centroids(cen, sums_lloyd, counts_lloyd).cpu().numpy()
     del sums_lloyd, counts_lloyd
     torch.cuda.synchronize()
-    log("distributed", f"parent: float32, int8 and int4 indexes at {CONFIG.corpus_size} x "
+    log("distributed", f"parent: float32, int8 and int4 indexes at {corpus.shape[0]} x "
         f"{CONFIG.dim}, c={n_clusters}, built in {t_build:.2f} s; single-device answers, the "
         f"per-pair answers ready at "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -3449,7 +3814,7 @@ def phase_distributed(dev, main, smi: str) -> dict:
     ids = tight["ids"]
     if tight["dropped"] != drops or min(drops) <= 0:
         raise AssertionError(f"capacity {DIST.tight}: dropped {tight['dropped']}, host count {drops}")
-    if not (((ids >= -1) & (ids < CONFIG.corpus_size)).all() and (ids >= 0).any()):
+    if not (((ids >= -1) & (ids < corpus.shape[0])).all() and (ids >= 0).any()):
         raise AssertionError(f"capacity {DIST.tight}: ids out of range")
     log("distributed", f"F32 at capacity factor {DIST.tight} on the 2x2 grid: dropped "
         f"{tight['dropped']} pairs a batch (== the host's count from the routed ids), ids well "
@@ -3491,7 +3856,7 @@ def phase_distributed(dev, main, smi: str) -> dict:
     err = float(np.abs(got - lloyd_want).max())
     if err > 1e-5:
         raise AssertionError(f"sharded Lloyd step differs from kmeans_step by {err}")
-    log("distributed", f"sharded Lloyd step over 4 data ranks (N {CONFIG.corpus_size}, c "
+    log("distributed", f"sharded Lloyd step over 4 data ranks (N {corpus.shape[0]}, c "
         f"{n_clusters}, d {CONFIG.dim}): max |difference| {err:.3g} from the single-device "
         f"kmeans_step + update_centroids (atol 1e-5); {r0['lloyd']['ms']:.3f} ms (world wall); "
         f"launches per rank {fmt_counts(r0['lloyd']['launches'])}")
@@ -4458,9 +4823,6 @@ DECODE_ARGMAX, DECODE_REL = 0.99, 2e-2
 DECODE_REL_F32 = 1e-4
 NEAR_TIE = 0.015
 RECALL_PROBES = 256  # c / 8
-# LIDER's recall at the main path's n_probe as a share of IVF-Flat's over
-# the same number of clusters: 0.513 on an H100 (PERF.md, PR 22).
-LIDER_OF_IVF = 0.4
 
 
 def phase_models_card(smi: str) -> None:
@@ -4796,6 +5158,22 @@ def phase_models_two_tower(dev, smi: str) -> dict:
             "step_ms": step_ms, "encode_s": t_enc,
             "build_s": built.secs, "batch_ms": ms, "peak_train_gib": peak_train / 2**30,
             "build_launches": built.counts, "search_launches": counts}
+
+
+def ivf_recall(params, queries, gt, cfg, k: int) -> dict:
+    """Recall@k against ``gt`` of an exact scan of each query's
+    ``cfg.n_probe`` clusters: those whose centroids score highest
+    (IVF-Flat, ``ivf``) and those LIDER's centroid layer routes to
+    (``routed``), two queries at a time (a query's clusters are 1 GB of
+    rows at the reference's size)."""
+    from repro_torch.core import lider
+    from repro_torch.core.utils import recall_at_k
+
+    exact_c = torch.topk(queries @ params.centroids.T, cfg.n_probe, dim=-1).indices
+    routed_c = torch.cat([lider.route_queries(params, q, n_probe=cfg.n_probe,
+                                              r0=cfg.r0_centroid).ids for q in queries.split(BATCH)])
+    return {name: float(recall_at_k(exact_scan_ids(params, queries, c, k, chunk=2), gt))
+            for name, c in (("ivf", exact_c), ("routed", routed_c))}
 
 
 def exact_scan_ids(params, q, cids, k: int, chunk: int = 64) -> torch.Tensor:
@@ -5219,11 +5597,11 @@ def build_entry(name: str, calls: list[dict], launches: int, timed: list[dict]) 
     }
 
 
-def graph_summary(f32: dict, q8: dict, q4: dict, serve: dict, smi: str) -> None:
+def graph_summary(f32: dict, q8: dict, q4: dict, tiers: dict, serve: dict, smi: str) -> None:
     """One line: each point's batch medians uncaptured and captured, the
     device's busy share both ways, and the graphs' memory; the host-tier
     engine's re-capture after an update."""
-    pts = {**f32, **q8, **q4, "host Q8": serve["graphs"]}
+    pts = {**f32, **q8, **q4, "host Q8": tiers["graphs"]}
     log("graphs", f"on {smi}: " + "; ".join(
         f"{n} {g['eager_ms']:.3f} -> {g['graph_ms']:.3f} ms, busy "
         + (f"{g['busy_eager']:.1%} -> {g['busy_graph']:.1%}" if g["busy_graph"] is not None
@@ -5283,50 +5661,112 @@ def main() -> int:
     device = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # Segments that grow in place for the phases at the reference's size:
+    # there the 8,192-query graph is captured beside a 53 GB index, and with
+    # fixed segments the allocator's split blocks left 12.7 GiB reserved but
+    # unallocated, so the capture ran out of memory (an H100 run of this
+    # script, PERF.md).
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     phase_build()
     phase_parity(dev)
+    clock("parity", t_start)
     main_res = phase_main(dev)
+    clock("main", t_start)
+    torch.cuda.reset_peak_memory_stats()
     f32_calls = phase_shapes_f32(main_res)
-    build_calls = phase_shapes_build(main_res)
+    hash_calls = phase_shapes_hashes(main_res)
     phase_shapes_distinct(dev)
-    checks = shape_checks(main_res["kernel_calls"] + main_res["build_calls"])
-    for key in ("kernel_calls", "build_calls", "params"):
-        main_res.pop(key)
+    checks = main_res.pop("build_checks") + shape_checks(main_res.pop("kernel_calls"))
+    log("shapes", peak_line("shapes", torch.cuda.max_memory_allocated(), index_nbytes(main_res["params"]),
+                            main_res["host_corpus"].nbytes, "host memory"))
+    corpus_bytes = main_res["host_corpus"].nbytes
+    main_res["bulk"] = phase_bulk("main", "F32", main_res.pop("params"), main_res.pop("search"),
+                                  main_res["bulk_queries"], per_batch("F32"), corpus_bytes)
     free()
+    clock("shapes and bulk F32", t_start)
     q8 = phase_quantized(dev, main_res, "int8", [p for p in QUANTIZED if p.storage_dtype == "int8"])
     free()
     q4 = phase_quantized(dev, main_res, "int4", [p for p in QUANTIZED if p.storage_dtype == "int4"])
     free()
-    serve = phase_serve(dev, main_res)
-    phase_fabric(dev, main_res, serve.pop("fabric_input"))
-    graph_summary(main_res["graphs"], q8["graphs"], q4["graphs"], serve, device["smi"])
+    clock("quantized", t_start)
+    tiers = phase_serve_tiers(dev, main_res)
+    main_res.pop("host_corpus")
     free()
-    cli = phase_cli(dev, main_res["corpus"])
+    clock("serve tiers", t_start)
+    # CUDA IPC (the distributed phase hands its ranks the parent's tensors)
+    # cannot share expandable segments on this host's kernel (no
+    # pidfd_open): the paths below allocate fixed segments, as before.
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+    # The paths that keep their earlier size, each with its cut.
+    small = phase_small(dev)
+    scale = main_res["index_bytes"] / small["index_bytes"]
+    t0 = time.perf_counter()
+    serve = phase_serve(dev, small)
+    log("serve", cut_line(
+        "the engine loops and the host-tier checkpoint", time.perf_counter() - t0, scale,
+        time.perf_counter() - t_start,
+        f"the checkpoint ({serve['checkpoint']['gb']:.2f} GB here) would be "
+        f"~{serve['checkpoint']['gb'] * scale:.0f} GB on disk"))
+    t0 = time.perf_counter()
+    clock("serve engine", t_start)
+    phase_fabric(dev, small, serve.pop("fabric_input"))
+    host_table = tiers["tiers"]["int8"]["nbytes_host"]["host"]
+    log("fabric", cut_line(
+        "the replica fabric", time.perf_counter() - t0, scale, time.perf_counter() - t_start,
+        f"its second replica copies the host store: two host tables of {host_table / 1e9:.2f} GB at "
+        f"the reference's size beside the corpus's {corpus_bytes / 1e9:.2f} GB would hold "
+        f"{(2 * host_table + corpus_bytes) / 1e9:.1f} GB of the host's {host_memory()['MemTotal'] / 1e9:.1f}"))
+    graph_summary(main_res["graphs"], q8["graphs"], q4["graphs"], tiers, serve, device["smi"])
     free()
-    phase_lifecycle(dev, main_res)
+    t0 = time.perf_counter()
+    cli = phase_cli(dev, small["corpus"])
+    log("cli", cut_line("the serve CLI's seven backends", time.perf_counter() - t0, scale,
+                        time.perf_counter() - t_start, "each backend builds its own index"))
+    clock("cli", t_start)
     free()
+    t0 = time.perf_counter()
+    life = phase_lifecycle(dev, small)
+    log("lifecycle", cut_line(
+        "the lifecycle", time.perf_counter() - t0, scale, time.perf_counter() - t_start,
+        f"its save ({life['save_gb']:.2f} GB here) would be ~{life['save_gb'] * scale:.0f} GB on disk"))
+    free()
+    clock("lifecycle", t_start)
     phase_examples()
     free()
-    dist = phase_distributed(dev, main_res, device["smi"])
-    for key in ("corpus", "queries", "gt", "centroids"):
-        main_res.pop(key, None)
+    clock("examples", t_start)
+    t0 = time.perf_counter()
+    dist = phase_distributed(dev, small, device["smi"])
+    three = main_res["index_bytes"] + q8["index_bytes"] + q4["index_bytes"]
+    log("distributed", cut_line(
+        "the distributed index", time.perf_counter() - t0, scale, time.perf_counter() - t_start,
+        f"it shares the float32, int8 and int4 indexes with its ranks at once: "
+        f"{three / 1e9:.1f} GB at the reference's size, on a card of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB"))
+    del small
     free()
+    clock("distributed", t_start)
     sharded = phase_models_sharded(dev, device["smi"])
     free()
+    clock("models_sharded", t_start)
     train = phase_train(dev, device["smi"])
+    clock("train", t_start)
     models = phase_models(dev, device["smi"], train["full"].pop("model"))
     free()
+    clock("models", t_start)
     phase_dryrun(device["smi"], {"train_full": train["full"], "models_sharded": sharded["dryrun"],
                                  "distributed": dist["dryrun"]},
                  checks + q8["shape_checks"] + q4["shape_checks"])
     enc = lambda name: [c for c in train["calls"] + models["calls"] if c["kernel"] == name]
-    qcalls = q8["calls"] + q4["calls"] + dist["calls"] + sharded["calls"]
+    qcalls = (q8["calls"] + q4["calls"] + main_res["bulk"]["calls"] + q8["bulk"]["calls"]
+              + dist["calls"] + sharded["calls"])
     by = lambda name, path=None: [c for c in qcalls if c["kernel"] == name and (path is None or c["path"] == path)]
     cfg = CONFIG.lider
     counts, timed = main_res["build_launches"], main_res["build_timed"]
+    build_calls = main_res["build_shapes"] + hash_calls
     kernels = [
         # fused_verify: the float main path (routing + in-cluster per batch).
-        entry("fused_verify", f32_calls + by("fused_verify") + [serve["rescore_call"]]
+        entry("fused_verify", f32_calls + by("fused_verify") + [tiers["rescore_call"]]
               + enc("fused_verify"), main_res["launches"][0], f32_calls[:2]),
         # sketch_prefilter: the Q4-sk path (one call per batch).
         entry("sketch_prefilter", by("sketch_prefilter"),

@@ -4,8 +4,9 @@ syncs that bound them, in turns, each in a fresh process:
 
     python3 scripts/ab_distributed.py
 
-Each turn builds the main path's corpus, queries and float32 centroids at
-full ``lider-msmarco`` width (seed 0), then runs ``chip_smoke.py``'s
+Each turn builds the distributed phase's corpus (``chip_smoke.SMALL_N``
+passages), queries and float32 centroids at full ``lider-msmarco`` width
+(seed 0), then runs ``chip_smoke.py``'s
 distributed phase alone: four gloo ranks on the card, every point on the
 2x2 grid, F32 on the 4x1 grid, the sharded Lloyd step, a one-rank NCCL
 world, with every gate of the phase. The turns go on, off, off, on. "on"
@@ -50,7 +51,7 @@ def turn() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     cs.phase_build()
-    corpus = synthetic.retrieval_corpus(cs.SEED, CONFIG.corpus_size, CONFIG.dim, device=dev)
+    corpus = synthetic.retrieval_corpus(cs.SEED, cs.SMALL_N, CONFIG.dim, device=dev)
     queries, _ = synthetic.retrieval_queries(cs.SEED + 1, corpus, cs.N_BATCHES * cs.BATCH)
     p = lider.build_lider(cs.SEED, corpus, CONFIG.lider, device=dev)
     gt = flat_search(corpus, queries, k=CONFIG.k)

@@ -13,7 +13,8 @@ imports are relative), so its own wrappers launch its own
 Python error. The verification calls are recorded from one batch of 256
 queries on each operating point of ``chip_smoke.py`` (F32 on the float32
 index, Q8 and Q8-cm on the int8 index, Q4-sk and Q4-sk-cm on the int4
-index; the ``lider-msmarco`` configuration at full width, seed 0); the
+index; the ``lider-msmarco`` configuration at full width on
+``chip_smoke.SMALL_N`` passages, the size it was made for, seed 0); the
 ``kmeans_assign`` call from the float32 build's first k-means step; the
 ``lsh_hash`` calls from the same build's first bank-fit chunk and its
 centroid fit, and from the F32 batch's two query hashes. Each call is timed
@@ -208,7 +209,7 @@ def main() -> int:
     build.build_all([*SOURCES, *BUILD])
     other = load_other(Path(sys.argv[1]).resolve())
     cfg, k = CONFIG.lider, CONFIG.k
-    corpus = synthetic.retrieval_corpus(cs.SEED, CONFIG.corpus_size, CONFIG.dim, device=dev)
+    corpus = synthetic.retrieval_corpus(cs.SEED, cs.SMALL_N, CONFIG.dim, device=dev)
     queries, _ = synthetic.retrieval_queries(cs.SEED + 1, corpus, cs.BATCH)
     build_calls, roles = [], set()
 

@@ -2,17 +2,17 @@
 corpus of 768-d passage embeddings (paper Sec. 7.2.1 settings: c=1024,
 c0=20, H=10, W_c=10, W_i=5).
 
-The port's copy of the JAX package's ``configs/lider_msmarco.py`` values,
-with two cuts:
+The port's copy of the JAX package's ``configs/lider_msmarco.py`` values
+at the reference's own size, 8,847,360 passages, with one cut, forced:
 
-- ``corpus_size`` is 1,048,576 passages, not 8,847,360. This is the size
-  chosen for the first slice of the port, not one that memory forces: the
-  float32 build at 1M peaks at 12.33 GiB on an 80 GB H100 (``chip_smoke.py``'s
-  main phase), so a larger corpus
-  would fit (at 8.8M the f32 corpus alone is 27 GB and an f32 bank at
-  capacity 12,288 another 38.6 GB);
-- ``capacity=None`` (the largest cluster, no drops) replaces 12,288, which
-  was sized for 8.8M passages.
+- ``capacity=None`` (the largest cluster padded to ``pad_multiple``, no
+  drops) replaces 12,288. After the 20 Lloyd steps on this corpus the
+  largest cluster holds 12,769 passages (``chip_smoke.py``'s main phase on
+  an H100, which checks the rest of this sentence on every run), so a
+  capacity of 12,288 drops 1,430 passages from 6 clusters and the build
+  raises ``CapacityOverflowError``, as the reference's does. ``allow_drops``
+  stays False: a passage that cannot be found is a different result.
+  ``Lp`` is 12,776.
 
 ``QUANTIZED`` holds the device-tier quantized operating points searched on
 the same corpus: the JAX package's own values (``LiderConfig.rescore_factor``
@@ -35,6 +35,10 @@ other 20% in 4 batches by the exact route, layer 1 frozen), then a delete
 of 5% of the ids, drawn from the seed, with eager compaction of every
 touched cluster. (That benchmark deletes the first 1% of the ids; 5% drawn
 at random touches every cluster.)
+
+``chip_smoke.py`` runs ``SERVING``'s engine loops and ``LIFECYCLE`` on a
+1,048,576-passage corpus, where they ran before the cell took its full
+size; each prints the time, disk or memory the full size would take.
 
 ``ARCH`` is the registry's entry (``configs.registry``): the JAX package's
 ``lider-msmarco`` architecture, with its values uncut (8,847,360 passages,
@@ -75,7 +79,7 @@ CONFIG = RetrievalConfig(
         prune_margin=None,
         refine=False,
     ),
-    corpus_size=1_048_576,
+    corpus_size=8_847_360,
     dim=768,
     k=100,
     batch=256,
@@ -190,6 +194,7 @@ ARCH = ArchSpec(
 
 # Cuts from the reference configuration, in the order above.
 REDUCED = (
-    "corpus_size 8,847,360 -> 1,048,576 (the first slice's size; memory does not force it)",
-    "capacity 12,288 -> None (largest cluster; 12,288 was sized for 8.8M passages)",
+    "capacity 12,288 -> None (Lp 12,776): forced, the largest cluster after the 20 Lloyd steps "
+    "holds 12,769 passages (chip_smoke.py's main phase on the card), so 12,288 would drop 1,430 "
+    "passages from 6 clusters and the build raises CapacityOverflowError as the reference's does",
 )

@@ -16,10 +16,11 @@ Quantized storage (int8 / int4) adds three tables:
     rescore_embs (c, Lp, d) float32  the raw rows, for the exact rescore
     sketches     (c, Lp, w) int32    1-bit sign sketches, w = ceil(d/32) words
 
-Build: assign -> pack (capacity slots) -> store -> hash + sort + fit for all
-clusters, batched over clusters (:func:`refit_clusters`) in fixed-size
-chunks (:func:`fit_chunks`) that bound the temporaries and give every fit
-one shape. The fit hashes the rows as the first pass scores them: the
+Build: assign -> pack (capacity slots) + store, a range of clusters at a
+time (:func:`pack_bank`), -> hash + sort + fit for all clusters, batched
+over clusters (:func:`refit_clusters`) in fixed-size chunks
+(:func:`fit_chunks`) that bound the temporaries and give every fit one
+shape. The fit hashes the rows as the first pass scores them: the
 dequantized codes of a quantized bank. :func:`grow_bank` widens the slot
 axis for ``core.update``.
 
@@ -53,7 +54,52 @@ _FLOAT_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _host(t, dtype) -> torch.Tensor:
     """``t`` (a tensor on any device, or an array) as a contiguous CPU
     tensor of ``dtype``."""
-    return torch.as_tensor(t).to(device="cpu", dtype=dtype).contiguous()
+    t = torch.as_tensor(t)
+    if t.device.type == "cuda":
+        t = t.to(dtype)
+        return copy_through_pinned(torch.empty(t.shape, dtype=dtype), t)
+    return t.to(dtype=dtype).contiguous()
+
+
+# Bytes of the pinned buffer that :func:`copy_through_pinned` crosses
+# through, a chunk at a time.
+_STAGING_BYTES = 1 << 28
+
+
+def pinned_buffer(n_bytes: int) -> torch.Tensor:
+    """A pinned host buffer of ``n_bytes`` bytes for :func:`copy_through_pinned`."""
+    return torch.empty((n_bytes,), dtype=torch.uint8, pin_memory=True)
+
+
+def copy_through_pinned(dst: torch.Tensor, src: torch.Tensor, buf: torch.Tensor | None = None) -> torch.Tensor:
+    """``dst.copy_(src)`` between the card and host memory, by chunks of
+    the leading axis through the pinned buffer ``buf`` (:func:`pinned_buffer`,
+    at least one row of ``src``); returns ``dst``. Each chunk is copied
+    synchronously, so no pageable copy of the whole tensor is staged at
+    once. Without ``buf``, a tensor over ``_STAGING_BYTES`` gets one for the
+    call, and a smaller or 0-d tensor copies whole."""
+    row = src[0].numel() * src.element_size() if src.dim() else 0
+    if buf is None:
+        if src.dim() == 0 or src.numel() * src.element_size() <= _STAGING_BYTES:
+            return dst.copy_(src)
+        buf = pinned_buffer(max(row, _STAGING_BYTES // row * row))
+    rows = buf.numel() // row
+    for s in range(0, src.shape[0], rows):
+        n = min(rows, src.shape[0] - s)
+        b = buf[: n * row].view(src.dtype).view(n, *src.shape[1:])
+        b.copy_(src[s : s + n])
+        dst[s : s + n].copy_(b)
+    return dst
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: a CPU tensor goes to the card through
+    :func:`copy_through_pinned`."""
+    if t.device == device:
+        return t
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return copy_through_pinned(torch.empty(t.shape, dtype=t.dtype, device=device), t.contiguous())
 
 
 class EmbStore:
@@ -435,31 +481,90 @@ def gather_cluster_rows(embs: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-def _by_chunks(fn, x: torch.Tensor, chunk: int = _FIT_CHUNK):
-    """A row-local ``fn`` over ``x`` in chunks of its leading axis, so its
-    float temporaries stay a chunk in size; outputs concatenate."""
-    parts = [fn(x[s : s + chunk]) for s in range(0, x.shape[0], chunk)]
-    if isinstance(parts[0], tuple):
-        return tuple(torch.cat(p) for p in zip(*parts))
-    return torch.cat(parts)
-
-
 def store_rows(raw_rows: torch.Tensor, storage_dtype: str):
     """Raw packed float rows -> ``(embs, emb_scales, rescore_embs, sketches)``.
 
     For int8 / int4 the raw rows are also kept as the float32 rescore table
     and sign-sketched; zero (padded) rows quantize to zero codes with scale
-    1.0 and sketch to zero words.
+    1.0 and sketch to zero words. Every step is row-local: a build calls this
+    a :func:`pack_chunks` range at a time, which bounds its temporaries.
     """
     if storage_dtype in QUANTIZED_DTYPES:
         qfn = quant.quantize_rows if storage_dtype == "int8" else quant.quantize_rows_int4
-        codes, scales = _by_chunks(qfn, raw_rows)
-        return codes, scales, raw_rows, _by_chunks(quant.sketch_rows, raw_rows)
+        codes, scales = qfn(raw_rows)
+        return codes, scales, raw_rows, quant.sketch_rows(raw_rows)
     if storage_dtype not in _FLOAT_STORAGE:
         raise ValueError(
             f"storage_dtype must be one of {STORAGE_DTYPES}, got {storage_dtype!r}"
         )
     return raw_rows.to(_FLOAT_STORAGE[storage_dtype]), None, None, None
+
+
+# Slots :func:`pack_bank` gathers, stores and sketches at a time: bounds
+# the pack's temporaries (a chunk of float32 rows and the quantizer's and
+# the sketch's wider copies of it) whatever the capacity.
+_PACK_ROWS = 1 << 16
+
+
+def pack_chunks(n_clusters: int, capacity: int) -> list[tuple[int, int]]:
+    """``(start, stop)`` ranges of whole clusters, ``_PACK_ROWS`` slots
+    each at most (one cluster at least)."""
+    per = max(1, _PACK_ROWS // capacity)
+    return [(s, min(s + per, n_clusters)) for s in range(0, n_clusters, per)]
+
+
+def pack_bank(embs: torch.Tensor, gids: torch.Tensor, storage_dtype: str, rescore_tier: str = "device"):
+    """Pack -> store for every cluster of ``gids`` ``(c, Lp)``, one
+    :func:`pack_chunks` range at a time: :func:`store_rows` of
+    :func:`gather_cluster_rows`, bit for bit (each step is row-local), with
+    the rescore table a CPU tensor on the host tier.
+
+    The outputs are allocated whole on ``gids``'s device and filled chunk by
+    chunk, so a float32 table exists only where it is a leaf: the stored
+    rows of a float bank, or the device tier's rescore table. The host
+    tier's table is filled in host memory, a chunk at a time. ``embs`` may
+    live in host memory (a CPU corpus given to a build on the card): each
+    chunk's rows are then gathered there and copied to the card. On the
+    card, host memory is crossed through one pinned staging buffer.
+    """
+    quantized = storage_dtype in QUANTIZED_DTYPES
+    if not quantized and storage_dtype not in _FLOAT_STORAGE:
+        raise ValueError(f"storage_dtype must be one of {STORAGE_DTYPES}, got {storage_dtype!r}")
+    device = gids.device
+    c, lp = gids.shape
+    d = embs.shape[-1]
+    chunks = pack_chunks(c, lp)
+    staging = None
+    if device.type == "cuda" and (embs.device != device or (quantized and rescore_tier == "host")):
+        staging = pinned_buffer((chunks[0][1] - chunks[0][0]) * lp * d * 4)
+    if quantized:
+        width = d // 2 if storage_dtype == "int4" else d
+        stored = torch.empty((c, lp, width), dtype=torch.int8, device=device)
+        scales = torch.empty((c, lp), dtype=torch.float32, device=device)
+        sketches = torch.empty((c, lp, quant.sketch_width(d)), dtype=torch.int32, device=device)
+        rescore = torch.empty((c, lp, d), device=device if rescore_tier == "device" else "cpu")
+    else:
+        stored = torch.empty((c, lp, d), dtype=_FLOAT_STORAGE[storage_dtype], device=device)
+        scales = rescore = sketches = None
+    for s, e in chunks:
+        g = gids[s:e]
+        if embs.device == device:
+            raw = gather_cluster_rows(embs, g)
+        else:
+            idx = g.reshape(-1).to(embs.device, torch.int64).clamp(min=0)
+            host = embs[idx] if staging is None else torch.index_select(
+                embs, 0, idx, out=staging[: idx.shape[0] * d * 4].view(torch.float32).view(-1, d))
+            raw = host.view(e - s, lp, d).to(device)  # synchronous: the buffer is reused
+            raw.mul_((g >= 0)[..., None].to(raw.dtype))
+        st, sc, rs, sk = store_rows(raw, storage_dtype)
+        stored[s:e] = st
+        if quantized:
+            scales[s:e], sketches[s:e] = sc, sk
+            if rescore.device == device:
+                rescore[s:e] = rs
+            else:
+                copy_through_pinned(rescore[s:e], rs, staging)
+    return stored, scales, rescore, sketches
 
 
 def set_rescore_tier(bank: ClusterBank, tier: str) -> ClusterBank:
@@ -483,7 +588,7 @@ def set_rescore_tier(bank: ClusterBank, tier: str) -> ClusterBank:
     if tier == "host":
         store = EmbStore(bank.rescore_embs, gids=bank.gids)
         return dataclasses.replace(bank, rescore_embs=None, store=store)
-    rescore = bank.store.rescore.to(bank.embs.device)
+    rescore = to_device(bank.store.rescore, bank.embs.device)
     return dataclasses.replace(bank, rescore_embs=rescore, store=None)
 
 
@@ -514,14 +619,18 @@ def build_bank(
     storage_dtype: str = "float32",
     rescore_tier: str = "device",
 ) -> tuple[ClusterBank, int]:
-    """Stage-3 build: pack -> store -> hash/sort -> fit, all clusters.
+    """Stage-3 build: pack -> store -> hash/sort -> fit, all clusters, on
+    ``assignment``'s device.
 
     Returns ``(bank, n_dropped)``; a lossy pack raises
     :class:`CapacityOverflowError` unless ``allow_drops=True``.
 
-    ``rescore_tier="host"`` (quantized storage only) builds the rescore
-    table on the device as the device tier does, then moves it to an
-    :class:`EmbStore`: the build's peak device memory is the device tier's.
+    The pack (:func:`pack_bank`) goes a chunk of clusters at a time: the
+    float32 table is on the device only where it is a leaf, and
+    ``rescore_tier="host"`` (quantized storage only) fills the host
+    :class:`EmbStore` chunk by chunk, so that tier's build never holds the
+    table on the device. ``embs`` may live in host memory, each chunk's rows
+    then gathered there.
     """
     if rescore_tier not in RESCORE_TIERS:
         raise ValueError(f"rescore_tier must be one of {RESCORE_TIERS}, got {rescore_tier!r}")
@@ -530,25 +639,26 @@ def build_bank(
             f"rescore_tier='host' requires quantized storage ({QUANTIZED_DTYPES}): "
             "float banks have no rescore side table to move off-device"
         )
+    device = assignment.device
     raw_sizes = torch.bincount(assignment.to(torch.int64), minlength=n_clusters)
     n_dropped = int(torch.clamp(raw_sizes - capacity, min=0).sum())
     if n_dropped and not allow_drops:
         raise CapacityOverflowError(n_dropped, capacity)
     gids, sizes = clustering.group_by_cluster(assignment, n_clusters, capacity)
-    stored, emb_scales, rescore_embs, sketches = store_rows(
-        gather_cluster_rows(embs, gids), storage_dtype
-    )
+    stored, emb_scales, rescore, sketches = pack_bank(embs, gids, storage_dtype, rescore_tier)
     lsh = lsh_lib.make_lsh(generator, embs.shape[-1], n_arrays, key_len)
     code_dtype = storage_dtype if storage_dtype in QUANTIZED_DTYPES else "int8"
     sorted_keys, sorted_pos, resc, r = fit_clusters(
         lsh, stored, gids >= 0, n_leaves=n_leaves, scales=emb_scales, code_dtype=code_dtype
     )
+    host = rescore is not None and rescore.device != device
     bank = ClusterBank(
         lsh=lsh, rescale=resc, rmi=r, sorted_keys=sorted_keys,
         sorted_pos=sorted_pos, embs=stored, gids=gids, sizes=sizes,
-        tombstones=torch.zeros((n_clusters,), dtype=torch.int32, device=embs.device),
-        next_gid=torch.tensor(embs.shape[0], dtype=torch.int32, device=embs.device),
-        emb_scales=emb_scales, rescore_embs=rescore_embs, sketches=sketches,
+        tombstones=torch.zeros((n_clusters,), dtype=torch.int32, device=device),
+        next_gid=torch.tensor(embs.shape[0], dtype=torch.int32, device=device),
+        emb_scales=emb_scales, rescore_embs=None if host else rescore, sketches=sketches,
+        store=EmbStore(rescore, gids=gids) if host else None,
         code_dtype=code_dtype,
     )
     return set_rescore_tier(bank, rescore_tier), n_dropped

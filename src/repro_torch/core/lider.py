@@ -166,15 +166,23 @@ def build_lider(
     ``device=None`` means the CUDA device, and raises when there is none;
     pass ``device="cpu"`` for the CPU. ``seed`` seeds three generators on
     that device: k-means init, the centroid LSH and the in-cluster LSH.
+
+    A corpus in host memory (a numpy array, a CPU tensor) given to a build
+    on the card stays there: Stage 1 runs on a copy of it on the card,
+    freed before the pack, which gathers each chunk of clusters' rows on
+    the host (``bank.pack_bank``), so the corpus and the bank's tables are
+    never on the card together. The index is the same.
     """
     device = resolve_device(device)
-    embs = torch.as_tensor(embs, dtype=torch.float32, device=device)
+    embs = torch.as_tensor(embs)
+    embs = embs.to(torch.float32) if embs.device.type == "cpu" else embs.to(device, torch.float32)
     if centroids is not None:
         centroids = torch.as_tensor(centroids, dtype=torch.float32, device=device)
     n, _ = embs.shape
     c = config.n_clusters
 
-    km = assign_points(_generator(device, seed), embs, config, centroids=centroids)
+    km = assign_points(_generator(device, seed), bank_lib.to_device(embs, device), config,
+                       centroids=centroids)
     sizes = torch.bincount(km.assignment.to(torch.int64), minlength=c)
     cap = padded_capacity(int(sizes.max()), config.capacity, config.pad_multiple)
 

@@ -205,6 +205,15 @@ def test_synthetic_data_and_config_values():
               "key_len_centroid", "n_leaves", "n_leaves_centroid", "r0", "r0_centroid",
               "kmeans_iters", "storage_dtype", "refine", "prune_margin"):
         assert getattr(port.lider, f) == getattr(ref.lider, f), f
-    assert port.dim == ref.dim and port.k == ref.k and port.lider.capacity is None
+    assert port.dim == ref.dim and port.k == ref.k
     assert port.batch == jcfg.ARCH.shape("serve_online").dims["batch"]
-    assert port.corpus_size == 1_048_576 < ref.corpus_size
+    assert port.corpus_size == ref.corpus_size == 8_847_360
+    assert port.lider.n_clusters == ref.lider.n_clusters and port.lider.allow_drops is False
+    # The capacity is the reference's unless the card measured a larger
+    # cluster: then it is None, and REDUCED names the cluster and the drops.
+    assert ref.capacity == 12_288
+    if port.lider.capacity is None:
+        (cut,) = [r for r in lider_msmarco.REDUCED if r.startswith("capacity 12,288 -> None")]
+        assert "largest cluster" in cut and "12,769" in cut and "drop 1,430" in cut
+    else:
+        assert port.lider.capacity == ref.capacity

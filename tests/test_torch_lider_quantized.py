@@ -196,6 +196,53 @@ def test_port_build_bank_matches_jax(storage_dtype, monkeypatch):
     np.testing.assert_array_equal(tb.gids.numpy(), np.asarray(jb.gids))
 
 
+@pytest.mark.parametrize("storage_dtype,tier", [
+    ("float32", "device"), ("int8", "device"), ("int8", "host"), ("int4", "device"), ("int4", "host"),
+])
+def test_chunked_build_matches_jax(storage_dtype, tier, tmp_path, monkeypatch):
+    """The build's pack by chunks of clusters (``bank.pack_bank``, chunks of
+    ``_PACK_ROWS`` slots that do not divide c) and the host tier's table
+    filled chunk by chunk, from a torch tensor, against the JAX package's
+    build from the same centroids and LSH projections: every leaf bit for
+    bit but the RMI fits, which sum in another order (within
+    ``tests/test_torch_core.py``'s RMI tolerance); and against the port's
+    pack in one chunk from an array, every leaf bit for bit. On the CPU the
+    corpus and the index share one device, so the pack's crossings of host
+    memory (the host gather and the pinned write-back) do not run here:
+    ``tests/test_torch_host_corpus.py`` holds them on the card."""
+    x = np.array(jsyn.retrieval_corpus(6, 1500, D))
+    cen = x[::150][:10]
+    kw = dict(n_clusters=10, n_probe=3, n_arrays=6, key_len=11, n_arrays_centroid=4,
+              key_len_centroid=5, n_leaves=5, n_leaves_centroid=4, storage_dtype=storage_dtype)
+    jp = jlider.build_lider(jax.random.PRNGKey(2), jnp.asarray(x), jlider.LiderConfig(**kw),
+                            centroids=jnp.asarray(cen))
+    jckpt.save_index(str(tmp_path), jp)
+    want = dict(checkpoint.index_leaves(checkpoint.load_index(str(tmp_path), device="cpu")))
+    proj = {(6, 11): jp.bank.lsh.projections, (4, 5): jp.centroid_cm.lsh.projections}
+    monkeypatch.setattr(
+        bank.lsh_lib, "make_lsh",
+        lambda g, dim, h, m: LSHParams(projections=torch.from_numpy(np.array(proj[h, m])),
+                                       n_arrays=h, key_len=m),
+    )
+    lp = jp.bank.capacity
+    cfg = lider.LiderConfig(**kw, rescore_tier=tier)
+    monkeypatch.setattr(bank, "_PACK_ROWS", 10 * lp)
+    whole = dict(checkpoint.index_leaves(lider.build_lider(0, x, cfg, centroids=cen, device="cpu")))
+    monkeypatch.setattr(bank, "_PACK_ROWS", 3 * lp + lp // 2)
+    assert [e - s for s, e in bank.pack_chunks(10, lp)] == [3, 3, 3, 1]
+    tp = lider.build_lider(0, torch.from_numpy(x), cfg, centroids=cen, device="cpu")
+    assert tp.bank.rescore_tier == tier and tp.bank.capacity == lp
+    got = dict(checkpoint.index_leaves(tp))
+    assert sorted(got) == sorted(want) == sorted(whole)
+    bits = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+    same = lambda a, b: a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+    assert [n for n in want if not same(got[n], whole[n])] == []
+    fits = [n for n in want if "__rmi__" in n]
+    assert [n for n in want if n not in fits and not same(got[n], want[n])] == []
+    for n in fits:
+        np.testing.assert_allclose(got[n].numpy(), want[n].numpy(), rtol=1e-4, atol=1e-3, err_msg=n)
+
+
 def test_quantized_core_model_search_matches_jax():
     """``search_core_model`` on an int8 table with an exact rescore, the
     standalone-model spelling of the quantized search."""
