@@ -20,7 +20,9 @@ per signature:
 A graph bakes in the addresses of the tensors it reads. Its key therefore
 holds, beside the signature, the address of every tensor it is bound to (the
 index's leaves, and any input registered with :func:`persistent`) and the
-caller's stream, so that two engines never replay one graph at once. A graph
+caller's stream, so that two engines never replay one graph at once, and
+whether tracing is on (``obs``: a graph captured with stage marks is never
+replayed untraced, nor the reverse); neither adds a signature. A graph
 dies with any tensor it is bound to (a weak reference), so a search on new
 leaves of the same shapes (an update, ``set_rescore_tier``, a replica's
 clone) captures anew and never reads a freed table; the signature stays
@@ -51,6 +53,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import obs
 from ..device import is_fake
 from ..kernels import launch
 
@@ -194,7 +197,7 @@ class _Graph:
         self._refs = [weakref.ref(t, die) for t in bound]
 
     def replay(self, inputs: list[torch.Tensor]):
-        with self.lock:
+        with obs.span("repro_torch.graphs.replay"), self.lock:
             for static, t in zip(self.static_inputs, inputs):
                 static.copy_(t, non_blocking=True)
             self.graph.replay()
@@ -324,7 +327,7 @@ class QueryPathEntry:
 
     def _graph_key(self, arguments: dict, stream) -> tuple[tuple, list, list]:
         """(key, tensors bound by address, inputs copied at each call)."""
-        parts, bound, copied = [stream], [], []
+        parts, bound, copied = [stream, obs.enabled()], [], []
 
         def bind(t):
             bound.append(_base(t))

@@ -40,6 +40,7 @@ import torch
 from . import bank as bank_lib
 from . import clustering, lsh as lsh_lib, rescale as rescale_lib, rmi as rmi_lib
 from .graphs import query_path_entry
+from .. import obs
 from ..device import resolve_device
 from ..kernels.ops import sketch_topk_op, verify_topk_grouped_op, verify_topk_op
 from ..kernels.schedule import _pad_pow2, build_cluster_schedule
@@ -390,6 +391,7 @@ def _verify_bank_rows(
         bank, flat_rows, out_rows, queries, kp=kp, sketch_factor=sketch_factor
     )
     # The body alone, as the JAX package inlines this stage here.
+    obs.mark("rescore", queries)
     out = _rescore_provisional.__wrapped__(bank.gids, bank.rescore_embs, prov_rows, queries, k=k)
     return out.ids, out.scores
 
@@ -425,8 +427,10 @@ def incluster_search(
             "rescore search) or provisional_rows + rescore_fetched_rows"
         )
     b, p = cids.shape
+    obs.mark("candidates", queries)
     flat_emb, gids = _bank_candidates(bank, queries, cids, k=k, r0=r0, refine=refine)
     kw = dict(k=k, rescore_factor=rescore_factor, sketch_factor=sketch_factor)
+    obs.mark("verify", queries)
     if merge:
         ids, sc = _verify_bank_rows(
             bank, flat_emb.reshape(b, -1), gids.reshape(b, -1), queries, **kw
@@ -454,7 +458,10 @@ def _search_lider_device(
     rescore_factor: int = 4,
     sketch_factor: int | None = None,
 ) -> TopK | tuple[TopK, torch.Tensor]:
-    """Search of a device-tier bank with the per-query schedule."""
+    """Search of a device-tier bank with the per-query schedule. With
+    tracing on, stage marks (``obs.mark``) open the route, candidates,
+    verify and (quantized banks) rescore stages, and close the search."""
+    obs.mark("route", queries)
     cids, pruned = _route_pruned(
         params, queries, n_probe=n_probe, r0_centroid=r0_centroid, prune_margin=prune_margin
     )
@@ -462,6 +469,7 @@ def _search_lider_device(
         params, queries, cids, k=k, r0=r0, refine=refine,
         rescore_factor=rescore_factor, sketch_factor=sketch_factor,
     )
+    obs.mark("end", queries)
     return (out, pruned) if with_stats else out
 
 

@@ -49,6 +49,15 @@ device's default stream, and one replica's wait would also wait for the
 other's batch. The engine's stream first waits for the caller's stream
 (the params were built there), and the caller's stream waits for the
 engine's on the way out; the answers are the same on any stream.
+
+With tracing on (``obs.enable``) the engine's shared steps are profiler
+spans, in the serial and the pipelined drain alike:
+``repro_torch.engine.submit``, ``.take`` (the batch popped from the
+scheduler), ``.stage`` (padded, filled and copied to the card), ``.search``
+(the search, or the staged first pass), ``.wait`` (the device) and
+``.record`` (answers copied to the host and routed, counters). The
+``EngineStats`` counters are always on; ``queue_wait_s`` sums the requests'
+waits from submit to the take that batched them.
 """
 from __future__ import annotations
 
@@ -64,7 +73,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from ..core import graphs
 from ..core import lider as lider_lib
 from ..core.baselines import flat_search, ivfpq_search, mplsh_search, pq_search, sklsh_search
@@ -129,9 +138,11 @@ class EngineStats:
     # the grouped-kernel steps that served them (the block_q tuner's input).
     n_sched_pairs: int = 0
     n_sched_steps: int = 0
-    sharing_trace: collections.deque = dataclasses.field(
-        default_factory=lambda: collections.deque(maxlen=256)
-    )
+    # Seconds requests waited in the engine's queue, from their submit to
+    # the take that put them in a batch, summed over the requests taken
+    # (cache hits excluded), and the number of requests that sum covers.
+    queue_wait_s: float = 0.0
+    n_queue_waits: int = 0
 
     @property
     def aqt(self) -> float:
@@ -716,9 +727,10 @@ class RetrievalEngine:
     def _search(self, q: torch.Tensor):
         point = self._rung_point()
         args = (q, self.k) if self.params is None else (self.params, q, self.k)
-        if point is not None:
-            return self.search_fn(*args, point=point)
-        return self.search_fn(*args)
+        with obs.span("repro_torch.engine.search"):
+            if point is not None:
+                return self.search_fn(*args, point=point)
+            return self.search_fn(*args)
 
     @staticmethod
     def _split_out(out) -> tuple[TopK, object]:
@@ -753,8 +765,9 @@ class RetrievalEngine:
     def _wait(self) -> None:
         """Wait until the device has finished the work given so far (no
         copy to the host)."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with obs.span("repro_torch.engine.wait"):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
 
     def warmup(self, *, warm_ladder: bool = True):
         """Run every reachable query path once before serving: each batch
@@ -818,22 +831,23 @@ class RetrievalEngine:
         return len(self.scheduler)
 
     def submit(self, query, *, tenant: str = DEFAULT_TENANT) -> int:
-        rid = self._next_id
-        self._next_id += 1
-        vec = np.asarray(query, np.float32)
-        req = Request(
-            rid=rid,
-            query=vec,
-            t_submit=time.perf_counter(),
-            tenant=tenant,
-            fp=self.scheduler.fingerprint(vec),
-        )
-        reason = self.scheduler.admit(req)
-        if reason is not None:
-            # Admission control: refuse now with a structured answer.
-            self.stats.n_shed += 1
-            self._put_result(rid, Shed(rid=rid, reason=reason))
-        return rid
+        with obs.span("repro_torch.engine.submit"):
+            rid = self._next_id
+            self._next_id += 1
+            vec = np.asarray(query, np.float32)
+            req = Request(
+                rid=rid,
+                query=vec,
+                t_submit=time.perf_counter(),
+                tenant=tenant,
+                fp=self.scheduler.fingerprint(vec),
+            )
+            reason = self.scheduler.admit(req)
+            if reason is not None:
+                # Admission control: refuse now with a structured answer.
+                self.stats.n_shed += 1
+                self._put_result(rid, Shed(rid=rid, reason=reason))
+            return rid
 
     def apply_updates(self, update_fn: Callable) -> bool:
         """Transactionally swap the served params to ``update_fn(params)``
@@ -929,26 +943,32 @@ class RetrievalEngine:
 
     def _take_batch(self, bs: int) -> list[Request]:
         """Pop up to ``bs`` requests (weighted-fair across tenants),
-        answering cache hits inline and topping the batch back up."""
-        chunk: list[Request] = []
-        cache = self.scheduler.cache
-        while len(chunk) < bs:
-            reqs = self.scheduler.take(bs - len(chunk))
-            if not reqs:
-                break
-            for req in reqs:
-                hit = (
-                    cache.get(req.fp, (self.k, self.generation, self.rung))
-                    if cache is not None and req.fp is not None
-                    else None
-                )
-                if hit is not None:
-                    self._answer_cached(req, hit)
-                else:
-                    if cache is not None:
-                        self.stats.n_cache_misses += 1
-                    chunk.append(req)
-        return chunk
+        answering cache hits inline and topping the batch back up. The
+        batch's requests add their wait since submit to ``queue_wait_s``."""
+        with obs.span("repro_torch.engine.take"):
+            chunk: list[Request] = []
+            cache = self.scheduler.cache
+            while len(chunk) < bs:
+                reqs = self.scheduler.take(bs - len(chunk))
+                if not reqs:
+                    break
+                for req in reqs:
+                    hit = (
+                        cache.get(req.fp, (self.k, self.generation, self.rung))
+                        if cache is not None and req.fp is not None
+                        else None
+                    )
+                    if hit is not None:
+                        self._answer_cached(req, hit)
+                    else:
+                        if cache is not None:
+                            self.stats.n_cache_misses += 1
+                        chunk.append(req)
+            if chunk:
+                now = time.perf_counter()
+                self.stats.queue_wait_s += sum(now - req.t_submit for req in chunk)
+                self.stats.n_queue_waits += len(chunk)
+            return chunk
 
     def _answer_cached(self, req: Request, hit) -> None:
         """Serve ``req`` from the result cache: the same bytes, generation
@@ -982,14 +1002,15 @@ class RetrievalEngine:
         """The padded (bs, dim) batch on the device, a copy of the engine's
         buffer (refilled for the next batch while this one may still be in
         flight); through ``slot``'s pinned buffer when given."""
-        q = self._batch_buf[:bs]
-        for i, req in enumerate(chunk):
-            q[i] = req.query
-        if len(chunk) < bs:  # zero stale rows from the last batch
-            q[len(chunk):] = 0.0
-        if slot is not None:
-            return slot.queries_to_device(q)
-        return torch.tensor(q, device=self.device)
+        with obs.span("repro_torch.engine.stage"):
+            q = self._batch_buf[:bs]
+            for i, req in enumerate(chunk):
+                q[i] = req.query
+            if len(chunk) < bs:  # zero stale rows from the last batch
+                q[len(chunk):] = 0.0
+            if slot is not None:
+                return slot.queries_to_device(q)
+            return torch.tensor(q, device=self.device)
 
     def _put_result(self, rid: int, value) -> None:
         """Insert one answer, enforcing the results-map bound."""
@@ -1009,43 +1030,44 @@ class RetrievalEngine:
 
         ``bs``/``rung`` are what the batch was dispatched with (the
         pipelined drain may step the live rung before it completes)."""
-        bs = self.batch_size if bs is None else bs
-        rung = self.rung if rung is None else rung
-        faults.fire(faults.D2H)  # "delay" here models a slow device-to-host copy
-        ids = _numpy(out.ids)
-        scores = _numpy(out.scores)
-        self.stats.n_queries += n
-        self.stats.n_batches += 1
-        self.stats.n_padded += bs - n
-        self.stats.batch_size_trace.append(bs)
-        if degraded:
-            self.stats.n_degraded += n
-        if pruned is not None:
-            # Only the n real queries count; padded rows route too.
-            pmask = _numpy(pruned)[:n]
-            self.stats.n_probes_total += int(pmask.size)
-            self.stats.n_probes_pruned += int(pmask.sum())
-            self.stats.batch_pruned_fraction.append(float(pmask.sum()) / max(pmask.size, 1))
-        now = time.perf_counter()
-        if t_dispatch is not None:
-            self.stats.batch_latency_s.append(now - t_dispatch)
-        deadline = self.policy.deadline_s
-        cache = self.scheduler.cache
-        for i, req in enumerate(chunk):
-            latency = now - req.t_submit
-            self.stats.recent_latency_s.append(latency)
-            if deadline is not None and latency > deadline:
-                self.stats.n_deadline_misses += 1
-            self._put_result(
-                req.rid,
-                QueryResult(
-                    ids[i], scores[i], degraded=degraded, rung=rung,
-                    latency_s=latency, generation=self.generation,
-                ),
-            )
-            # Only full-fidelity answers are cacheable.
-            if cache is not None and req.fp is not None and not degraded:
-                cache.put(req.fp, (self.k, self.generation, rung), ids[i], scores[i])
+        with obs.span("repro_torch.engine.record"):
+            bs = self.batch_size if bs is None else bs
+            rung = self.rung if rung is None else rung
+            faults.fire(faults.D2H)  # "delay" here models a slow device-to-host copy
+            ids = _numpy(out.ids)
+            scores = _numpy(out.scores)
+            self.stats.n_queries += n
+            self.stats.n_batches += 1
+            self.stats.n_padded += bs - n
+            self.stats.batch_size_trace.append(bs)
+            if degraded:
+                self.stats.n_degraded += n
+            if pruned is not None:
+                # Only the n real queries count; padded rows route too.
+                pmask = _numpy(pruned)[:n]
+                self.stats.n_probes_total += int(pmask.size)
+                self.stats.n_probes_pruned += int(pmask.sum())
+                self.stats.batch_pruned_fraction.append(float(pmask.sum()) / max(pmask.size, 1))
+            now = time.perf_counter()
+            if t_dispatch is not None:
+                self.stats.batch_latency_s.append(now - t_dispatch)
+            deadline = self.policy.deadline_s
+            cache = self.scheduler.cache
+            for i, req in enumerate(chunk):
+                latency = now - req.t_submit
+                self.stats.recent_latency_s.append(latency)
+                if deadline is not None and latency > deadline:
+                    self.stats.n_deadline_misses += 1
+                self._put_result(
+                    req.rid,
+                    QueryResult(
+                        ids[i], scores[i], degraded=degraded, rung=rung,
+                        latency_s=latency, generation=self.generation,
+                    ),
+                )
+                # Only full-fidelity answers are cacheable.
+                if cache is not None and req.fp is not None and not degraded:
+                    cache.put(req.fp, (self.k, self.generation, rung), ids[i], scores[i])
 
     def _staged_host_serving(self) -> bool:
         """Host-tier LIDER params and a backend with the staged search."""
@@ -1213,14 +1235,15 @@ class RetrievalEngine:
         q = self._device_batch(chunk, bs, slot)
         t0 = time.perf_counter()
         stats_out = {} if self._auto_block_q is not None else None
-        if stats_out is not None:
-            prov, pruned = self.search_fn.host_stage1(
-                self.params, q, self.k, point=self._effective_point(), stats_out=stats_out,
-            )
-        else:
-            prov, pruned = self.search_fn.host_stage1(
-                self.params, q, self.k, point=self._rung_point()
-            )
+        with obs.span("repro_torch.engine.search"):
+            if stats_out is not None:
+                prov, pruned = self.search_fn.host_stage1(
+                    self.params, q, self.k, point=self._effective_point(), stats_out=stats_out,
+                )
+            else:
+                prov, pruned = self.search_fn.host_stage1(
+                    self.params, q, self.k, point=self._rung_point()
+                )
         rows = slot.rows_to_host(prov.ids)
         self.scheduler.observe_service(bs, time.perf_counter() - t0)
         if stats_out:
@@ -1228,7 +1251,6 @@ class RetrievalEngine:
             # next dispatch from the window of probe distributions.
             self.stats.n_sched_pairs += stats_out["n_pairs"]
             self.stats.n_sched_steps += stats_out["n_steps"]
-            self.stats.sharing_trace.append(stats_out["n_pairs"] / max(stats_out["n_steps"], 1))
             self._probe_counts.append(stats_out["cluster_counts"])
             self._auto_block_q = pick_block_q(self._probe_counts, self.block_q_ladder)
         return _PendingBatch(

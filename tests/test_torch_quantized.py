@@ -242,7 +242,8 @@ def test_kernel_sources_name_what_they_replace():
         assert f'extern "C" int {name}_launch' in src
         assert '#include "topk.cuh"' in src
     assert build.sources() == [
-        "fused_verify", "fused_verify_grouped", "kmeans_assign", "lsh_hash", "sketch_prefilter"
+        "fused_verify", "fused_verify_grouped", "kmeans_assign", "lsh_hash", "marks",
+        "sketch_prefilter",
     ]
     # The shared header is part of every library's hash.
     assert build.library_path("sketch_prefilter") != build.library_path("fused_verify")
